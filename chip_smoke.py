@@ -5,11 +5,21 @@
 
 Run from the root of a checkout on a machine with an NVIDIA card (sm_90a,
 nvcc under CUDA_HOME or /usr/local/cuda).  It builds the port's CUDA
-kernels from ``dips_tpu_torch/csrc``, holds each kernel against its plain
-PyTorch twin at the main path's shapes, runs ``dips_tpu_torch.DiPsEngine``
-end to end at 1080p (COLORIZE and ABSDIFF, refresh marker, snapshot,
-checkpoint resume), runs ``run_dips_on_file`` on a 1080p clip when cv2 is
-present, and times kernels, plain twins and the engine with CUDA events.
+kernels from ``dips_tpu_torch/csrc`` and then drives two paths:
+
+* one stream: each s = 1 kernel against its plain PyTorch twin at the main
+  path's shapes, ``dips_tpu_torch.DiPsEngine`` end to end at 1080p
+  (COLORIZE and ABSDIFF, refresh marker, snapshot, checkpoint resume), and
+  ``run_dips_on_file`` on a 1080p clip when cv2 is present;
+* the fleet: each stacked kernel against its plain twin at 1080p x 8
+  streams and 480p x 3 streams (mixed seeds and offsets, an all-invalid
+  stream, contrasting adjacent streams), ``MultiStreamEngine`` at 1080p x 8
+  streams (refresh marker, per-stream snapshot, a stream isolated by a
+  wrong-shape frame and revived, checkpoint resume) held stream by stream
+  against single-stream engines, and ``run_dips_on_files`` on three 1080p
+  clips when cv2 is present;
+
+then times kernels, plain twins and both engines with CUDA events.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
@@ -27,6 +37,7 @@ import numpy as np
 
 H1080, W1080 = 1080, 1920
 B = 16
+FLEET = 8  # streams of the fleet phases (BASELINE.json's fleet config)
 RAW_TOL = dict(heat_atol=1e-6, stats_rtol=1e-6)
 MEDIAN_TOL = dict(lsb=1, flip_frac=1e-4, heat_atol=1e-6, stats_rtol=1e-5)
 
@@ -116,12 +127,15 @@ def _max_err(a, b):
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
+def _host64(x):
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+
+
 def _check_stats(tag, got, exp, rtol):
     """Counts and maxima exact; the two sums within rtol of their own
     magnitude, or of the mean |diff| (which bounds the rounding error of a
-    sum that cancels)."""
-    g, e = got.cpu().numpy().astype(np.float64), \
-        exp.cpu().numpy().astype(np.float64)
+    sum that cancels).  Tensors or arrays (n, 4)."""
+    g, e = _host64(got), _host64(exp)
     if not np.array_equal(g[:, 2:], e[:, 2:]):
         raise AssertionError(f"{tag}: counts/max differ")
     scale = np.maximum(np.abs(e[:, :2]), np.abs(e[:, 1:2]))
@@ -285,8 +299,10 @@ def phase_main_path(card):
     _, out, stats = run_engine(colorize, frames_for, n, snapshot_at=64)
     _, aout, astats = run_engine(absdiff, frames_for, n, snapshot_at=64)
     torch.cuda.synchronize()
-    launches = cuda_fused.launch_counts()
-    log(f"[main] launches during the engine runs: {launches}")
+    launches = {name: k for name, k in cuda_fused.launch_counts().items()
+                if name in ("absdiff_step_ring", "batch_step_ring")}
+    log(f"[main] launches during the engine runs: "
+        f"{cuda_fused.launch_counts()}")
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -396,7 +412,341 @@ def phase_main_path(card):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times on this card
+# phase 5: each stacked kernel against its plain twin, s streams per launch
+# ---------------------------------------------------------------------------
+
+def stacked_frames(n, h, w, s, seed, dev):
+    """(n, 3, s*Hp, Wp) u8 on the card: even streams a moving square over
+    seeded noise, odd streams white with a moving dark square, so a median
+    tap or a mask that crosses a stream edge changes a result."""
+    import torch
+    from dips_tpu_torch.ops.reference import pad_geometry
+    hp, wp = pad_geometry(h, w)
+    raw = torch.zeros((n, 3, s * hp, wp), dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(seed)
+    side = max(8, h // 10)
+    for si in range(s):
+        r0 = si * hp
+        if si % 2 == 0:
+            raw[:, :, r0:r0 + h, :w] = torch.from_numpy(
+                rng.integers(0, 256, (3, h, w), np.uint8)).to(dev)
+            color = (250, 30, 30)
+        else:
+            raw[:, :, r0:r0 + h, :w] = 255
+            color = (40, 40, 40)
+        col = torch.tensor(color, dtype=torch.uint8, device=dev)[:, None,
+                                                                 None]
+        for i in range(n):
+            y = (7 * i + 11 * si) % (h - side)
+            x = (13 * i + 29 * si) % (w - side)
+            raw[i, :, r0 + y:r0 + y + side, x:x + side] = col
+    return raw
+
+
+def _stacked_batches(s, t):
+    """Per-stream arguments of two consecutive batches: captures on
+    different frames per stream, mixed seeds and ring offsets, the last
+    stream all-invalid in the first batch, a partial second batch."""
+    f1, f2 = np.zeros((s, B), bool), np.zeros((s, B), bool)
+    v1, v2 = np.ones((s, B), bool), np.zeros((s, B), bool)
+    for si in range(s):
+        f1[si, (3 * si) % B] = True
+        f2[si, (si + 5) % B] = True
+    v1[s - 1] = False
+    v2[:, :11] = True
+    v2[0] = True
+    seeds1 = [0 if si % 3 == 2 else 1 for si in range(s)]
+    seeds2 = [1 if si == s - 1 else 0 for si in range(s)]
+    return [(f1, v1, [si % t for si in range(s)], seeds1),
+            (f2, v2, [(si + B) % t for si in range(s)], seeds2)]
+
+
+def check_stacked(props, h, w, s, seed):
+    import torch
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.properties import OutputMode
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(h, w)
+    t = props.temporal_size
+    rows = (s * hp, wp)
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
+                                OutputMode.STATS_ONLY)
+    if raw_mode:
+        kernel = cuda_fused.absdiff_step_ring_stacked
+        plain = cuda_fused.absdiff_step_ring_stacked_plain
+        mk = lambda: [torch.zeros((3,) + rows, dtype=torch.uint8,
+                                  device=dev) for _ in range(2)] + [
+            torch.zeros(rows, device=dev)]
+    else:
+        kernel = cuda_fused.batch_step_ring_stacked
+        plain = cuda_fused.batch_step_ring_stacked_plain
+        mk = lambda: [torch.zeros((t,) + rows, device=dev)] + [
+            torch.zeros(rows, device=dev) for _ in range(3)]
+    states = [mk(), mk()]
+    raw = stacked_frames(2 * B, h, w, s, seed, dev)
+    tag = (f"stacked {props.output.name} {props.method.name} "
+           f"w{props.window_size}/T{t} {h}x{w} s={s}")
+    tol = RAW_TOL if raw_mode else MEDIAN_TOL
+    err, flips, n_px = 0.0, 0, 0
+    for i, (flags, valid, offs, seeds) in enumerate(_stacked_batches(s, t)):
+        x = raw[i * B:(i + 1) * B]
+        fl = torch.from_numpy(flags).to(dev)
+        va = torch.from_numpy(valid).to(dev)
+        res = []
+        for fn, st in zip((kernel, plain), states):
+            if raw_mode:
+                res.append(fn(props, h, w, s, x, st[0], st[1], fl, st[2],
+                              va, seeds))
+            else:
+                res.append(fn(props, h, w, s, x, *st[:3], fl, st[3], va,
+                              offs, seeds))
+        torch.cuda.synchronize()
+        got, exp = res
+        per = lambda a: a.view(a.shape[:-2] + (s, hp, wp))[..., :h, :w]
+        d = (per(got[0]).to(torch.int16) - per(exp[0]).to(torch.int16)).abs()
+        if d.numel():
+            lsb = 0 if raw_mode else tol["lsb"]
+            flips += int((d > 0).sum())
+            n_px += d.numel()
+            if int(d.max()) > lsb or flips > MEDIAN_TOL["flip_frac"] * n_px:
+                raise AssertionError(f"{tag}: maps differ (max "
+                                     f"{int(d.max())}, {flips} pixels)")
+            err = max(err, float(d.max()))
+        for g, e in zip(got[2:-1], exp[2:-1]):
+            if not torch.equal(per(g), per(e)):
+                raise AssertionError(f"{tag}: carried state differs")
+        herr = _max_err(got[-1], exp[-1])
+        if herr > tol["heat_atol"]:
+            raise AssertionError(f"{tag}: heatmap err {herr}")
+        for si in range(s):
+            _check_stats(f"{tag} stream {si}", got[1][si], exp[1][si],
+                         tol["stats_rtol"])
+        err = max(err, herr, _max_err(got[1], exp[1]))
+    log(f"[kernels-stacked] {tag} B={B}: maps, state and stats match the "
+        f"plain twin; tie flips {flips}/{n_px}, max err {err}")
+    return err
+
+
+def phase_kernels_stacked():
+    from dips_tpu_torch.properties import (DiPsFilter, DiPsMethod,
+                                           DiPsProperties, OutputMode)
+    errs = {"absdiff_step_ring_stacked": 0.0, "batch_step_ring_stacked": 0.0}
+    for props, (h, w, s) in (
+            (DiPsProperties(output=OutputMode.ABSDIFF),
+             (H1080, W1080, FLEET)),
+            (DiPsProperties(), (H1080, W1080, FLEET)),
+            (DiPsProperties(method=DiPsMethod.PER_FRAME,
+                            output=OutputMode.GRAYSCALE,
+                            filter=DiPsFilter.INVERSE_SIGMOID,
+                            window_size=7, temporal_size=3,
+                            roi=(40, 60, 440, 600)), (480, 640, 3)),
+            (DiPsProperties(output=OutputMode.THRESHOLD,
+                            method=DiPsMethod.PER_FRAME,
+                            change_threshold=20, roi=(40, 60, 440, 600)),
+             (480, 640, 3))):
+        name = ("absdiff_step_ring_stacked"
+                if props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD)
+                else "batch_step_ring_stacked")
+        errs[name] = max(errs[name], check_stacked(props, h, w, s, 61))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the fleet path end to end
+# ---------------------------------------------------------------------------
+
+class FleetFrames:
+    """Seeded host frames of the fleet: stream si's frame k is a bright
+    square moving over the stream's own noise."""
+
+    def __init__(self, seed, h=H1080, w=W1080):
+        rng = np.random.default_rng(seed)
+        self.h, self.w = h, w
+        self.bgs = [rng.integers(0, 256, (h, w, 3), np.uint8)
+                    for _ in range(FLEET)]
+        self.side = max(8, h // 10)
+
+    def __call__(self, si, k):
+        f = self.bgs[si].copy()
+        y = (7 * k + 40 * si) % (self.h - self.side)
+        x = (13 * k + 90 * si) % (self.w - self.side)
+        f[y:y + self.side, x:x + self.side] = (250, 30, 30)
+        return f
+
+
+def run_fleet(props, frame, work):
+    """Three batches of the 8-stream fleet: stream 7 lags by 6 frames,
+    stream 3 takes a snapshot before batch 1, stream 5 sends a wrong-shape
+    frame in batch 1 (isolated), the fleet is saved after batch 1, resumed
+    in a fresh engine and stream 5 revived.  Returns, per batch, each
+    stream's frame indices (None where rejected) and the outputs."""
+    from dips_tpu_torch import MultiStreamEngine
+    fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                              device="cuda")
+    nxt = [0] * FLEET
+    batches = []
+    for bi in range(3):
+        if bi == 1:
+            fleet.snapshot(stream=3)
+        if bi == 2:
+            ck = os.path.join(work, "fleet.npz")
+            fleet.save(ck)
+            fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                                      device="cuda")
+            fleet.load(ck)
+            if set(fleet.failed) != {5}:
+                raise AssertionError(f"restored failures {fleet.failed}")
+            fleet.revive(5)
+        idx = [list(range(nxt[si], nxt[si] + (10 if bi == 0 and si == 7
+                                               else B)))
+               for si in range(FLEET)]
+        feeds = [[frame(si, k) for k in ids] for si, ids in enumerate(idx)]
+        if bi == 1:
+            feeds[5][7] = np.zeros((H1080, W1080 // 2, 3), np.uint8)
+        out, stats, gmean = fleet.process_batch(feeds)
+        if bi == 1:
+            if set(fleet.failed) != {5}:
+                raise AssertionError(f"stream 5 not isolated: "
+                                     f"{fleet.failed}")
+            idx[5] = None
+        for si, ids in enumerate(idx):
+            if ids is not None:
+                nxt[si] += len(ids)
+        valid = [stats[si, :len(ids), 1] for si, ids in enumerate(idx)
+                 if ids is not None]
+        exp_g = float(np.mean(np.concatenate(valid)))
+        if not np.isfinite(stats).all() or \
+                abs(gmean - exp_g) > 1e-5 * max(exp_g, 1e-12):
+            raise AssertionError(f"gmean {gmean} != {exp_g}")
+        batches.append((idx, out, stats))
+    if fleet.frame_cursors != [48] * 5 + [32] + [48, 42]:
+        raise AssertionError(f"cursors {fleet.frame_cursors}")
+    return batches
+
+
+def phase_fleet(card):
+    import torch
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, OutputMode
+    from dips_tpu_torch.ops import cuda_fused
+    frame = FleetFrames(71)
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = {"absdiff_step_ring_stacked": 0, "batch_step_ring_stacked": 0}
+    for label, props in (
+            ("COLORIZE w3/T4", DiPsProperties(refresh_markers=(24,))),
+            ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF,
+                                       refresh_markers=(24,)))):
+        exact = props.output == OutputMode.ABSDIFF
+        cuda_fused.reset_launch_counts()
+        batches = run_fleet(props, frame, work)
+        torch.cuda.synchronize()
+        counts = cuda_fused.launch_counts()
+        name = ("absdiff_step_ring_stacked" if exact
+                else "batch_step_ring_stacked")
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the fleet path")
+        launches[name] += counts[name]
+        log(f"[fleet] {label}: launches during the fleet run {counts}")
+        # each stream against a single-stream engine fed the frames the
+        # fleet accepted for it
+        worst, flips, n_px = 0, 0, 0
+        for si in range(FLEET):
+            eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda")
+            for bi, (idx, out, stats) in enumerate(batches):
+                if idx[si] is None:
+                    continue
+                if bi == 1 and si == 3:
+                    eng.snapshot()
+                o, st = eng.process_batch([frame(si, k) for k in idx[si]])
+                n = len(idx[si])
+                d = np.abs(out[si, :n].astype(np.int16) - o.astype(np.int16))
+                worst = max(worst, int(d.max(initial=0)))
+                flips += int((d > 0).sum())
+                n_px += d.size
+                if worst > (0 if exact else MEDIAN_TOL["lsb"]) or \
+                        flips > MEDIAN_TOL["flip_frac"] * n_px:
+                    raise AssertionError(f"[fleet] {label} stream {si} "
+                                         f"batch {bi}: maps differ from the "
+                                         f"single-stream engine")
+                _check_stats(f"[fleet] {label} stream {si} batch {bi}",
+                             stats[si, :n], st, 1e-6)
+            del eng
+        _, out, stats = batches[1]
+        if stats[3, 0, 3] != 0 or stats[0, 0, 3] == 0:
+            raise AssertionError("per-stream snapshot: stream 3 did not "
+                                 "re-capture alone")
+        if stats[0, 24 - B, 3] != 0:  # refresh marker 24 on stream 0
+            raise AssertionError("refresh marker 24 did not re-capture")
+        log(f"[fleet] {label} 1080p x {FLEET} streams, B={B}, 3 batches: "
+            f"every stream equals a single-stream DiPsEngine on its frames "
+            f"(max diff {worst}, {flips} of {n_px} pixels differ), "
+            f"including the snapshot of stream 3, stream 5 isolated by a "
+            f"wrong-shape frame and revived, and the checkpoint resume")
+        del batches, out, stats
+    return launches
+
+
+def phase_fleet_file(card):
+    try:
+        import cv2
+    except ImportError:
+        log("[fleet-file] cv2 is not installed: the run_dips_on_files "
+            "phase did not run")
+        return
+    from dips_tpu_torch import (DiPsProperties, run_dips_on_file,
+                                run_dips_on_files)
+    frame = FleetFrames(81)
+    work = os.path.join("build", "chip_smoke", "fleet_file")
+    os.makedirs(work, exist_ok=True)
+    paths, lens = [], (20, 14, 24)
+    for si, n in enumerate(lens):
+        p = os.path.join(work, f"cam{si}.avi")
+        vw = cv2.VideoWriter(p, cv2.VideoWriter_fourcc(*"MJPG"), 30,
+                             (W1080, H1080))
+        for k in range(n):
+            vw.write(np.ascontiguousarray(frame(si, k)[..., ::-1]))
+        vw.release()
+        paths.append(p)
+    props = DiPsProperties(refresh_markers=(12,))
+    t0 = time.perf_counter()
+    counts, stats = run_dips_on_files(paths, os.path.join(work, "out"),
+                                      encoding="HFYU", properties=props,
+                                      batch=B, device="cuda",
+                                      collect_stats=True)
+    dt = time.perf_counter() - t0
+    if list(counts) != list(lens):
+        raise AssertionError(f"run_dips_on_files counts {list(counts)}")
+
+    def read(path):
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(f)
+        cap.release()
+        return np.stack(frames)
+
+    for si, p in enumerate(paths):
+        one = os.path.join(work, f"single{si}.avi")
+        st = run_dips_on_file(p, one, encoding="HFYU", properties=props,
+                              batch=B, device="cuda")
+        a = read(os.path.join(work, "out", f"cam{si}.dips.avi"))
+        b = read(one)
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        if a.shape != b.shape or d.max() > MEDIAN_TOL["lsb"]:
+            raise AssertionError(f"[fleet-file] cam{si}: the fleet's video "
+                                 f"differs from run_dips_on_file's")
+        _check_stats(f"[fleet-file] cam{si}", stats[si], st, 1e-6)
+    log(f"[fleet-file] run_dips_on_files on 3 1080p MJPG clips "
+        f"({sum(lens)} frames) in {dt:.2f} s (decode + HFYU encode "
+        f"included; {card}); each diff video equals run_dips_on_file's")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times on this card
 # ---------------------------------------------------------------------------
 
 def _time(fn, reps):
@@ -450,16 +800,56 @@ def phase_times(card):
         cuda_fused.batch_step_ring_plain(mp, H1080, W1080, raw, *ms[:3],
                                          flags, ms[3], valid, 0, 0)
 
-    for name, k, p in (("absdiff_step_ring", raw_k, raw_p),
-                       ("batch_step_ring", med_k, med_p)):
+    # the stacked kernels: 8 streams of 1080p in one launch
+    s = FLEET
+    sraw = stacked_frames(B, H1080, W1080, s, 32, dev)
+    sflags = torch.zeros((s, B), dtype=torch.bool, device=dev)
+    sflags[:, 0] = True
+    svalid = torch.ones((s, B), dtype=torch.bool, device=dev)
+    rows = (s * hp, wp)
+    srs = [torch.zeros((3,) + rows, dtype=torch.uint8, device=dev)
+           for _ in range(2)] + [torch.zeros(rows, device=dev)]
+    sms = [torch.zeros((4,) + rows, device=dev)] + [
+        torch.zeros(rows, device=dev) for _ in range(3)]
+    zs = [0] * s
+
+    def sraw_k():
+        cuda_fused.absdiff_step_ring_stacked(rp, H1080, W1080, s, sraw,
+                                             srs[0], srs[1], sflags, srs[2],
+                                             svalid, zs)
+
+    def sraw_p():
+        cuda_fused.absdiff_step_ring_stacked_plain(
+            rp, H1080, W1080, s, sraw, srs[0], srs[1], sflags, srs[2],
+            svalid, zs)
+
+    def smed_k():
+        cuda_fused.batch_step_ring_stacked(mp, H1080, W1080, s, sraw,
+                                           *sms[:3], sflags, sms[3], svalid,
+                                           zs, zs)
+
+    def smed_p():
+        cuda_fused.batch_step_ring_stacked_plain(
+            mp, H1080, W1080, s, sraw, *sms[:3], sflags, sms[3], svalid, zs,
+            zs)
+
+    for name, k, p, frames in (
+            ("absdiff_step_ring", raw_k, raw_p, B),
+            ("batch_step_ring", med_k, med_p, B),
+            ("absdiff_step_ring_stacked", sraw_k, sraw_p, s * B),
+            ("batch_step_ring_stacked", smed_k, smed_p, s * B)):
         seq = [("plain", p), ("kernel", k), ("kernel", k), ("plain", p)]
         got = {"plain": [], "kernel": []}
         for which, fn in seq:  # plain, kernel, kernel, plain
-            got[which].append(_time(fn, 20 if which == "kernel" else 3) / B)
+            got[which].append(_time(fn, 20 if which == "kernel" else 3)
+                              / frames)
         times[name] = {w: float(np.mean(v)) for w, v in got.items()}
-        log(f"[time] {name} 1080p B={B}: kernel "
+        shape = f"1080p B={B}" + (f" s={s}" if frames > B else "")
+        log(f"[time] {name} {shape}: kernel "
             f"{times[name]['kernel']:.4f} ms/frame ({got['kernel']}), plain "
-            f"{times[name]['plain']:.4f} ms/frame ({got['plain']}); {card}")
+            f"{times[name]['plain']:.4f} ms/frame ({got['plain']}); "
+            f"frame = one stream's frame; {card}")
+    del sraw, srs, sms
 
     # the engine end to end: host frames in, host maps out
     frames = moving_square_frames(2 * B, H1080, W1080, 41)
@@ -491,7 +881,44 @@ def phase_times(card):
             f"end over {n_b * B} frames (host fill+upload+launch "
             f"{1e3 * t_disp / (n_b * B):.3f} ms/frame, sync+download "
             f"{1e3 * t_coll / (n_b * B):.3f} ms/frame); {card}")
+
+    # the fleet end to end: 8 streams of host frames in, host maps out
+    from dips_tpu_torch import MultiStreamEngine
+    frame = FleetFrames(91)
+    feeds = [[[frame(si, k) for k in range(j * B, (j + 1) * B)]
+              for si in range(FLEET)] for j in range(2)]
+    for label, props in (("COLORIZE w3/T4", DiPsProperties()),
+                         ("ABSDIFF", DiPsProperties(
+                             output=OutputMode.ABSDIFF))):
+        fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                                  device="cuda")
+        fleet.process_batch(feeds[0])  # warm-up
+        torch.cuda.synchronize()
+        n_b = 4
+        t0 = time.perf_counter()
+        for i in range(n_b):
+            fleet.process_batch(feeds[i % 2])
+        wall = time.perf_counter() - t0
+        fps = n_b * B * FLEET / wall
+        times[f"fleet {label}"] = fps
+        log(f"[time] fleet {label} 1080p x {FLEET} streams B={B}: {fps:.1f} "
+            f"frames/s aggregate end to end over {n_b * B * FLEET} frames "
+            f"({fps / FLEET:.1f} per stream); {card}")
+        del fleet
     return times
+
+
+#: kernel -> (CUDA source, the Pallas kernel body it replaces)
+KERNELS = {
+    "absdiff_step_ring": ("dips_tpu_torch/csrc/raw_ring.cu",
+                          "dips_tpu/ops/pallas_fused.py:1071"),
+    "batch_step_ring": ("dips_tpu_torch/csrc/median_ring.cu",
+                        "dips_tpu/ops/pallas_fused.py:799"),
+    "absdiff_step_ring_stacked": ("dips_tpu_torch/csrc/raw_ring.cu",
+                                  "dips_tpu/ops/pallas_fused.py:1071"),
+    "batch_step_ring_stacked": ("dips_tpu_torch/csrc/median_ring.cu",
+                                "dips_tpu/ops/pallas_fused.py:799"),
+}
 
 
 def main():
@@ -499,24 +926,19 @@ def main():
     phase_build()
     errs = phase_kernels()
     launches = phase_main_path(card)
+    errs.update(phase_kernels_stacked())
+    launches.update(phase_fleet(card))
+    phase_fleet_file(card)
     times = phase_times(card)
     import torch
     record = {"kernels": [
-        {"name": "absdiff_step_ring", "route": "cuda",
-         "source": "dips_tpu_torch/csrc/raw_ring.cu",
-         "replaces": "dips_tpu/ops/pallas_fused.py:1071",
-         "launches": launches["absdiff_step_ring"],
-         "max_abs_err": errs["absdiff_step_ring"],
-         "ms": times["absdiff_step_ring"]["kernel"],
-         "plain_ms": times["absdiff_step_ring"]["plain"]},
-        {"name": "batch_step_ring", "route": "cuda",
-         "source": "dips_tpu_torch/csrc/median_ring.cu",
-         "replaces": "dips_tpu/ops/pallas_fused.py:799",
-         "launches": launches["batch_step_ring"],
-         "max_abs_err": errs["batch_step_ring"],
-         "ms": times["batch_step_ring"]["kernel"],
-         "plain_ms": times["batch_step_ring"]["plain"]},
-    ]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name]["kernel"], "plain_ms": times[name]["plain"]}
+        for name, (src, rep) in KERNELS.items()]}
+    for k in record["kernels"]:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} has no main-path launch")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

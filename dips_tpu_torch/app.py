@@ -1,16 +1,20 @@
-"""Application API: the run path over the port's engine.
+"""Application API: the run path over the port's engines.
 
 Counterpart of the run path of ``dips_tpu/app.py``: a :class:`DiPsJob`
 subset, the streaming loop :func:`stream_dips`, :func:`perform_dips` (video
-in, diff-map video out, per-frame statistics back) and
-:func:`run_dips_on_file`.  Decode runs on one worker thread feeding a
-bounded ``queue.Queue`` (backpressure), so decode overlaps the device step.
+in, diff-map video out, per-frame statistics back),
+:func:`run_dips_on_file`, and the fleet run :func:`run_dips_on_files` (many
+videos in lockstep through one :class:`MultiStreamEngine`).  In the
+single-file run, decode runs on one worker thread feeding a bounded
+``queue.Queue`` (backpressure), so decode overlaps the device step.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import os
 import queue
 import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
@@ -21,7 +25,9 @@ from .errors import (DecodeError, FrameCallbackError, OutputPathError,
                      VideoPathError)
 from .models import DiPsEngine
 from .ops.reference import NUM_STATS
-from .properties import DiPsProperties, Encoding
+from .properties import DiPsMethod, DiPsProperties, Encoding
+
+log = logging.getLogger("dips_tpu_torch")
 
 #: called once per processed frame with (frame_index, input_rgb, output_map,
 #: stats_row); return None to keep the map or a uint8 array to replace it
@@ -207,3 +213,177 @@ def run_dips_on_file(input_path: str, output_path: Optional[str],
     job = DiPsJob(properties=props, video_path=input_path,
                   output_path=output_path, batch=batch, device=device)
     return perform_dips(job.with_encoding(encoding))
+
+
+def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
+                      encoding: "Encoding | str" = Encoding.MJPG,
+                      properties: Optional[DiPsProperties] = None,
+                      batch: int = 8, device: Optional[str] = None,
+                      input_layout: str = "hwc",
+                      video_backend: str = "auto",
+                      events: Optional[dict] = None,
+                      collect_stats: bool = False,
+                      downscale: int = 1,
+                      auto_refresh: Optional[dict] = None,
+                      flicker: Optional[dict] = None,
+                      slab_impl: str = "bands"):
+    """Batched multi-stream differencing over many videos: decode the S
+    files in lockstep, run them through one :class:`MultiStreamEngine`
+    (one stacked launch per batch), write one diff video per input.
+
+    All inputs must share geometry and fps.  Streams shorter than the
+    longest are fed empty lists once exhausted and their outputs truncated.
+    Returns the per-stream frame counts (-1 for a stream that failed and
+    was isolated), then, in this order and only when asked for:
+
+    * ``events`` (MotionDetector kwargs, ops/events.py): one list of closed
+      motion events per input;
+    * ``collect_stats``: one (n_i, 4) stats array per input;
+    * ``auto_refresh`` (BaselineRefreshPolicy kwargs, ops/refresh.py,
+      OVERALL only): each stream's own adaptive baseline refresh, and one
+      list of fired frame indices per input.
+
+    The decoders yield cv2's BGR frames; the engine swaps them on the
+    device (``input_layout`` "hwc" is the only host layout the port takes).
+    ``downscale``, ``flicker`` and the "gstreamer" video backend are not
+    ported yet and raise ``NotImplementedError``; ``slab_impl`` is
+    validated and ignored (it shapes 2-D meshes).
+    """
+    from .io.video import VideoReader, VideoWriter
+    from .parallel import MultiStreamEngine
+    props = properties or DiPsProperties()
+    enc = Encoding[encoding.upper()] if isinstance(encoding, str) else encoding
+    if input_layout == "planar":
+        raise NotImplementedError(
+            "input_layout 'planar' is not ported: the port uploads hwc "
+            "frames and lays them out on the device")
+    if input_layout != "hwc":
+        raise ValueError(f"unknown input_layout {input_layout!r}")
+    if video_backend == "gstreamer":
+        raise NotImplementedError("the gstreamer video backend is not "
+                                  "ported: the port decodes with OpenCV")
+    if video_backend not in ("auto", "opencv"):
+        raise ValueError(f"unknown video backend {video_backend!r}")
+    if flicker is not None:
+        raise NotImplementedError("fleet flicker analysis is not ported yet")
+    if int(downscale) != 1:
+        raise NotImplementedError("downscale is not ported yet")
+    if auto_refresh is not None and props.method is not DiPsMethod.OVERALL:
+        raise ValueError("auto_refresh re-pins the OVERALL baseline; "
+                         "method=per_frame has none")
+
+    readers: list = []
+    writers: list = []
+    try:
+        for p in input_paths:
+            readers.append(VideoReader(p))
+        h, w, fps = readers[0].height, readers[0].width, readers[0].fps
+        for r in readers[1:]:
+            if (r.height, r.width) != (h, w):
+                raise VideoPathError(
+                    f"{r.path}: geometry {r.width}x{r.height} != {w}x{h} "
+                    f"(multi-stream batches require uniform geometry)")
+            if abs(r.fps - fps) > 0.51:
+                raise VideoPathError(
+                    f"{r.path}: fps {r.fps:g} != {fps:g} (multi-stream "
+                    f"outputs share one clock; retime or process "
+                    f"separately)")
+        s = len(readers)
+        eng = MultiStreamEngine(props, h, w, n_streams=s, batch=batch,
+                                device=device, input_layout="hwc_bgr",
+                                slab_impl=slab_impl)
+        stats_only = props.out_channels == 0
+        if not stats_only:  # no diff videos, no writers at all
+            os.makedirs(output_dir, exist_ok=True)
+            # inputs sharing a basename must not overwrite each other's
+            # output: disambiguate by stream index
+            stems = [os.path.splitext(os.path.basename(p))[0]
+                     for p in input_paths]
+            dup = {t for t in stems if stems.count(t) > 1}
+            for si, stem in enumerate(stems):
+                name = (f"{stem}.{si}" if stem in dup else stem) + ".dips.avi"
+                writers.append(VideoWriter(os.path.join(output_dir, name),
+                                           fps, w, h, enc))
+        counts = np.zeros(s, np.int64)
+        detectors = None
+        if events is not None:
+            from .ops.events import MotionDetector
+            cfg = dict(events)
+            if cfg.get("metric") == "changed_frac":
+                cfg.setdefault("pixels", props.analysis_pixels(h, w))
+            detectors = [MotionDetector(**cfg) for _ in range(s)]
+            stream_events: list = [[] for _ in range(s)]
+        refreshers = None
+        if auto_refresh is not None:
+            from .ops.refresh import BaselineRefreshPolicy
+            rcfg = dict(auto_refresh)
+            if rcfg.get("metric", "changed_frac") == "changed_frac":
+                rcfg.setdefault("pixels", props.analysis_pixels(h, w))
+            # the re-capture lands on the next batch
+            rcfg.setdefault("cooldown", rcfg.get("persist", 3) + 2 * batch)
+            refreshers = [BaselineRefreshPolicy(**rcfg) for _ in range(s)]
+        stream_stats: Optional[list] = ([[] for _ in range(s)]
+                                        if collect_stats else None)
+        frames_in = [r.iter_bgr() for r in readers]
+        done = [False] * s
+        while not all(done):
+            feeds = []
+            for si in range(s):
+                frames = []
+                while not done[si] and len(frames) < batch:
+                    f = next(frames_in[si], None)
+                    if f is None:
+                        done[si] = True
+                    else:
+                        frames.append(f)
+                feeds.append(frames)
+            if not any(feeds):
+                break
+            out, stats, _ = eng.process_batch(feeds)
+            for si in range(s):
+                if si in eng.failed:
+                    # isolated stream: stop decoding and writing it
+                    if not done[si]:
+                        log.warning("stream %d (%s) failed and was "
+                                    "isolated: %s", si, input_paths[si],
+                                    eng.failed[si])
+                        done[si] = True
+                    continue
+                n = len(feeds[si])
+                if not stats_only:
+                    for k in range(n):
+                        writers[si].write(out[si, k])
+                counts[si] += n
+                if detectors is not None and n:
+                    stream_events[si] += detectors[si].update(
+                        stats[si, :n],
+                        start_index=eng.frame_cursors[si] - n)
+                if refreshers is not None and n:
+                    start = eng.frame_cursors[si] - n
+                    if any([refreshers[si].feed(start + k, stats[si, k])
+                            for k in range(n)]):
+                        eng.snapshot(stream=si)
+                        log.info("auto-refresh: stream %d baseline "
+                                 "re-capture at frame %d", si,
+                                 refreshers[si].refreshes[-1])
+                if stream_stats is not None and n:
+                    stream_stats[si].append(stats[si, :n])
+    finally:
+        for r in readers:
+            r.close()
+        for wr in writers:
+            wr.close()
+    for si in eng.failed:
+        counts[si] = -1  # failed stream, output truncated
+    result = [counts]
+    if detectors is not None:
+        for si in range(s):
+            stream_events[si] += detectors[si].flush()  # EOS closes opens
+        result.append(stream_events)
+    if stream_stats is not None:
+        result.append([np.concatenate(rows) if rows
+                       else np.zeros((0, NUM_STATS), np.float32)
+                       for rows in stream_stats])
+    if refreshers is not None:
+        result.append([list(r.refreshes) for r in refreshers])
+    return result[0] if len(result) == 1 else tuple(result)

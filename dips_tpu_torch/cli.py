@@ -1,16 +1,23 @@
-"""Command line: the run command of the ``dips`` CLI on the port.
+"""Command line: the run commands of the ``dips`` CLI on the port.
 
-Counterpart of the file-in, file-out mode of ``dips_tpu/cli.py``: the same
-option names and defaults for --input --output --encoding --filter
---sig_scalar --chroma --win_size --colorize --method --output-mode --batch,
-bare integers as refresh markers, plus --device.
+Counterpart of two modes of ``dips_tpu/cli.py``, with the same option names,
+defaults, messages and exit codes (2 for usage errors, 1 for a failed run):
+
+* file in, file out: --input --output --encoding --filter --sig_scalar
+  --chroma --win_size --colorize --method --output-mode --batch, bare
+  integers as refresh markers, plus --device;
+* the fleet: --inputs FILE... --output-dir DIR, with --stats-json,
+  --events-json (and the --event-* options) and --auto-refresh; exit code 1
+  when a stream failed and was isolated.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
+    python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import List, Optional
 
@@ -35,6 +42,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(re-capture the baseline)")
     p.add_argument("--input", help="input video file")
     p.add_argument("--output", help="output video file")
+    p.add_argument("--inputs", nargs="+", metavar="FILE",
+                   help="multiple input videos: batched multi-stream mode, "
+                        "one stacked kernel launch per batch (requires "
+                        "--output-dir)")
+    p.add_argument("--output-dir", help="output directory for --inputs mode")
     p.add_argument("--encoding", default="MJPG",
                    help="RGBA | HFYU | H264 | MJPG | mp4v")
     p.add_argument("--filter", default="sigmoid",
@@ -58,6 +70,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per kernel launch")
     p.add_argument("--device", default=None,
                    help="cuda | cpu (default: the card when present)")
+    p.add_argument("--stats-json", metavar="PATH",
+                   help="--inputs mode: write per-frame statistics to a "
+                        "JSON file, one row list per stream keyed by input "
+                        "path")
+    p.add_argument("--events-json", metavar="PATH",
+                   help="--inputs mode: segment the per-frame stats into "
+                        "motion events (hysteresis + debounce, "
+                        "ops/events.py) and write them to a JSON file, one "
+                        "event list per stream keyed by input path")
+    p.add_argument("--event-on", default=0.01, metavar="X|auto",
+                   type=lambda s: s if s == "auto" else float(s),
+                   help="metric level that OPENS an event (default 0.01 "
+                        "= 1%% of pixels changed with the default "
+                        "metric); 'auto' estimates each stream's noise "
+                        "floor online")
+    p.add_argument("--event-off", type=float, default=None, metavar="X",
+                   help="level that closes it (default: half of "
+                        "--event-on; invalid with --event-on auto)")
+    p.add_argument("--event-metric", default="changed_frac",
+                   choices=("mean_abs_diff", "max_abs_diff",
+                            "changed_count", "changed_frac"),
+                   help="which per-frame statistic drives segmentation "
+                        "(changed_frac = changed pixels / frame pixels)")
+    p.add_argument("--event-min-frames", type=int, default=2, metavar="N",
+                   help="discard events shorter than N frames (default 2)")
+    p.add_argument("--event-cooldown", type=int, default=0, metavar="N",
+                   help="sub-threshold frames tolerated inside one event "
+                        "before it closes (default 0)")
+    p.add_argument("--auto-refresh", metavar="FRAC[:PERSIST[:COOLDOWN]]",
+                   help="--inputs mode, overall method: re-capture a "
+                        "stream's snapshot when at least FRAC of the "
+                        "analysis pixels stay changed for PERSIST "
+                        "consecutive frames (default 3), then hold off "
+                        "COOLDOWN frames; each stream gets its own policy "
+                        "and fired frame indices are printed after the run")
     return p
 
 
@@ -93,9 +140,116 @@ def _parse_encoding(name: str) -> Optional[Encoding]:
         return None
 
 
+def _detector_cfg(args) -> dict:
+    """The --event-* flags as MotionDetector kwargs."""
+    return dict(on_threshold=args.event_on, off_threshold=args.event_off,
+                metric=args.event_metric,
+                min_frames=args.event_min_frames,
+                cooldown=args.event_cooldown)
+
+
+def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
+    """The --inputs mode: one fleet run, then the JSON artifacts."""
+    stats_only = props.out_channels == 0
+    if not args.output_dir and not stats_only:
+        print("--inputs requires --output-dir (or --output-mode "
+              "stats_only for a no-video fleet run)", file=sys.stderr)
+        return 2
+    if stats_only and args.output_dir:
+        print("--output-mode stats_only writes no diff video — drop "
+              "--output/--output-dir (stats/events/heatmap artifacts "
+              "are the products)", file=sys.stderr)
+        return 2
+    enc = _parse_encoding(args.encoding)
+    if enc is None:
+        print(f"unknown --encoding {args.encoding!r} "
+              f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
+        return 2
+    from .app import run_dips_on_files
+    ev_cfg = _detector_cfg(args) if args.events_json else None
+    want_stats = bool(args.stats_json)
+    try:
+        result = run_dips_on_files(args.inputs, args.output_dir or ".", enc,
+                                   props, batch=args.batch,
+                                   device=args.device, events=ev_cfg,
+                                   collect_stats=want_stats,
+                                   auto_refresh=auto_refresh)
+    except (DiPsError, NotImplementedError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    # counts, [events,] [stats,] [refreshes]
+    res = list(result) if isinstance(result, tuple) else [result]
+    counts = res.pop(0)
+    per_stream = res.pop(0) if ev_cfg is not None else None
+    per_stats = res.pop(0) if want_stats else None
+    per_refresh = res.pop(0) if auto_refresh is not None else None
+    # duplicate input paths must not collapse to one JSON key
+    dup = {p for p in args.inputs if args.inputs.count(p) > 1}
+    keys = [f"{p}#{si}" if p in dup else p
+            for si, p in enumerate(args.inputs)]
+    if per_stream is not None:
+        with open(args.events_json, "w") as f:
+            json.dump({k: [e.to_dict() for e in evs]
+                       for k, evs in zip(keys, per_stream)}, f)
+        n_ev = sum(len(evs) for evs in per_stream)
+        print(f"{n_ev} motion event(s) across {len(per_stream)} "
+              f"streams written: {args.events_json}")
+    if per_stats is not None:
+        from .ops.reference import STAT_NAMES
+        with open(args.stats_json, "w") as f:
+            json.dump({k: [dict(zip(STAT_NAMES, map(float, row)))
+                           for row in rows]
+                       for k, rows in zip(keys, per_stats)}, f)
+        print(f"per-stream stats written: {args.stats_json}")
+    if per_refresh is not None:
+        hot = {k: idxs for k, idxs in zip(keys, per_refresh) if idxs}
+        if hot:
+            for k, idxs in hot.items():
+                print(f"auto-refresh fired on {k} at frame(s): "
+                      + ", ".join(map(str, idxs)))
+        else:
+            print("auto-refresh: no scene change detected")
+    failed = [i for i, c in enumerate(counts) if c < 0]
+    ok_total = int(sum(c for c in counts if c >= 0))
+    print(f"processed {len(counts)} streams ({ok_total} frames) -> "
+          + (args.output_dir if not stats_only else "stats only"))
+    if failed:
+        print(f"WARNING: {len(failed)} stream(s) failed and were "
+              f"isolated (outputs truncated): "
+              f"{', '.join(args.inputs[i] for i in failed)}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.event_on == "auto" and args.event_off is not None:
+        print("--event-off is computed in auto mode (estimated floor + "
+              "margin/2) — drop it or use a fixed --event-on",
+              file=sys.stderr)
+        return 2
+    auto_refresh = None
+    if args.auto_refresh:
+        from .ops.refresh import parse_auto_refresh_arg
+        try:
+            auto_refresh = parse_auto_refresh_arg(args.auto_refresh)
+        except ValueError:
+            print(f"bad --auto-refresh {args.auto_refresh!r} "
+                  "(want FRAC[:PERSIST[:COOLDOWN]], e.g. 0.6:3:64)",
+                  file=sys.stderr)
+            return 2
     props = props_from_args(args)
+    if args.inputs:
+        return _run_inputs(args, props, auto_refresh)
+    for flag, val in (("--stats-json", args.stats_json),
+                      ("--events-json", args.events_json),
+                      ("--auto-refresh", args.auto_refresh),
+                      ("--output-dir", args.output_dir)):
+        if val:
+            print(f"{flag} needs the --inputs mode in this port",
+                  file=sys.stderr)
+            return 2
     stats_only = props.out_channels == 0
     if not args.input or (not args.output and not stats_only):
         print("need --input and --output (--output-mode stats_only runs "

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel _make_ring_kernel in
 // dips_tpu/ops/pallas_fused.py, with its helpers _intensity_i,
-// _filtered_plane and _emit_median_frame (called through batch_step_ring).
+// _filtered_plane, _halo_specs and _emit_median_frame (called through
+// batch_step_ring and batch_step_ring_stacked).
 //
 // Per pixel and frame: intensity on the integer scale [0, 510] (cmax+cmin,
 // or 2*channel) -> exact w x w spatial median with zero taps outside
@@ -13,6 +14,14 @@
 // median (PER_FRAME, advanced on valid frames) -> times f32(1/510) ->
 // masked statistic partials and heatmap -> emphasis -> COLORIZE/GRAYSCALE
 // u8 maps; capture frames render the new baseline gray.
+//
+// Streams: S streams are stacked along the rows (JAX's row-stacked layout:
+// raw (B, 3, S*Hp, Wp), ring (T, S*Hp, Wp), planes (S*Hp, Wp)).  The grid's
+// z dimension is the stream; flags / valid are (S, B), the ring offsets and
+// seeds (S,), all int32 on the device.  Every row test is stream-local: the
+// halo stops at the stream's own rows [0, Hp) -- rows si*Hp .. (si+1)*Hp
+// of the stack -- so a tap never reads the neighbouring stream, and the roi
+// mask tests the row within the stream.
 //
 // Design: a 32x8 block owns one pixel tile (x along the width, so a warp
 // reads and writes 32 consecutive bytes per plane) and loops over the
@@ -55,7 +64,9 @@ struct MedianArgs {
   float* parts;
   const int* flags;
   const int* valid;
-  int B, Hp, Wp, T, off, seed, overall, out_mode, chroma, filter;
+  const int* offs;
+  const int* seeds;
+  int B, Hp, Wp, T, overall, out_mode, chroma, filter;
   float k, sens, lo_clip, hi_clip, scale, thr;
   int y0, x0, y1, x1;
 };
@@ -102,8 +113,14 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   const int lane = tid & 31, warp = tid >> 5;
   const int bx = blockIdx.x * kTx, by = blockIdx.y * kTy;
   const int x = bx + tx, y = by + ty;  // the grid covers the plane exactly
-  const long long plane = (long long)a.Hp * a.Wp;
-  const long long pix = (long long)y * a.Wp + x;
+  const int si = blockIdx.z, S = gridDim.z;
+  const long long sec = (long long)a.Hp * a.Wp;  // one stream's plane
+  const long long plane = sec * S;               // a stacked plane
+  const long long pix = si * sec + (long long)y * a.Wp + x;
+  const int* flags = a.flags + (long long)si * a.B;
+  const int* valid = a.valid + (long long)si * a.B;
+  const int off = a.offs[si];
+  const int seed_s = a.seeds[si];
   const int ntiles = gridDim.x * gridDim.y;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const int C = a.out_mode == 1 ? 3 : (a.out_mode == 2 ? 1 : 0);
@@ -121,8 +138,9 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
 
   for (int f = 0; f < a.B; ++f) {
     // stage intensity of the tile plus halo; the previous frame's readers
-    // are done (they passed that frame's reduction barrier)
-    const uint8_t* fr = a.raw + (long long)f * 3 * plane;
+    // are done (they passed that frame's reduction barrier).  gy is the
+    // stream-local row: taps outside this stream's rows read zero
+    const uint8_t* fr = a.raw + (long long)f * 3 * plane + si * sec;
     for (int i = tid; i < SH * SW; i += kTx * kTy) {
       const int r = i / SW, c = i % SW;
       const int gy = by + r - P, gx = bx + c - P;
@@ -134,9 +152,9 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
     __syncthreads();
     const float phi = (float)window_median<W>(&strip[ty][tx], SW);
 
-    const int v = a.valid[f];
-    const int slot = (a.off + f) % a.T;
-    const bool seed = f == 0 && a.seed != 0;
+    const int v = valid[f];
+    const int slot = (off + f) % a.T;
+    const bool seed = f == 0 && seed_s != 0;
 #pragma unroll
     for (int k = 0; k < DIPS_MAX_T; ++k)
       if ((v != 0 && k == slot) || seed) ring[k] = phi;
@@ -146,7 +164,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
     bool capture = false;
     float diff_i;
     if (a.overall) {
-      capture = a.flags[f] != 0 && v != 0;
+      capture = flags[f] != 0 && v != 0;
       if (capture) base = cur;
       diff_i = base - cur;
     } else {
@@ -204,7 +222,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
         t0 += red[i][0]; t1 += red[i][1];
         t2 = fmaxf(t2, red[i][2]); t3 += red[i][3];
       }
-      float* p = a.parts + ((long long)f * ntiles + tile) * 4;
+      float* p = a.parts + (((long long)f * S + si) * ntiles + tile) * 4;
       p[0] = t0; p[1] = t1; p[2] = t2; p[3] = t3;
     }
     // red[] and strip[] are rewritten next frame only after its staging
@@ -221,23 +239,25 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
 
 }  // namespace
 
+// Hp is one stream's padded height; parts is float (B, S, n_tiles, 4); the
+// caller keeps every offset in [0, T).
 extern "C" int dips_median_ring(
     const void* raw, void* ring, void* prev, void* base, void* heat,
-    void* out, void* parts, const void* flags, const void* valid, int B,
-    int Hp, int Wp, int T, int W, int off, int seed, int overall,
-    int out_mode, int chroma, int filter, float k, float sens, float lo_clip,
-    float hi_clip, float scale, float thr, int y0, int x0, int y1, int x1,
-    void* stream) {
-  if (B < 1 || Hp % kTy != 0 || Wp % kTx != 0 || T < 1 || T > DIPS_MAX_T ||
-      off < 0 || off >= T || out_mode < 0 || out_mode > 2 || chroma < 0 ||
+    void* out, void* parts, const void* flags, const void* valid,
+    const void* offs, const void* seeds, int S, int B, int Hp, int Wp, int T,
+    int W, int overall, int out_mode, int chroma, int filter, float k,
+    float sens, float lo_clip, float hi_clip, float scale, float thr, int y0,
+    int x0, int y1, int x1, void* stream) {
+  if (S < 1 || S > 65535 || B < 1 || Hp % kTy != 0 || Wp % kTx != 0 ||
+      T < 1 || T > DIPS_MAX_T || out_mode < 0 || out_mode > 2 || chroma < 0 ||
       chroma > 3)
     return (int)cudaErrorInvalidValue;
   MedianArgs a{(const uint8_t*)raw, (float*)ring, (float*)prev,
                (float*)base, (float*)heat, (uint8_t*)out, (float*)parts,
-               (const int*)flags, (const int*)valid, B, Hp, Wp, T, off, seed,
-               overall, out_mode, chroma, filter, k, sens, lo_clip, hi_clip,
-               scale, thr, y0, x0, y1, x1};
-  const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy);
+               (const int*)flags, (const int*)valid, (const int*)offs,
+               (const int*)seeds, B, Hp, Wp, T, overall, out_mode, chroma,
+               filter, k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1};
+  const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy, S);
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 1: median_ring_kernel<1><<<grid, block, 0, s>>>(a); break;

@@ -1,7 +1,8 @@
 // Kernel 1: the raw ring-carry step (ABSDIFF, THRESHOLD, STATS_ONLY).
 //
 // Replaces the Pallas kernel _make_raw_kernel(ring=True) in
-// dips_tpu/ops/pallas_fused.py (called through absdiff_step_ring).
+// dips_tpu/ops/pallas_fused.py (called through absdiff_step_ring and
+// absdiff_step_ring_stacked).
 //
 // Per pixel and frame, in int32: d = ref - cur per channel.  ABSDIFF writes
 // |d| as u8 (byte-equal to cv2.absdiff), THRESHOLD writes 255 where the
@@ -12,6 +13,12 @@
 // partials (signed sum, abs sum, max, changed count; roi-masked) and adds
 // sum|d| * (1/765) * valid to the heatmap.
 //
+// Streams: S streams are stacked along the rows (JAX's row-stacked layout:
+// raw (B, 3, S*Hp, Wp), state (3 | 1, S*Hp, Wp)).  The grid's y dimension
+// is the stream, so a statistics tile never straddles two streams and the
+// stream index comes from the grid; flags / valid are (S, B) and seed is
+// (S,), all int32 on the device.  The roi mask tests the stream-local row.
+//
 // Design: one thread owns 16 consecutive bytes of one row (uint4 loads and
 // stores, a warp touches 512 contiguous bytes per plane) and loops over the
 // batch's frames in order, so the carried state (ref and the heatmap) is
@@ -21,9 +28,11 @@
 // fixed order with warp shuffles and shared memory (no atomics).  The final
 // reduction over tiles runs outside, in plain torch.
 //
-// Bound: device memory.  Per frame it reads 3*Hp*Wp bytes and writes
-// C*Hp*Wp bytes (C = 3, 1 or 0); at 1080p (Hp=1080, Wp=2048) ABSDIFF moves
-// 6.6 MB in and 6.6 MB out per frame and does a few integer ops per byte.
+// Bound: device memory.  Per frame and stream it reads 3*Hp*Wp bytes and
+// writes C*Hp*Wp bytes (C = 3, 1 or 0); at 1080p (Hp=1080, Wp=2048) ABSDIFF
+// moves 6.6 MB in and 6.6 MB out per frame and does a few integer ops per
+// byte.  Stacking S streams multiplies the bytes and the blocks by S and
+// changes nothing per byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,18 +61,25 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
     uint8_t* __restrict__ base, float* __restrict__ heat,
     uint8_t* __restrict__ out, int* __restrict__ parts,
     const int* __restrict__ flags, const int* __restrict__ valid,
-    int B, int Hp, int Wp, int overall, int out_mode, int thr, int seed,
-    int y0, int x0, int y1, int x1, float heat_scale) {
+    const int* __restrict__ seeds, int B, int Hp, int Wp, int overall,
+    int out_mode, int thr, int y0, int x0, int y1, int x1,
+    float heat_scale) {
   __shared__ int red[2][kWarps][4];
-  const long long plane = (long long)Hp * Wp;
-  const long long chunks = plane / kBytes;
+  const int si = blockIdx.y, S = gridDim.y;
+  const long long sec = (long long)Hp * Wp;     // one stream's plane
+  const long long plane = sec * S;              // a stacked channel plane
+  const long long chunks = sec / kBytes;
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
   const bool live = g < chunks;
-  const long long off = live ? g * kBytes : 0;
-  const int row = (int)(off / Wp);
-  const int col0 = (int)(off % Wp);
+  const long long loc = live ? g * kBytes : 0;  // offset in the stream
+  const long long off = si * sec + loc;         // offset in the stack
+  const int row = (int)(loc / Wp);              // stream-local row
+  const int col0 = (int)(loc % Wp);
   const int ntiles = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* fl = flags + (long long)si * B;
+  const int* va = valid + (long long)si * B;
+  const int seed = seeds[si];
 
   // roi (or whole-plane) mask, one bit per owned byte
   uint32_t mask = 0;
@@ -91,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
   const int C = out_mode == 1 ? 3 : (out_mode == 2 ? 1 : 0);
 
   for (int f = 0; f < B; ++f) {
-    const int v = valid[f];
+    const int v = va[f];
     const float vf = (float)v;
     uint32_t cur[3][4] = {};
     if (live) {
@@ -105,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
 #pragma unroll
         for (int i = 0; i < 4; ++i) ref[ch][i] = cur[ch][i];
     }
-    if (overall && flags[f] != 0 && v != 0) {  // baseline capture
+    if (overall && fl[f] != 0 && v != 0) {  // baseline capture
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
@@ -170,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
       for (int i = 0; i < kWarps; ++i) {
         t0 += r[i][0]; t1 += r[i][1]; t2 = max(t2, r[i][2]); t3 += r[i][3];
       }
-      int* p = parts + ((long long)f * ntiles + blockIdx.x) * 4;
+      int* p = parts + (((long long)f * S + si) * ntiles + blockIdx.x) * 4;
       p[0] = t0; p[1] = t1; p[2] = t2; p[3] = t3;
     }
     // red[] is double-buffered by frame parity: the next frame writes the
@@ -192,19 +208,23 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
 
 }  // namespace
 
+// Hp is one stream's padded height; parts is int32 (B, S, n_tiles, 4).
 extern "C" int dips_raw_ring(
     const void* raw, void* prev, void* base, void* heat, void* out,
-    void* parts, const void* flags, const void* valid, int B, int Hp, int Wp,
-    int overall, int out_mode, int thr, int seed, int y0, int x0, int y1,
-    int x1, float heat_scale, void* stream) {
-  if (B < 1 || Hp < 1 || Wp % kBytes != 0 || out_mode < 0 || out_mode > 2)
+    void* parts, const void* flags, const void* valid, const void* seeds,
+    int S, int B, int Hp, int Wp, int overall, int out_mode, int thr, int y0,
+    int x0, int y1, int x1, float heat_scale, void* stream) {
+  if (S < 1 || S > 65535 || B < 1 || Hp < 1 || Wp % kBytes != 0 ||
+      out_mode < 0 || out_mode > 2)
     return (int)cudaErrorInvalidValue;
   const long long chunks = (long long)Hp * Wp / kBytes;
-  const unsigned ntiles = (unsigned)((chunks + kThreads - 1) / kThreads);
-  raw_ring_kernel<<<ntiles, kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((chunks + kThreads - 1) / kThreads),
+                  (unsigned)S);
+  raw_ring_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)raw, (uint8_t*)prev, (uint8_t*)base, (float*)heat,
-      (uint8_t*)out, (int*)parts, (const int*)flags, (const int*)valid, B, Hp,
-      Wp, overall, out_mode, thr, seed, y0, x0, y1, x1, heat_scale);
+      (uint8_t*)out, (int*)parts, (const int*)flags, (const int*)valid,
+      (const int*)seeds, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
+      heat_scale);
   return (int)cudaGetLastError();
 }
 

@@ -230,16 +230,15 @@ class DiPsEngine:
         if n < b:  # padding replicas of the last frame; state ignores them
             raw[n:] = raw[n - 1]
         seed = 0 if self._seeded else 1
-        flags_d = torch.from_numpy(flags).to(self.device)
-        valid_d = torch.from_numpy(valid).to(self.device)
+        # host flags: the wrapper uploads them with the seed in one copy
         if self._raw_mode:
             out, stats, *_ = cuda_fused.absdiff_step_ring(
                 self.props, self.height, self.width, raw, self._prev,
-                self._baseline, flags_d, self._heatmap, valid_d, seed)
+                self._baseline, flags, self._heatmap, valid, seed)
         else:
             out, stats, *_ = cuda_fused.batch_step_ring(
                 self.props, self.height, self.width, raw, self._ring,
-                self._prev, self._baseline, flags_d, self._heatmap, valid_d,
+                self._prev, self._baseline, flags, self._heatmap, valid,
                 self._ring_off, seed)
         self._ring_off = (self._ring_off + n) % t
         self._seeded = True
@@ -278,9 +277,9 @@ class DiPsEngine:
         baseline, raw planar tail (T, 3, Hp, Wp) u8, heatmap."""
         return {
             "frame_index": self.frame_index,
-            "baseline": self._baseline.cpu().numpy(),
+            "baseline": self._baseline.to("cpu", copy=True).numpy(),
             "tail": self._planar_tail(),
-            "heatmap": self._heatmap.cpu().numpy(),
+            "heatmap": self._heatmap.to("cpu", copy=True).numpy(),
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -293,9 +292,10 @@ class DiPsEngine:
                 f"{expect} (raw and median modes have different baseline "
                 f"representations)")
         self.frame_index = int(state["frame_index"])
+        # copies (np.array): the engine updates its state in place
         self._baseline = torch.from_numpy(
-            np.ascontiguousarray(bl, dtype=np.uint8 if self._raw_mode
-                                 else np.float32)).to(self.device)
+            np.array(bl, dtype=np.uint8 if self._raw_mode
+                     else np.float32)).to(self.device)
         self._tail.clear()
         if state["tail"] is not None:
             # a short tail (saved before T frames were seen) replicates its
@@ -310,7 +310,7 @@ class DiPsEngine:
                 tl = [tl[0]] * (t - len(tl)) + tl
             self._tail.extend(tl)
         if state.get("heatmap") is not None:
-            self._heatmap = torch.from_numpy(np.ascontiguousarray(
+            self._heatmap = torch.from_numpy(np.array(
                 state["heatmap"], dtype=np.float32)).to(self.device)
         # a snapshot requested before the restore must not fire after it
         self._force_snapshot = False

@@ -2,7 +2,9 @@
 
 The sources under ``dips_tpu_torch/csrc/`` are compiled with ``nvcc`` into
 one shared library with a plain C interface and loaded with ``ctypes`` (no
-PyTorch headers in the build, so it takes seconds, not minutes).  The build
+PyTorch headers in the build, so it takes seconds, not minutes).  Each
+source compiles in its own ``nvcc`` process, all started together, and one
+more ``nvcc`` links the objects.  The build
 runs at first use, from the package's own sources only, into
 ``build/dips_tpu_torch/<key>/`` at the repository root, where ``<key>`` is a
 hash of the sources, of the generated network header and of the compiler
@@ -37,8 +39,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dips_tpu_torch"
 SOURCES = ("raw_ring.cu", "median_ring.cu")
 LIB_NAME = "libdips_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 #: spatial windows the median kernel is instantiated for
 WINDOWS = (1, 3, 5, 7)
 #: largest temporal ring the median kernel carries in registers
@@ -49,14 +50,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
-    # raw, prev, base, heat, out, parts, flags, valid,
-    # B, Hp, Wp, overall, out_mode, thr, seed, y0, x0, y1, x1,
+    # raw, prev, base, heat, out, parts, flags, valid, seeds,
+    # S, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
-    "dips_raw_ring": [_P] * 8 + [_I] * 11 + [_F, _P],
-    # raw, ring, prev, base, heat, out, parts, flags, valid,
-    # B, Hp, Wp, T, W, off, seed, overall, out_mode, chroma, filter,
+    "dips_raw_ring": [_P] * 9 + [_I] * 11 + [_F, _P],
+    # raw, ring, prev, base, heat, out, parts, flags, valid, offs, seeds,
+    # S, B, Hp, Wp, T, W, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_ring": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
+    "dips_median_ring": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -160,20 +161,38 @@ def build(force: bool = False) -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "median_networks.cuh").write_text(header)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
+    # one nvcc per source, all running at once; then one link
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-I",
+                          str(CSRC), "-c", "-o", str(obj), str(CSRC / src)]
+                         for src, obj in zip(SOURCES, objs))]
+    report = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        report.append(err + out)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{out}\n{err}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
-    log_path.write_text(proc.stderr + proc.stdout)
+    for obj in objs:
+        obj.unlink()
+    ptxas = "".join(report)
+    log_path.write_text(ptxas)
     os.replace(tmp, lib_path)
-    build_info.update(dir=str(out_dir), seconds=seconds,
-                      ptxas=proc.stderr + proc.stdout)
+    build_info.update(dir=str(out_dir), seconds=seconds, ptxas=ptxas)
     return lib_path
 
 

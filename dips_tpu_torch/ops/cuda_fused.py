@@ -2,26 +2,31 @@
 
 Counterpart of the ring-carry half of ``dips_tpu/ops/pallas_fused.py``:
 
-* :func:`absdiff_step_ring` (raw ABSDIFF / THRESHOLD / STATS_ONLY), kernel
-  ``csrc/raw_ring.cu``;
-* :func:`batch_step_ring` (median pipeline: COLORIZE / GRAYSCALE / no
-  maps), kernel ``csrc/median_ring.cu``.
+* :func:`absdiff_step_ring_stacked` (raw ABSDIFF / THRESHOLD /
+  STATS_ONLY), kernel ``csrc/raw_ring.cu``;
+* :func:`batch_step_ring_stacked` (median pipeline: COLORIZE / GRAYSCALE /
+  no maps), kernel ``csrc/median_ring.cu``;
+* :func:`absdiff_step_ring` / :func:`batch_step_ring`: one stream, the
+  stacked steps at s = 1.
 
-Both take the JAX functions' arguments in the same order and return the
-same tuples.  A wrapper given CUDA tensors launches its kernel (or raises);
-given CPU tensors it runs the plain PyTorch twin (``*_plain``), which
-mirrors the Pallas body frame by frame.  Nothing falls back from the card
-to the plain version.
+The stacked steps fold s streams along the row axis of one launch (the JAX
+package's row-stacked layout, (B, 3, s*Hp, Wp)), with per-stream flags,
+valid, ring offsets and seeds.  Every function takes the JAX function's
+arguments in the same order and returns the same tuple.  A wrapper given
+CUDA tensors launches its kernel (or raises); given CPU tensors it runs the
+plain PyTorch twin (``*_plain``), which mirrors the Pallas body frame by
+frame, stream by stream.  Nothing falls back from the card to the plain
+version.  Each wrapper counts its own launches (``fn.launches``).
 
 Carried state is updated in place: the kernels read ring / prev / baseline
 / heatmap once, keep them in registers for the batch, and write them back
 into the same tensors, which the functions also return (the JAX functions
 donate the same buffers).  The plain twins update in place too.
 
-Statistics leave the kernels as per-(frame, tile) partials; the final
-reduction over tiles (the counterpart of ``_reduce_stats``) runs here in
-plain torch.  The raw path keeps its partials in integers and sums them in
-int64 before the one float conversion.
+Statistics leave the kernels as per-(frame, stream, tile) partials; the
+final reduction over tiles (the counterpart of ``_reduce_stats``) runs here
+in plain torch.  The raw path keeps its partials in integers and sums them
+in int64 before the one float conversion.
 """
 
 from __future__ import annotations
@@ -60,10 +65,26 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _flag_list(x) -> list:
+def _host_rows(x, shape: tuple, name: str, key: str) -> np.ndarray:
+    """A per-stream argument (flags / valid (s, B), offsets / seeds (s,))
+    as a host int64 array of that shape."""
     if isinstance(x, torch.Tensor):
-        return [bool(v) for v in x.tolist()]
-    return [bool(v) for v in np.asarray(x).tolist()]
+        x = x.cpu().numpy()
+    a = np.asarray(x).astype(np.int64)
+    if a.shape != shape:
+        raise ValueError(f"{name}: {key} shape {a.shape} != {shape}")
+    return a
+
+
+def _one_stream(x, b: int, name: str, key: str):
+    """A single-stream (B,) flag vector as the (1, B) rows of the stacked
+    functions, on its own device."""
+    shape = tuple(x.shape) if isinstance(x, torch.Tensor) \
+        else np.shape(x)
+    if tuple(shape) != (b,):
+        raise ValueError(f"{name}: {key} shape {tuple(shape)} != ({b},)")
+    return x.reshape(1, b) if isinstance(x, torch.Tensor) \
+        else np.asarray(x).reshape(1, b)
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
@@ -85,12 +106,43 @@ def _check_cuda(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
-def _flags_i32(x, b: int, device: torch.device, name: str, key: str
-               ) -> torch.Tensor:
-    t = torch.as_tensor(x)
-    if tuple(t.shape) != (b,):
-        raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != ({b},)")
-    return t.to(device=device, dtype=torch.int32).contiguous()
+def _stream_i32(name: str, device: torch.device, items) -> list:
+    """Per-stream int32 kernel arguments ``[(key, value, shape), ...]`` ->
+    device tensors of those shapes, cut from one buffer: host values go up
+    in one copy, device values are concatenated on the device.
+
+    The uploads are non-blocking: a blocking copy synchronises the stream,
+    so every launch would wait for the previous one.  The source is
+    pageable memory, which the CUDA driver copies into its own staging
+    buffer before the call returns, so it may be freed at once."""
+    flat = []
+    for key, x, shape in items:
+        t = x if isinstance(x, torch.Tensor) \
+            else torch.from_numpy(np.asarray(x))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != "
+                             f"{shape}")
+        flat.append(t.reshape(-1))
+    if any(t.is_cuda for t in flat):
+        buf = torch.cat([t.to(device=device, dtype=torch.int32,
+                              non_blocking=True) for t in flat])
+    else:
+        buf = torch.cat([t.to(torch.int32) for t in flat]).to(
+            device, non_blocking=True)
+    views, i = [], 0
+    for t, (_, _, shape) in zip(flat, items):
+        views.append(buf[i:i + t.numel()].view(shape))
+        i += t.numel()
+    return views
+
+
+def _stream_rows(name: str, raw: torch.Tensor, s: int) -> int:
+    """One stream's padded height Hp of a row-stacked (B, 3, s*Hp, Wp)
+    batch."""
+    if raw.dim() != 4 or s < 1 or raw.shape[-2] % s:
+        raise ValueError(f"{name}: raw shape {tuple(raw.shape)} is not "
+                         f"(B, 3, {s}*Hp, Wp)")
+    return raw.shape[-2] // s
 
 
 def _route(name: str, raw: torch.Tensor) -> bool:
@@ -109,29 +161,30 @@ def _route(name: str, raw: torch.Tensor) -> bool:
 
 def reduce_raw_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
                      w: int) -> torch.Tensor:
-    """Integer partials (B, n_tiles, 4) -> (B, 4) float32 stats: channel-
-    mean signed and abs diff on [-1, 1], max |diff| / 255, changed count.
-    Sums are taken in int64 and converted to float32 once."""
-    p = parts.to(torch.int64)
+    """Integer partials (B, S, n_tiles, 4) -> (S, B, 4) float32 stats:
+    channel-mean signed and abs diff on [-1, 1], max |diff| / 255, changed
+    count.  Sums are taken in int64 and converted to float32 once."""
+    p = parts.transpose(0, 1).to(torch.int64)
     inv = _f32(1.0 / (3 * props.analysis_pixels(h, w) * 255))
     return torch.stack([
-        p[..., 0].sum(1).to(torch.float32) * inv,
-        p[..., 1].sum(1).to(torch.float32) * inv,
-        p[..., 2].amax(1).to(torch.float32) * _f32(1 / 255.0),
-        p[..., 3].sum(1).to(torch.float32),
+        p[..., 0].sum(-1).to(torch.float32) * inv,
+        p[..., 1].sum(-1).to(torch.float32) * inv,
+        p[..., 2].amax(-1).to(torch.float32) * _f32(1 / 255.0),
+        p[..., 3].sum(-1).to(torch.float32),
     ], dim=-1)
 
 
 def reduce_median_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
                         w: int) -> torch.Tensor:
-    """float32 partials (B, n_tiles, 4) -> (B, 4) stats: mean diff, mean
-    |diff|, max |diff|, changed count."""
+    """float32 partials (B, S, n_tiles, 4) -> (S, B, 4) stats: mean diff,
+    mean |diff|, max |diff|, changed count."""
+    p = parts.transpose(0, 1)
     inv = _f32(1.0 / props.analysis_pixels(h, w))
     return torch.stack([
-        parts[..., 0].sum(1) * inv,
-        parts[..., 1].sum(1) * inv,
-        parts[..., 2].amax(1),
-        parts[..., 3].sum(1),
+        p[..., 0].sum(-1) * inv,
+        p[..., 1].sum(-1) * inv,
+        p[..., 2].amax(-1),
+        p[..., 3].sum(-1),
     ], dim=-1)
 
 
@@ -153,14 +206,16 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
                             raw: torch.Tensor, prev: torch.Tensor,
                             baseline_raw: torch.Tensor, snap_flags,
                             heatmap: torch.Tensor, valid, seed):
-    """Plain twin of :func:`absdiff_step_ring`, frame by frame as the
-    Pallas body runs it."""
+    """Plain twin of one stream of the raw ring step, frame by frame as the
+    Pallas body runs it: raw (B, 3, Hp, Wp), flags / valid (B,), seed int
+    -> (out, stats (B, 4), prev, baseline, heatmap), state in place."""
     overall = props.method == DiPsMethod.OVERALL
     b = raw.shape[0]
     hp, wp = raw.shape[-2], raw.shape[-1]
     mode, c = _raw_out_mode(props)
     thr = props.change_threshold
-    flags, vals = _flag_list(snap_flags), _flag_list(valid)
+    flags = _host_rows(snap_flags, (b,), "absdiff_step_ring", "snap_flags")
+    vals = _host_rows(valid, (b,), "absdiff_step_ring", "valid")
     rm = None
     if props.roi is not None:
         rm = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
@@ -169,7 +224,7 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
     if not overall and int(seed):
         refi = raw[0].to(torch.int32)
     out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=raw.device)
-    parts = torch.empty((b, 1, 4), dtype=torch.int64, device=raw.device)
+    parts = torch.empty((b, 1, 1, 4), dtype=torch.int64, device=raw.device)
     heat = heatmap.clone()
     scale = _f32(1.0 / (3 * 255.0))
     for m in range(b):
@@ -185,10 +240,10 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
             sg_m, ad_m, dmax_m = sg, ad, dmax
         else:
             sg_m, ad_m, dmax_m = sg * rm, ad * rm, dmax * rm
-        parts[m, 0, 0] = sg_m.sum(dtype=torch.int64)
-        parts[m, 0, 1] = ad_m.sum(dtype=torch.int64)
-        parts[m, 0, 2] = dmax_m.amax()
-        parts[m, 0, 3] = (dmax_m >= thr).sum(dtype=torch.int64)
+        parts[m, 0, 0, 0] = sg_m.sum(dtype=torch.int64)
+        parts[m, 0, 0, 1] = ad_m.sum(dtype=torch.int64)
+        parts[m, 0, 0, 2] = dmax_m.amax()
+        parts[m, 0, 0, 3] = (dmax_m >= thr).sum(dtype=torch.int64)
         heat = heat + (ad_m.sum(0).to(torch.float32) * scale) \
             * float(vals[m])
         if mode == 1:
@@ -200,52 +255,118 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
     else:
         prev.copy_(refi.to(torch.uint8))
     heatmap.copy_(heat)
+    return (out, reduce_raw_stats(parts, props, h, w)[0], prev, baseline_raw,
+            heatmap)
+
+
+def absdiff_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
+                                    s: int, raw: torch.Tensor,
+                                    prev: torch.Tensor,
+                                    baseline_raw: torch.Tensor, snap_flags,
+                                    heatmap: torch.Tensor, valid, seeds):
+    """Plain twin of :func:`absdiff_step_ring_stacked`: the streams are
+    independent, so each stream's row section (a view) runs through
+    :func:`absdiff_step_ring_plain`, and its state is written back in
+    place."""
+    name = "absdiff_step_ring_stacked"
+    b = raw.shape[0]
+    hp = _stream_rows(name, raw, s)
+    flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
+    vals = _host_rows(valid, (s, b), name, "valid")
+    sd = _host_rows(seeds, (s,), name, "seeds")
+    outs, stats = [], []
+    for si in range(s):
+        r = slice(si * hp, (si + 1) * hp)
+        o, st, *_ = absdiff_step_ring_plain(
+            props, h, w, raw[:, :, r], prev[:, r], baseline_raw[:, r],
+            flags[si], heatmap[r], vals[si], sd[si])
+        outs.append(o)
+        stats.append(st)
+    return (torch.cat(outs, dim=2), torch.stack(stats), prev, baseline_raw,
+            heatmap)
+
+
+def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
+                raw: torch.Tensor, prev: torch.Tensor,
+                baseline_raw: torch.Tensor, snap_flags,
+                heatmap: torch.Tensor, valid, seeds):
+    """One launch of ``csrc/raw_ring.cu`` over s row-stacked streams."""
+    from . import _build
+    b, wp = raw.shape[0], raw.shape[-1]
+    hp = _stream_rows(name, raw, s)
+    dev = raw.device
+    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3, s * hp, wp)),
+                prev=(prev, torch.uint8, (3, s * hp, wp)),
+                baseline_raw=(baseline_raw, torch.uint8, (3, s * hp, wp)),
+                heatmap=(heatmap, torch.float32, (s * hp, wp)))
+    if wp % 16:
+        raise ValueError(f"{name}: Wp={wp} is not a multiple of 16")
+    flags, vals, sd = _stream_i32(name, dev, [
+        ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b)),
+        ("seeds", seeds, (s,))])
+    mode, c = _raw_out_mode(props)
+    n_tiles = -(-(hp * wp // 16) // 256)
+    out = torch.empty((b, c, s * hp, wp), dtype=torch.uint8, device=dev)
+    parts = torch.empty((b, s, n_tiles, 4), dtype=torch.int32, device=dev)
+    y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
+                      else props.roi_bounds(h, w))
+    rc = _build.lib().dips_raw_ring(
+        _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
+        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), _ptr(sd), s, b, hp,
+        wp, int(props.method == DiPsMethod.OVERALL), mode,
+        props.change_threshold, y0, x0, y1, x1, _f32(1.0 / (3 * 255.0)),
+        _stream_ptr(dev))
+    _build.check(rc, name)
     return (out, reduce_raw_stats(parts, props, h, w), prev, baseline_raw,
             heatmap)
+
+
+def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
+                              raw: torch.Tensor, prev: torch.Tensor,
+                              baseline_raw: torch.Tensor, snap_flags,
+                              heatmap: torch.Tensor, valid, seeds):
+    """Raw ring-carry step over ``s`` streams stacked along the rows.
+
+    raw u8 (B, 3, s*Hp, Wp), prev / baseline_raw u8 (3, s*Hp, Wp), heatmap
+    f32 (s*Hp, Wp), snap_flags / valid (s, B), seeds (s,) ->
+    (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), prev, baseline, heatmap),
+    C = 3 (ABSDIFF), 1 (THRESHOLD) or 0 (no map).  State is updated in
+    place and returned."""
+    name = "absdiff_step_ring_stacked"
+    if not _route(name, raw):
+        return absdiff_step_ring_stacked_plain(props, h, w, s, raw, prev,
+                                               baseline_raw, snap_flags,
+                                               heatmap, valid, seeds)
+    res = _launch_raw(name, props, h, w, s, raw, prev, baseline_raw,
+                      snap_flags, heatmap, valid, seeds)
+    absdiff_step_ring_stacked.launches += 1
+    return res
+
+
+absdiff_step_ring_stacked.launches = 0
 
 
 def absdiff_step_ring(props: DiPsProperties, h: int, w: int,
                       raw: torch.Tensor, prev: torch.Tensor,
                       baseline_raw: torch.Tensor, snap_flags,
                       heatmap: torch.Tensor, valid, seed):
-    """Raw ring-carry step.
+    """Raw ring-carry step of one stream: the stacked step at s = 1.
 
     raw u8 (B, 3, Hp, Wp), prev / baseline_raw u8 (3, Hp, Wp), heatmap f32
     (Hp, Wp), snap_flags / valid (B,), seed int ->
-    (out u8 (B, C, Hp, Wp), stats f32 (B, 4), prev, baseline, heatmap),
-    C = 3 (ABSDIFF), 1 (THRESHOLD) or 0 (no map).  State is updated in
-    place and returned."""
+    (out u8 (B, C, Hp, Wp), stats f32 (B, 4), prev, baseline, heatmap).
+    State is updated in place and returned."""
     name = "absdiff_step_ring"
+    b = raw.shape[0]
+    args = (props, h, w, 1, raw, prev, baseline_raw,
+            _one_stream(snap_flags, b, name, "snap_flags"), heatmap,
+            _one_stream(valid, b, name, "valid"), [int(seed)])
     if not _route(name, raw):
-        return absdiff_step_ring_plain(props, h, w, raw, prev, baseline_raw,
-                                       snap_flags, heatmap, valid, seed)
-    from . import _build
-    b, _, hp, wp = raw.shape
-    dev = raw.device
-    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3, hp, wp)),
-                prev=(prev, torch.uint8, (3, hp, wp)),
-                baseline_raw=(baseline_raw, torch.uint8, (3, hp, wp)),
-                heatmap=(heatmap, torch.float32, (hp, wp)))
-    if wp % 16:
-        raise ValueError(f"{name}: Wp={wp} is not a multiple of 16")
-    flags = _flags_i32(snap_flags, b, dev, name, "snap_flags")
-    vals = _flags_i32(valid, b, dev, name, "valid")
-    mode, c = _raw_out_mode(props)
-    n_tiles = -(-(hp * wp // 16) // 256)
-    out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=dev)
-    parts = torch.empty((b, n_tiles, 4), dtype=torch.int32, device=dev)
-    y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
-                      else props.roi_bounds(h, w))
-    rc = _build.lib().dips_raw_ring(
-        _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
-        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), b, hp, wp,
-        int(props.method == DiPsMethod.OVERALL), mode,
-        props.change_threshold, int(seed != 0), y0, x0, y1, x1,
-        _f32(1.0 / (3 * 255.0)), _stream_ptr(dev))
-    _build.check(rc, name)
-    absdiff_step_ring.launches += 1
-    return (out, reduce_raw_stats(parts, props, h, w), prev, baseline_raw,
-            heatmap)
+        out, stats, *state = absdiff_step_ring_stacked_plain(*args)
+    else:
+        out, stats, *state = _launch_raw(name, *args)
+        absdiff_step_ring.launches += 1
+    return (out, stats[0], *state)
 
 
 absdiff_step_ring.launches = 0
@@ -276,9 +397,11 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
                           prev: torch.Tensor, baseline: torch.Tensor,
                           snap_flags, heatmap: torch.Tensor, valid, offset,
                           seed):
-    """Plain twin of :func:`batch_step_ring`, frame by frame as the Pallas
-    body runs it (``approx_median`` and ``quirk_compat`` are not part of
-    this slice and raise)."""
+    """Plain twin of one stream of the median ring step, frame by frame as
+    the Pallas body runs it: raw (B, 3, Hp, Wp), flags / valid (B,),
+    offset / seed int -> (out, stats (B, 4), ring, prev, baseline,
+    heatmap), state in place (``approx_median`` and ``quirk_compat`` are
+    not part of this slice and raise)."""
     name = "batch_step_ring"
     _check_median_props(name, props)
     if props.approx_median or props.quirk_compat:
@@ -289,7 +412,8 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
     b = raw.shape[0]
     hp, wp = raw.shape[-2], raw.shape[-1]
     mode, c = _median_out_mode(props)
-    flags, vals = _flag_list(snap_flags), _flag_list(valid)
+    flags = _host_rows(snap_flags, (b,), name, "snap_flags")
+    vals = _host_rows(valid, (b,), name, "valid")
     off, seed = int(offset) % t, int(seed)
     mask = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
                           device=raw.device)
@@ -299,7 +423,7 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
     slots = [ring[k].clone() for k in range(t)]
     pv, base, heat = prev.clone(), baseline.clone(), heatmap.clone()
     out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=raw.device)
-    parts = torch.empty((b, 1, 4), dtype=torch.float32, device=raw.device)
+    parts = torch.empty((b, 1, 1, 4), dtype=torch.float32, device=raw.device)
     for m in range(b):
         phi = phis[m]
         if vals[m]:
@@ -321,10 +445,10 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
         rd = diff_i * ref.INTENSITY_SCALE
         dm = rd * mask
         am = dm.abs()
-        parts[m, 0, 0] = dm.sum()
-        parts[m, 0, 1] = am.sum()
-        parts[m, 0, 2] = am.amax()
-        parts[m, 0, 3] = (am >= thr).to(torch.float32).sum()
+        parts[m, 0, 0, 0] = dm.sum()
+        parts[m, 0, 0, 1] = am.sum()
+        parts[m, 0, 0, 2] = am.amax()
+        parts[m, 0, 0, 3] = (am >= thr).to(torch.float32).sum()
         heat = heat + am * float(vals[m])
         if mode == 0:
             continue
@@ -350,26 +474,44 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
     else:
         prev.copy_(pv)
     heatmap.copy_(heat)
-    return (out, reduce_median_stats(parts, props, h, w), ring, prev,
+    return (out, reduce_median_stats(parts, props, h, w)[0], ring, prev,
             baseline, heatmap)
 
 
-def batch_step_ring(props: DiPsProperties, h: int, w: int,
-                    raw: torch.Tensor, ring: torch.Tensor,
-                    prev: torch.Tensor, baseline: torch.Tensor, snap_flags,
-                    heatmap: torch.Tensor, valid, offset, seed):
-    """Median ring-carry step.
+def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
+                                  s: int, raw: torch.Tensor,
+                                  ring: torch.Tensor, prev: torch.Tensor,
+                                  baseline: torch.Tensor, snap_flags,
+                                  heatmap: torch.Tensor, valid, offsets,
+                                  seeds):
+    """Plain twin of :func:`batch_step_ring_stacked`: the streams are
+    independent and the halo stops at each stream's rows, so each stream's
+    row section (a view) runs through :func:`batch_step_ring_plain`, and
+    its state is written back in place."""
+    name = "batch_step_ring_stacked"
+    b = raw.shape[0]
+    hp = _stream_rows(name, raw, s)
+    flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
+    vals = _host_rows(valid, (s, b), name, "valid")
+    offs = _host_rows(offsets, (s,), name, "offsets")
+    sd = _host_rows(seeds, (s,), name, "seeds")
+    outs, stats = [], []
+    for si in range(s):
+        r = slice(si * hp, (si + 1) * hp)
+        o, st, *_ = batch_step_ring_plain(
+            props, h, w, raw[:, :, r], ring[:, r], prev[r], baseline[r],
+            flags[si], heatmap[r], vals[si], offs[si], sd[si])
+        outs.append(o)
+        stats.append(st)
+    return (torch.cat(outs, dim=2), torch.stack(stats), ring, prev,
+            baseline, heatmap)
 
-    raw u8 (B, 3, Hp, Wp), ring f32 (T, Hp, Wp), prev / baseline / heatmap
-    f32 (Hp, Wp), snap_flags / valid (B,), offset / seed int ->
-    (out u8 (B, C, Hp, Wp), stats f32 (B, 4), ring, prev, baseline,
-    heatmap), C = 3 (COLORIZE), 1 (GRAYSCALE) or 0 (``emit_maps=False``).
-    State is updated in place and returned."""
-    name = "batch_step_ring"
-    if not _route(name, raw):
-        return batch_step_ring_plain(props, h, w, raw, ring, prev, baseline,
-                                     snap_flags, heatmap, valid, offset,
-                                     seed)
+
+def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
+                   raw: torch.Tensor, ring: torch.Tensor, prev: torch.Tensor,
+                   baseline: torch.Tensor, snap_flags, heatmap: torch.Tensor,
+                   valid, offsets, seeds):
+    """One launch of ``csrc/median_ring.cu`` over s row-stacked streams."""
     _check_median_props(name, props)
     if props.approx_median or props.quirk_compat:
         raise NotImplementedError(
@@ -377,47 +519,106 @@ def batch_step_ring(props: DiPsProperties, h: int, w: int,
             f"mode yet")
     from . import _build
     t = props.temporal_size
-    b, _, hp, wp = raw.shape
+    b, wp = raw.shape[0], raw.shape[-1]
+    hp = _stream_rows(name, raw, s)
     dev = raw.device
-    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3, hp, wp)),
-                ring=(ring, torch.float32, (t, hp, wp)),
-                prev=(prev, torch.float32, (hp, wp)),
-                baseline=(baseline, torch.float32, (hp, wp)),
-                heatmap=(heatmap, torch.float32, (hp, wp)))
+    plane = (s * hp, wp)
+    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3) + plane),
+                ring=(ring, torch.float32, (t,) + plane),
+                prev=(prev, torch.float32, plane),
+                baseline=(baseline, torch.float32, plane),
+                heatmap=(heatmap, torch.float32, plane))
     if hp % 8 or wp % 32:
         raise ValueError(f"{name}: padded geometry {hp}x{wp} must be a "
                          f"multiple of 8 x 32")
-    flags = _flags_i32(snap_flags, b, dev, name, "snap_flags")
-    vals = _flags_i32(valid, b, dev, name, "valid")
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets % t
+    else:
+        offsets = np.asarray(offsets) % t
+    flags, vals, offs, sd = _stream_i32(name, dev, [
+        ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b)),
+        ("offsets", offsets, (s,)), ("seeds", seeds, (s,))])
     mode, c = _median_out_mode(props)
     n_tiles = (hp // 8) * (wp // 32)
-    out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=dev)
-    parts = torch.empty((b, n_tiles, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((b, c) + plane, dtype=torch.uint8, device=dev)
+    parts = torch.empty((b, s, n_tiles, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = props.roi_bounds(h, w)
     rc = _build.lib().dips_median_ring(
         _ptr(raw), _ptr(ring), _ptr(prev), _ptr(baseline), _ptr(heatmap),
-        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), b, hp, wp, t,
-        props.window_size, int(offset) % t, int(seed != 0),
+        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), _ptr(offs),
+        _ptr(sd), s, b, hp, wp, t, props.window_size,
         int(props.method == DiPsMethod.OVERALL), mode,
         _CHROMA_CODE[props.chroma], _FILTER_CODE[props.filter],
         _f32(props.sigmoid_horizontal_scalar), _f32(props.sensitivity),
         _f32(-0.5 + ref.INV_SIGMOID_EPS), _f32(0.5 - ref.INV_SIGMOID_EPS),
-        ref.INTENSITY_SCALE, _change_thr(props), y0, x0, y1, x1, _stream_ptr(dev))
+        ref.INTENSITY_SCALE, _change_thr(props), y0, x0, y1, x1,
+        _stream_ptr(dev))
     _build.check(rc, name)
-    batch_step_ring.launches += 1
     return (out, reduce_median_stats(parts, props, h, w), ring, prev,
             baseline, heatmap)
 
 
+def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
+                            raw: torch.Tensor, ring: torch.Tensor,
+                            prev: torch.Tensor, baseline: torch.Tensor,
+                            snap_flags, heatmap: torch.Tensor, valid,
+                            offsets, seeds):
+    """Median ring-carry step over ``s`` streams stacked along the rows.
+
+    raw u8 (B, 3, s*Hp, Wp), ring f32 (T, s*Hp, Wp), prev / baseline /
+    heatmap f32 (s*Hp, Wp), snap_flags / valid (s, B), offsets / seeds (s,)
+    -> (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), ring, prev, baseline,
+    heatmap), C = 3 (COLORIZE), 1 (GRAYSCALE) or 0 (``emit_maps=False``).
+    The spatial halo stops at each stream's rows.  State is updated in place
+    and returned."""
+    name = "batch_step_ring_stacked"
+    if not _route(name, raw):
+        return batch_step_ring_stacked_plain(props, h, w, s, raw, ring, prev,
+                                             baseline, snap_flags, heatmap,
+                                             valid, offsets, seeds)
+    res = _launch_median(name, props, h, w, s, raw, ring, prev, baseline,
+                         snap_flags, heatmap, valid, offsets, seeds)
+    batch_step_ring_stacked.launches += 1
+    return res
+
+
+batch_step_ring_stacked.launches = 0
+
+
+def batch_step_ring(props: DiPsProperties, h: int, w: int,
+                    raw: torch.Tensor, ring: torch.Tensor,
+                    prev: torch.Tensor, baseline: torch.Tensor, snap_flags,
+                    heatmap: torch.Tensor, valid, offset, seed):
+    """Median ring-carry step of one stream: the stacked step at s = 1.
+
+    raw u8 (B, 3, Hp, Wp), ring f32 (T, Hp, Wp), prev / baseline / heatmap
+    f32 (Hp, Wp), snap_flags / valid (B,), offset / seed int ->
+    (out u8 (B, C, Hp, Wp), stats f32 (B, 4), ring, prev, baseline,
+    heatmap).  State is updated in place and returned."""
+    name = "batch_step_ring"
+    b = raw.shape[0]
+    args = (props, h, w, 1, raw, ring, prev, baseline,
+            _one_stream(snap_flags, b, name, "snap_flags"), heatmap,
+            _one_stream(valid, b, name, "valid"), [int(offset)], [int(seed)])
+    if not _route(name, raw):
+        out, stats, *state = batch_step_ring_stacked_plain(*args)
+    else:
+        out, stats, *state = _launch_median(name, *args)
+        batch_step_ring.launches += 1
+    return (out, stats[0], *state)
+
+
 batch_step_ring.launches = 0
+
+_KERNELS = (absdiff_step_ring, batch_step_ring, absdiff_step_ring_stacked,
+            batch_step_ring_stacked)
 
 
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counts to 0."""
-    absdiff_step_ring.launches = 0
-    batch_step_ring.launches = 0
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _KERNELS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"absdiff_step_ring": absdiff_step_ring.launches,
-            "batch_step_ring": batch_step_ring.launches}
+    return {fn.__name__: fn.launches for fn in _KERNELS}

@@ -1,0 +1,488 @@
+"""MultiStreamEngine: a fleet of video streams through one stacked launch.
+
+Counterpart of ``dips_tpu/parallel/multistream.py`` on one device, on the
+ring-carry protocol (the JAX engine's default on its fast backend, where it
+builds ``make_sharded_ring_step``).  All S streams fold along the row axis
+of ONE launch of the stacked ring kernels per batch
+(``ops/cuda_fused.absdiff_step_ring_stacked`` / ``batch_step_ring_stacked``).
+
+The engine owns its state row-stacked on ``device``, in the kernels' own
+layout: ring (T, S*Hp, Wp), prev / baseline (3 or 1, S*Hp, Wp), heatmap
+(S*Hp, Wp); stream ``si`` owns rows [si*Hp, (si+1)*Hp).  Each batch is
+staged straight into the row-stacked planar input (B, 3, S*Hp, Wp), seen as
+(B, 3, S, Hp, Wp), so the fleet pays no transpose copy per batch.
+
+Per batch: the frames go into one persistent (S, B, H, W, 3) host buffer
+(pinned on a card), up in one copy, through the layout prep on the device
+(permute, optional BGR flip, zero pad), one kernel launch, then crop and
+interleave on the device to (S, n, H, W, C) before one download.
+
+Checkpoints are byte-compatible with the JAX engine's in both directions:
+the fleet's ``save`` / ``load`` and one slot's ``save_stream`` /
+``load_stream`` (``DiPsEngine``'s format, so a slot moves to and from a
+single-stream engine of either package).  They hold raw planar u8 tails;
+after a load the ring is rebuilt from them with one stacked launch.
+
+Not in this slice: the tail protocol (``ring_carry=False``),
+``packed_wire``, ``downscale``, the planar upload layout, and meshes (the
+port runs on one device); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import StreamError
+from ..models.pipeline import resolve_device
+from ..ops import cuda_fused, reference
+from ..ops.reference import NUM_STATS, pad_geometry
+from ..properties import DiPsProperties, OutputMode
+
+_RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
+              OutputMode.STATS_ONLY)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy that never aliases engine state (also on the CPU)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+class MultiStreamEngine:
+    """Batch runner over S parallel streams with per-stream failure
+    isolation; feed one frame list per stream.
+
+    Args:
+      props: pipeline configuration, shared by every stream.
+      height, width: true frame geometry, shared by every stream.
+      n_streams: S.
+      batch: frames per stream per launch (B).
+      device: "cuda", "cuda:N", "cpu" or None (the card when present).  On
+        the CPU the kernels' plain PyTorch twins run.
+      input_layout: "hwc" (RGB frames) or "hwc_bgr" (cv2's BGR order,
+        swapped on the device in the same copy).
+      ring_carry, packed_wire, downscale: accepted for signature parity
+        with the JAX engine; only the defaults are ported.
+      slab_impl: "bands" or "extended", validated for parity and ignored
+        (it shapes 2-D meshes, which the port does not have).
+    """
+
+    def __init__(self, props: DiPsProperties, height: int, width: int,
+                 n_streams: int, batch: int = 8, device=None,
+                 input_layout: str = "hwc", ring_carry: bool = True,
+                 packed_wire: bool = False, downscale: int = 1,
+                 slab_impl: str = "bands"):
+        if slab_impl not in ("bands", "extended"):
+            raise ValueError(f"unknown slab_impl {slab_impl!r}")
+        if height <= 0 or width <= 0:
+            raise ValueError(f"bad geometry {height}x{width}")
+        if n_streams < 1:
+            raise ValueError("n_streams must be >= 1")
+        if batch < 1:
+            raise ValueError("batch must be >= 1")
+        if not ring_carry:
+            raise NotImplementedError(
+                "the tail protocol (ring_carry=False) is not ported: the "
+                "port runs the ring-carry protocol only")
+        if packed_wire:
+            raise NotImplementedError("packed_wire is not ported yet")
+        if int(downscale) != 1:
+            raise NotImplementedError("downscale is not ported yet")
+        self.props = props
+        self.height, self.width = int(height), int(width)
+        props.roi_bounds(self.height, self.width)  # fail early on a bad roi
+        self.hp, self.wp = pad_geometry(self.height, self.width)
+        self.n_streams, self.batch = int(n_streams), int(batch)
+        self.device = resolve_device(device)
+        self.input_layout = input_layout
+        self._swap_rb, self._prep = reference.make_layout_prep(
+            input_layout, self.height, self.width, self.hp, self.wp)
+        self._raw_mode = props.output in _RAW_MODES
+        s, b = self.n_streams, self.batch
+        frames = (s, b, self.height, self.width, 3)
+        # persistent staging: host rows a batch does not write are re-zeroed
+        # (``_stage_written``), so the staged bytes equal fresh zeros
+        on_card = self.device.type == "cuda"
+        self._host = torch.zeros(frames, dtype=torch.uint8,
+                                 pin_memory=on_card)
+        self._host_np = self._host.numpy()
+        self._hwc = (torch.empty(frames, dtype=torch.uint8,
+                                 device=self.device) if on_card
+                     else self._host)
+        self._stage_written: set = set()
+        # row-stacked planar input: the padding stays zero, only the true
+        # region of each stream is rewritten per batch
+        self._planar = torch.zeros((b, 3, s * self.hp, self.wp),
+                                   dtype=torch.uint8, device=self.device)
+        self.reset()
+
+    # -- state ------------------------------------------------------------
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _rows(self, stream: int) -> slice:
+        """Stream ``stream``'s rows of the row-stacked state."""
+        return slice(stream * self.hp, (stream + 1) * self.hp)
+
+    def _zero_carry(self) -> None:
+        """Fresh ring (median modes) and prev."""
+        rows = (self.n_streams * self.hp, self.wp)
+        self._ring = None
+        if self._raw_mode:
+            self._prev = self._zeros((3,) + rows, torch.uint8)
+        else:
+            self._ring = self._zeros((self.props.temporal_size,) + rows,
+                                     torch.float32)
+            self._prev = self._zeros(rows, torch.float32)
+
+    def reset(self) -> None:
+        """Clear every stream's state (cursors, tails, ring, baseline,
+        heatmap, failures)."""
+        s = self.n_streams
+        rows = (s * self.hp, self.wp)
+        self.frame_cursors: List[int] = [0] * s
+        # entries: (H, W, 3) frames in the input layout, or planar
+        # (3, Hp, Wp) frames from a checkpoint; planarized on demand
+        self._tails: List[Optional[list]] = [None] * s
+        if self._raw_mode:
+            self._baseline = self._zeros((3,) + rows, torch.uint8)
+        else:
+            self._baseline = self._zeros(rows, torch.float32)
+        self._heatmap = self._zeros(rows, torch.float32)
+        self._zero_carry()
+        self._ring_offs = [0] * s
+        self._snap_pending = [False] * s
+        self.failed: Dict[int, StreamError] = {}
+
+    def snapshot(self, stream: Optional[int] = None) -> None:
+        """Force a baseline re-capture on the next processed frame of one
+        stream, or of every stream."""
+        if stream is None:
+            self._snap_pending = [True] * self.n_streams
+        else:
+            self._snap_pending[stream] = True
+
+    @property
+    def frame_index(self) -> int:
+        """Furthest per-stream cursor (streams advance independently)."""
+        return max(self.frame_cursors, default=0)
+
+    def revive(self, stream: int) -> None:
+        """Clear a stream's failure; it continues from its old state
+        (cursor, baseline and ring are kept)."""
+        self.failed.pop(stream, None)
+
+    def reset_stream(self, stream: int) -> None:
+        """Clear a stream's failure and restart it fresh: cursor 0 (its next
+        frame captures the baseline), no tail, and its rows of the baseline,
+        heatmap, ring and prev zeroed.  The other streams are untouched."""
+        self.failed.pop(stream, None)
+        self.frame_cursors[stream] = 0
+        self._snap_pending[stream] = False
+        self._tails[stream] = None
+        self._ring_offs[stream] = 0
+        r = self._rows(stream)
+        for state in (self._baseline, self._heatmap, self._ring,
+                      self._prev):
+            if state is not None:
+                state[..., r, :] = 0
+
+    def heatmaps(self) -> np.ndarray:
+        """(S, H, W) accumulated |diff| heatmaps, cropped."""
+        hm = self._heatmap.view(self.n_streams, self.hp, self.wp)
+        return _to_host(hm[:, :self.height, :self.width])
+
+    def _planar_tail(self, stream: int) -> Optional[np.ndarray]:
+        """Stream ``stream``'s tail as planar RGB (T, 3, Hp, Wp) u8."""
+        tl = self._tails[stream]
+        if tl is None:
+            return None
+        return np.stack([
+            f if f.shape == (3, self.hp, self.wp)
+            else reference.planarize_host(f, self.hp, self.wp,
+                                          swap_rb=self._swap_rb)
+            for f in tl])
+
+    def _tail_from_checkpoint(self, tail) -> list:
+        """Checkpoint tail frames -> the last T planar frames; a short tail
+        replicates its oldest frame up to T (the seeding rule)."""
+        t = self.props.temporal_size
+        tl = [np.asarray(f, np.uint8) for f in tail][-t:]
+        if not tl:
+            raise ValueError("checkpoint tail holds no frame")
+        if tl[0].shape != (3, self.hp, self.wp):
+            raise ValueError(f"checkpoint tail frame shape {tl[0].shape} != "
+                             f"{(3, self.hp, self.wp)}")
+        return [tl[0]] * (t - len(tl)) + tl
+
+    # -- checkpoint / resume ----------------------------------------------
+    def _per_stream(self, x: torch.Tensor) -> np.ndarray:
+        """Row-stacked state (3, S*Hp, Wp) or (S*Hp, Wp) -> the JAX
+        engine's per-stream (S, 3, Hp, Wp) or (S, Hp, Wp), on the host."""
+        s, hp, wp = self.n_streams, self.hp, self.wp
+        if x.dim() == 3:
+            x = x.view(3, s, hp, wp).permute(1, 0, 2, 3)
+        else:
+            x = x.view(s, hp, wp)
+        return np.ascontiguousarray(_to_host(x))
+
+    def _from_per_stream(self, a: np.ndarray) -> torch.Tensor:
+        """The inverse of :meth:`_per_stream`: a row-stacked copy on the
+        device."""
+        t = torch.from_numpy(np.array(a))  # a private copy
+        if t.dim() == 4:
+            t = t.permute(1, 0, 2, 3)
+        rows = (self.n_streams * self.hp, self.wp)
+        return t.reshape(t.shape[:-3] + rows).to(self.device)
+
+    def state_dict(self) -> dict:
+        """Fleet state in the JAX engine's format: per-stream cursors,
+        baseline (S, [3,] Hp, Wp), heatmap (S, Hp, Wp), planar tails and
+        the failed streams."""
+        return {
+            "frame_cursors": list(self.frame_cursors),
+            "baseline": self._per_stream(self._baseline),
+            "heatmap": self._per_stream(self._heatmap),
+            "tails": [self._planar_tail(si) for si in range(self.n_streams)],
+            "failed": sorted(self.failed),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        s, hp, wp = self.n_streams, self.hp, self.wp
+        bl = np.asarray(state["baseline"])
+        expect = (s, 3, hp, wp) if self._raw_mode else (s, hp, wp)
+        if bl.shape != expect:
+            raise ValueError(f"checkpoint baseline shape {bl.shape} != "
+                             f"engine's expected {expect}")
+        if len(state["frame_cursors"]) != s:
+            raise ValueError("checkpoint stream count mismatch")
+        hm = np.asarray(state["heatmap"], np.float32)
+        if hm.shape != (s, hp, wp):
+            raise ValueError(f"checkpoint heatmap shape {hm.shape} != "
+                             f"{(s, hp, wp)}")
+        self.frame_cursors = [int(c) for c in state["frame_cursors"]]
+        dtype = np.uint8 if self._raw_mode else np.float32
+        self._baseline = self._from_per_stream(bl.astype(dtype))
+        self._heatmap = self._from_per_stream(hm)
+        self._tails = [None if tl is None
+                       else self._tail_from_checkpoint(tl)
+                       for tl in state["tails"]]
+        self.failed = {
+            int(si): StreamError(int(si),
+                                 RuntimeError("restored from checkpoint"))
+            for si in state.get("failed", ())}
+        # a snapshot requested before the restore must not fire after it
+        self._snap_pending = [False] * s
+        self._rebuild_ring_state()
+
+    def _rebuild_ring_state(self) -> None:
+        """Rebuild the carried ring / prev of every stream from its raw
+        tail: one stacked launch over the T tail frames with inert capture
+        flags, valid and seed 1 for each stream that has a tail, and a
+        scratch heatmap; outputs are discarded.  Streams without a tail
+        keep zero state and seed on their first frame."""
+        s, t, hp = self.n_streams, self.props.temporal_size, self.hp
+        self._ring_offs = [0] * s
+        self._zero_carry()
+        has = np.asarray([tl is not None for tl in self._tails])
+        if not has.any():
+            return
+        tail = np.zeros((t, 3, s * hp, self.wp), np.uint8)
+        for si in np.flatnonzero(has):
+            tail[:, :, self._rows(si)] = self._planar_tail(si)
+        raw = torch.from_numpy(tail).to(self.device)
+        flags = np.zeros((s, t), np.bool_)
+        valid = np.repeat(has[:, None], t, axis=1)
+        seeds = has.astype(np.int32)
+        scratch = self._zeros((s * hp, self.wp), torch.float32)
+        if self._raw_mode:
+            cuda_fused.absdiff_step_ring_stacked(
+                self.props, self.height, self.width, s, raw, self._prev,
+                self._baseline, flags, scratch, valid, seeds)
+        else:
+            cuda_fused.batch_step_ring_stacked(
+                self.props, self.height, self.width, s, raw, self._ring,
+                self._prev, self._baseline, flags, scratch, valid,
+                np.zeros((s,), np.int32), seeds)
+
+    # -- per-stream checkpoints (DiPsEngine's format) -----------------------
+    def stream_state_dict(self, stream: int) -> dict:
+        """One slot's state in ``DiPsEngine.state_dict`` form."""
+        r = self._rows(stream)
+        return {
+            "frame_index": self.frame_cursors[stream],
+            "baseline": _to_host(self._baseline[..., r, :]),
+            "heatmap": _to_host(self._heatmap[r]),
+            "tail": self._planar_tail(stream),
+        }
+
+    def load_stream_state(self, stream: int, state: dict) -> None:
+        """Restore one slot from a ``DiPsEngine``-format state dict; the
+        other slots keep their state (their ring is rebuilt bit-exactly
+        from the raw tails the engine carries)."""
+        bl = np.asarray(state["baseline"])
+        expect = ((3, self.hp, self.wp) if self._raw_mode
+                  else (self.hp, self.wp))
+        if bl.shape != expect:
+            raise ValueError(f"checkpoint baseline shape {bl.shape} != "
+                             f"engine's expected per-stream {expect}")
+        tail = state.get("tail")
+        self._tails[stream] = (None if tail is None
+                               else self._tail_from_checkpoint(tail))
+        self.failed.pop(stream, None)
+        self._snap_pending[stream] = False
+        self.frame_cursors[stream] = int(state["frame_index"])
+        r = self._rows(stream)
+        self._baseline[..., r, :] = torch.from_numpy(np.array(
+            bl, dtype=np.uint8 if self._raw_mode else np.float32))
+        hm = state.get("heatmap")
+        if hm is not None:
+            self._heatmap[r] = torch.from_numpy(np.array(hm, np.float32))
+        self._rebuild_ring_state()
+
+    def save_stream(self, stream: int, path: str) -> None:
+        """Checkpoint one slot (``DiPsEngine.save``'s npz keys)."""
+        st = self.stream_state_dict(stream)
+        np.savez_compressed(
+            path, frame_index=st["frame_index"], baseline=st["baseline"],
+            heatmap=st["heatmap"],
+            tail=st["tail"] if st["tail"] is not None
+            else np.zeros((0,), np.uint8),
+            geometry=np.asarray([self.height, self.width], np.int64))
+
+    def load_stream(self, stream: int, path: str) -> None:
+        z = np.load(path)
+        if "geometry" in z.files:
+            gh, gw = (int(v) for v in z["geometry"])
+            if (gh, gw) != (self.height, self.width):
+                raise ValueError(f"checkpoint geometry {gh}x{gw} != engine "
+                                 f"{self.height}x{self.width}")
+        tail = z["tail"]
+        self.load_stream_state(stream, {
+            "frame_index": int(z["frame_index"]),
+            "baseline": z["baseline"],
+            "heatmap": z["heatmap"],
+            "tail": tail if tail.size else None,
+        })
+
+    def save(self, path: str) -> None:
+        """Persist the fleet (the JAX engine's .npz format)."""
+        st = self.state_dict()
+        t = self.props.temporal_size
+        tails = np.stack([
+            tl if tl is not None
+            else np.zeros((t, 3, self.hp, self.wp), np.uint8)
+            for tl in st["tails"]])
+        has_tail = np.asarray([tl is not None for tl in st["tails"]])
+        np.savez_compressed(
+            path, frame_cursors=np.asarray(st["frame_cursors"]),
+            baseline=st["baseline"], heatmap=st["heatmap"], tails=tails,
+            has_tail=has_tail, failed=np.asarray(st["failed"], np.int64))
+
+    def load(self, path: str) -> None:
+        z = np.load(path)
+        self.load_state_dict({
+            "frame_cursors": z["frame_cursors"].tolist(),
+            "baseline": z["baseline"],
+            "heatmap": z["heatmap"],
+            "tails": [z["tails"][i] if z["has_tail"][i] else None
+                      for i in range(z["tails"].shape[0])],
+            "failed": z["failed"].tolist(),
+        })
+
+    # -- the batch ----------------------------------------------------------
+    def process_batch(self, frames_per_stream: Sequence[Sequence[np.ndarray]]
+                      ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Process up to ``batch`` (H, W, 3) uint8 frames for each of the S
+        streams.
+
+        Streams may pass different counts (an exhausted or dead stream
+        passes an empty list); n is the largest.  Returns (out uint8
+        (S, n, H, W, C), stats float32 (S, n, 4), the mean |diff| over the
+        valid slots).  A stream given a frame of the wrong shape is
+        isolated into ``failed`` (a :class:`StreamError`); the others run.
+        """
+        s, t, b = self.n_streams, self.props.temporal_size, self.batch
+        h, w, c = self.height, self.width, self.props.out_channels
+        if len(frames_per_stream) != s:
+            raise ValueError(f"expected {s} streams")
+        n = max((len(f) for f in frames_per_stream), default=0)
+        if n == 0:
+            return (np.zeros((s, 0, h, w, c), np.uint8),
+                    np.zeros((s, 0, NUM_STATS), np.float32), 0.0)
+        if n > b:
+            raise ValueError(f"{n} frames > batch {b}")
+        buf = self._host_np
+        flags = np.zeros((s, b), np.bool_)
+        valid = np.zeros((s, b), np.bool_)
+        seeds = np.zeros((s,), np.int32)
+        offsets = np.asarray(self._ring_offs, np.int32)
+        written = set()
+        for si, frames in enumerate(frames_per_stream):
+            if si in self.failed:
+                continue  # dead stream: nothing to stage
+            bad = [np.shape(f) for f in frames if np.shape(f) != (h, w, 3)]
+            if bad:  # isolate the stream; its siblings run on
+                self.failed[si] = StreamError(si, ValueError(
+                    f"frame shape {bad[0]} != {(h, w, 3)}"))
+                continue
+            n_si = len(frames)
+            if not n_si:
+                continue
+            for i, f in enumerate(frames):
+                buf[si, i] = f
+            # slots past n_si hold replicas of the last frame; the kernel
+            # reads them as invalid and leaves the carried state alone
+            buf[si, n_si:] = buf[si, n_si - 1]
+            if self._tails[si] is None:
+                self._tails[si] = [buf[si, 0].copy()] * t
+                seeds[si] = 1
+            self._tails[si] = (self._tails[si] + [
+                buf[si, i].copy() for i in range(max(0, n_si - t), n_si)
+            ])[-t:]
+            valid[si, :n_si] = True
+            # markers fire on each stream's own cursor
+            cursor = self.frame_cursors[si]
+            for i in range(n_si):
+                flags[si, i] = (cursor + i == 0 or
+                                cursor + i in self.props.refresh_markers)
+            if self._snap_pending[si]:
+                flags[si, 0] = True
+                self._snap_pending[si] = False
+            self.frame_cursors[si] = cursor + n_si
+            self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
+            written.add(si)
+        for si in self._stage_written - written:
+            buf[si] = 0  # stale frames of a stream that went quiet or died
+        self._stage_written = written
+
+        if self._hwc is not self._host:
+            self._hwc.copy_(self._host, non_blocking=True)
+        raw = self._planar
+        # (B, 3, S*Hp, Wp) seen as (S, B, 3, Hp, Wp): the prep writes each
+        # stream's true region in place
+        self._prep(self._hwc, out=raw.view(b, 3, s, self.hp, self.wp)
+                   .permute(2, 0, 1, 3, 4))
+        if self._raw_mode:
+            out, stats, *_ = cuda_fused.absdiff_step_ring_stacked(
+                self.props, h, w, s, raw, self._prev, self._baseline, flags,
+                self._heatmap, valid, seeds)
+        else:
+            out, stats, *_ = cuda_fused.batch_step_ring_stacked(
+                self.props, h, w, s, raw, self._ring, self._prev,
+                self._baseline, flags, self._heatmap, valid, offsets, seeds)
+        # crop + interleave on the device: one download of the maps
+        if c:
+            maps = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
+            maps = maps.permute(2, 0, 3, 4, 1).contiguous().cpu().numpy()
+        else:
+            maps = np.empty((s, n, h, w, 0), np.uint8)
+        stats_t = stats[:, :n].cpu()
+        # mean |diff| over valid slots only: padding replicas and dead
+        # streams stay out of the aggregate
+        vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
+        gmean = float((stats_t[..., 1] * vw).sum()
+                      / torch.clamp(vw.sum(), min=1.0))
+        return maps, stats_t.numpy(), gmean

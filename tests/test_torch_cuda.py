@@ -182,3 +182,145 @@ def test_unsupported_modes_raise_on_cuda(cuda):
     with pytest.raises(TypeError):  # a float frame is not a u8 frame
         cuda_fused.batch_step_ring(DiPsProperties(), H, W, raw.float(), ring,
                                    prev, base, flags, heat, flags, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# stacked streams: S streams along the rows of one launch
+# ---------------------------------------------------------------------------
+
+SH, SW, S = 64, 200, 3  # SH % 8 == 0: no padding rows between streams
+
+STACKED_CASES = [
+    DiPsProperties(output=OutputMode.ABSDIFF),
+    DiPsProperties(method=DiPsMethod.PER_FRAME, output=OutputMode.THRESHOLD,
+                   change_threshold=20, roi=(4, 10, 50, 150)),
+    DiPsProperties(),
+    DiPsProperties(method=DiPsMethod.PER_FRAME, output=OutputMode.GRAYSCALE,
+                   filter=DiPsFilter.INVERSE_SIGMOID, window_size=7,
+                   temporal_size=3, roi=(2, 5, 60, 190)),
+]
+
+
+def make_stacked(b, seed):
+    """(B, 3, S*Hp, Wp): a moving square over noise, then a black and a
+    white stream, so a tap or mask that crosses a stream edge shows."""
+    hp, wp = pad_geometry(SH, SW)
+    raw = np.zeros((b, 3, S * hp, wp), np.uint8)
+    raw[:, :, :hp] = make_raw(b, SH, SW, seed)
+    raw[:, :, 2 * hp:2 * hp + SH, :SW] = 255
+    for i in range(b):  # a gray bar moving through the black stream
+        raw[i, :, hp + 30:hp + 34, 10 + 9 * i:18 + 9 * i] = 128
+    return raw
+
+
+def _stacked_state(props, hp, wp, device):
+    t, rows = props.temporal_size, (S * hp, wp)
+    if props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD):
+        return [torch.zeros((3,) + rows, dtype=torch.uint8, device=device)
+                for _ in range(2)] + [torch.zeros(rows, device=device)]
+    return [torch.zeros((t,) + rows, device=device)] + [
+        torch.zeros(rows, device=device) for _ in range(3)]
+
+
+def _run_stacked(fn, props, x, st, flags, valid, offs, seeds):
+    if props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD):
+        return fn(props, SH, SW, S, x, st[0], st[1], flags, st[2], valid,
+                  seeds)
+    return fn(props, SH, SW, S, x, *st[:3], flags, st[3], valid, offs,
+              seeds)
+
+
+@pytest.mark.parametrize("props", STACKED_CASES)
+def test_stacked_kernels_match_plain(cuda, props):
+    hp, wp = pad_geometry(SH, SW)
+    raw = torch.from_numpy(make_stacked(12, 4)).to(cuda)
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD)
+    kernel, plain = ((cuda_fused.absdiff_step_ring_stacked,
+                      cuda_fused.absdiff_step_ring_stacked_plain) if raw_mode
+                     else (cuda_fused.batch_step_ring_stacked,
+                           cuda_fused.batch_step_ring_stacked_plain))
+    states = [_stacked_state(props, hp, wp, cuda) for _ in range(2)]
+    t = props.temporal_size
+    dev = lambda a: torch.tensor(a, dtype=torch.bool, device=cuda)
+    batches = [  # mixed seeds and offsets, stream 2 all-invalid first
+        (raw[:6], [[1, 0, 0, 1, 0, 0], [0, 0, 1, 0, 0, 0], [1] * 6],
+         [[1] * 6, [1] * 6, [0] * 6], [0, 1 % t, 2 % t], [1, 1, 0]),
+        (raw[6:], [[0, 1, 0, 0, 0, 0], [0] * 6, [0, 0, 0, 1, 0, 0]],
+         [[1] * 4 + [0] * 2, [1] * 6, [1] * 5 + [0]], [6 % t, 1, 2], [0, 0, 1]),
+    ]
+    launches = cuda_fused.launch_counts()
+    for x, flags, valid, offs, seeds in batches:
+        got = _run_stacked(kernel, props, x, states[0], dev(flags),
+                           dev(valid), offs, seeds)
+        exp = _run_stacked(plain, props, x, states[1], dev(flags),
+                           dev(valid), offs, seeds)
+        torch.cuda.synchronize()
+        for si in range(S):
+            r = slice(si * hp, si * hp + SH)
+            _assert_maps(got[0][:, :, r], exp[0][:, :, r], raw_mode, SH, SW)
+            _assert_stats(got[1][si], exp[1][si])
+        for g, e in zip(got[2:-1], exp[2:-1]):
+            g = g.view(g.shape[:-2] + (S, hp, wp))[..., :SH, :SW]
+            e = e.view(e.shape[:-2] + (S, hp, wp))[..., :SH, :SW]
+            assert torch.equal(g, e)
+        torch.testing.assert_close(got[-1], exp[-1], rtol=0, atol=1e-6)
+    name = kernel.__name__
+    assert cuda_fused.launch_counts()[name] == launches[name] + 2
+
+
+@pytest.mark.parametrize("props", [STACKED_CASES[1], STACKED_CASES[3]])
+def test_stacked_kernel_equals_single_stream_kernel(cuda, props):
+    """Each stream of one stacked launch equals the s = 1 kernel on that
+    stream's rows alone: nothing crosses a stream edge."""
+    hp, wp = pad_geometry(SH, SW)
+    raw = torch.from_numpy(make_stacked(6, 5)).to(cuda)
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD)
+    flags = torch.zeros((S, 6), dtype=torch.bool, device=cuda)
+    flags[:, 0] = True
+    valid = torch.ones((S, 6), dtype=torch.bool, device=cuda)
+    st = _stacked_state(props, hp, wp, cuda)
+    stacked = (cuda_fused.absdiff_step_ring_stacked if raw_mode
+               else cuda_fused.batch_step_ring_stacked)
+    got = _run_stacked(stacked, props, raw, st, flags, valid, [0] * S,
+                       [1] * S)
+    for si in range(S):
+        r = slice(si * hp, (si + 1) * hp)
+        x = raw[:, :, r].contiguous()
+        one = [torch.zeros_like(a[..., r, :]) for a in
+               _stacked_state(props, hp, wp, cuda)]
+        if raw_mode:
+            exp = cuda_fused.absdiff_step_ring(props, SH, SW, x, one[0],
+                                               one[1], flags[si], one[2],
+                                               valid[si], 1)
+        else:
+            exp = cuda_fused.batch_step_ring(props, SH, SW, x, *one[:3],
+                                             flags[si], one[3], valid[si],
+                                             0, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][:, :, r], exp[0])
+        assert torch.equal(got[1][si], exp[1])
+        for g, e in zip(got[2:], exp[2:]):
+            assert torch.equal(g[..., r, :], e)
+
+
+def test_fleet_engine_cuda_matches_cpu(cuda):
+    from dips_tpu_torch import MultiStreamEngine
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (S, 9, H, W, 3), np.uint8)
+    frames[:, :, 10:20, 30:40] = 255
+    for props in (DiPsProperties(refresh_markers=(5,)),
+                  DiPsProperties(method=DiPsMethod.PER_FRAME,
+                                 output=OutputMode.ABSDIFF)):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            eng = MultiStreamEngine(props, H, W, S, batch=4, device=dev)
+            res = [eng.process_batch([list(f[i:i + 4]) for f in frames])
+                   for i in (0, 4, 8)]
+            outs.append((np.concatenate([r[0] for r in res], axis=1),
+                         np.concatenate([r[1] for r in res], axis=1),
+                         eng.heatmaps()))
+        (go, gs, gh), (eo, es, eh) = outs
+        d = np.abs(go.astype(np.int16) - eo.astype(np.int16))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-4
+        np.testing.assert_allclose(gs, es, rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(gh, eh, atol=1e-5)

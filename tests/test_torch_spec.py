@@ -26,10 +26,22 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("rel", ["properties.py", "errors.py",
-                                 "ops/networks.py"])
+                                 "ops/networks.py", "ops/refresh.py"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
+
+
+def test_events_copy_is_verbatim_but_its_import():
+    """``ops/events.py`` takes STAT_NAMES from the port's
+    ``ops/reference.py`` (the original's ``ops/oracle`` imports jax);
+    every other line is the original's."""
+    port = (ROOT / "dips_tpu_torch/ops/events.py").read_text().splitlines()
+    orig = (ROOT / "dips_tpu/ops/events.py").read_text().splitlines()
+    assert len(port) == len(orig)
+    diff = [(a, b) for a, b in zip(port, orig) if a != b]
+    assert diff == [("from .reference import STAT_NAMES",
+                     "from .oracle import STAT_NAMES")]
 
 
 PROPS_KW = [
@@ -111,6 +123,8 @@ def test_port_imports_without_jax():
         "'dips_tpu_torch.'):\n"
         "    if m.name != 'dips_tpu_torch.__main__':\n"
         "        importlib.import_module(m.name)\n"
+        "from dips_tpu_torch.parallel.multistream import MultiStreamEngine\n"
+        "from dips_tpu_torch.app import run_dips_on_files\n"
         "bad = sorted(k for k in sys.modules if k == 'dips_tpu' or "
         "k.startswith(('dips_tpu.', 'jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
@@ -147,6 +161,26 @@ def test_unported_engine_options_raise(kwargs):
     from dips_tpu_torch import DiPsEngine, DiPsProperties
     with pytest.raises(NotImplementedError):
         DiPsEngine(DiPsProperties(), 12, 140, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(ring_carry=False),
+                                    dict(packed_wire=True),
+                                    dict(downscale=2),
+                                    dict(input_layout="planar")])
+def test_unported_fleet_options_raise(kwargs):
+    from dips_tpu_torch import DiPsProperties, MultiStreamEngine
+    with pytest.raises(NotImplementedError):
+        MultiStreamEngine(DiPsProperties(), 12, 140, 3, device="cpu",
+                          **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(flicker=dict(freq_hz=5.0)),
+                                    dict(downscale=2),
+                                    dict(input_layout="planar")])
+def test_unported_fleet_run_options_raise(kwargs):
+    from dips_tpu_torch import run_dips_on_files
+    with pytest.raises(NotImplementedError):
+        run_dips_on_files(["a.avi"], "out", device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("name", ["approx_median", "quirk_compat"])
