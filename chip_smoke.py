@@ -5,21 +5,32 @@
 
 Run from the root of a checkout on a machine with an NVIDIA card (sm_90a,
 nvcc under CUDA_HOME or /usr/local/cuda).  It builds the port's CUDA
-kernels from ``dips_tpu_torch/csrc`` and then drives two paths:
+kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
 
-* one stream: each s = 1 kernel against its plain PyTorch twin at the main
-  path's shapes, ``dips_tpu_torch.DiPsEngine`` end to end at 1080p
-  (COLORIZE and ABSDIFF, refresh marker, snapshot, checkpoint resume), and
-  ``run_dips_on_file`` on a 1080p clip when cv2 is present;
-* the fleet: each stacked kernel against its plain twin at 1080p x 8
-  streams and 480p x 3 streams (mixed seeds and offsets, an all-invalid
-  stream, contrasting adjacent streams), ``MultiStreamEngine`` at 1080p x 8
-  streams (refresh marker, per-stream snapshot, a stream isolated by a
-  wrong-shape frame and revived, checkpoint resume) held stream by stream
-  against single-stream engines, and ``run_dips_on_files`` on three 1080p
-  clips when cv2 is present;
+* one stream, ring-carry protocol: each s = 1 ring kernel against its
+  plain PyTorch twin at the main path's shapes (``[check]``),
+  ``dips_tpu_torch.DiPsEngine`` end to end at 1080p (COLORIZE and ABSDIFF,
+  refresh marker, snapshot, checkpoint resume; ``[main]``), and
+  ``run_dips_on_file`` on a 1080p clip when cv2 is present (``[file]``);
+* the fleet, ring-carry protocol: each stacked ring kernel against its
+  plain twin at 1080p x 8 streams and 480p x 3 streams (mixed seeds and
+  offsets, an all-invalid stream, contrasting adjacent streams;
+  ``[kernels-stacked]``), ``MultiStreamEngine`` at 1080p x 8 streams
+  (refresh marker, per-stream snapshot, a stream isolated by a wrong-shape
+  frame and revived, checkpoint resume) held stream by stream against
+  single-stream engines (``[fleet]``), and ``run_dips_on_files`` on three
+  1080p clips when cv2 is present (``[fleet-file]``);
+* the tail protocol (``ring_carry=False``): each of the four tail kernels
+  against its plain twin at 1080p s = 1, 1080p x 8 and 480p x 3, with a
+  flagged invalid slot (``[kernels-tail]``); the tail ``DiPsEngine`` at
+  1080p against the ring engine over 96 frames in uneven batches,
+  COLORIZE and ABSDIFF, OVERALL and PER_FRAME, with checkpoints crossing
+  the protocols (``[tail]``); the tail fleet at 1080p x 8 against the ring
+  fleet through an idle and an isolated stream (``[fleet-tail]``);
 
-then times kernels, plain twins and both engines with CUDA events.
+then times kernels, plain twins and every engine with CUDA events
+(``[time]``).  Each path's launch counts are set to 0 just before it runs
+and read just after.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
@@ -553,6 +564,279 @@ def phase_kernels_stacked():
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: each tail kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def _tail_batches(s, t):
+    """Per-stream flags / valid of two consecutive tail batches: captures
+    on different frames per stream, a fresh stream, then a partial batch
+    whose slot 12 is flagged but invalid (the tail kernels capture on it all
+    the same) and, with s > 1, a stream all-invalid in the first batch.
+    Returns [(first frame of the batch's tail, flags, valid)]."""
+    f1, f2 = np.zeros((s, B), bool), np.zeros((s, B), bool)
+    v1, v2 = np.ones((s, B), bool), np.zeros((s, B), bool)
+    for si in range(s):
+        f1[si, (3 * si) % B] = True
+        f2[si, (si + 5) % 11] = True
+    f2[:, 12] = True
+    v2[:, :11] = True
+    if s > 1:
+        v1[s - 1] = False
+    return [(0, f1, v1), (B, f2, v2)]
+
+
+def check_tail(props, h, w, s, seed):
+    """The tail wrapper (s = 1: the single-stream one) against its plain
+    twin over two batches of T+B frames; returns (max error, tie flips,
+    pixels compared)."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.properties import OutputMode
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(h, w)
+    t = props.temporal_size
+    rows = (s * hp, wp)
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
+                                OutputMode.STATS_ONLY)
+    if raw_mode:
+        fns = ((cuda_fused.absdiff_step, cuda_fused.absdiff_step_plain)
+               if s == 1 else (cuda_fused.absdiff_step_stacked,
+                               cuda_fused.absdiff_step_stacked_plain))
+        mk = lambda: [torch.zeros((3,) + rows, dtype=torch.uint8,
+                                  device=dev), torch.zeros(rows, device=dev)]
+    else:
+        fns = ((cuda_fused.batch_step, cuda_fused.batch_step_plain)
+               if s == 1 else (cuda_fused.batch_step_stacked,
+                               cuda_fused.batch_step_stacked_plain))
+        mk = lambda: [torch.zeros(rows, device=dev) for _ in range(2)]
+    states = [mk(), mk()]
+    raw = (stacked_frames(t + 2 * B, h, w, s, seed, dev) if s > 1
+           else planar(moving_square_frames(t + 2 * B, h, w, seed), hp,
+                       wp).to(dev))
+    tag = (f"tail {props.output.name} {props.method.name} "
+           f"w{props.window_size}/T{t} {h}x{w} s={s}")
+    tol = RAW_TOL if raw_mode else MEDIAN_TOL
+    err, flips, n_px = 0.0, 0, 0
+    for start, flags, valid in _tail_batches(s, t):
+        x = raw[start:start + t + B].clone()
+        n = int(valid[0].sum())
+        x[t + n:] = x[t + n - 1]  # padding replicas of the last frame
+        fl = torch.from_numpy(flags if s > 1 else flags[0]).to(dev)
+        va = torch.from_numpy(valid if s > 1 else valid[0]).to(dev)
+        res = []
+        for fn, st in zip(fns, states):
+            args = (props, h, w) + ((s,) if s > 1 else ())
+            res.append(fn(*args, x, st[0], fl, st[1], va))
+        torch.cuda.synchronize()
+        got, exp = res
+        per = lambda a: a.view(a.shape[:-2] + (s, hp, wp))[..., :h, :w]
+        d = (per(got[0]).to(torch.int16) - per(exp[0]).to(torch.int16)).abs()
+        if d.numel():
+            flips += int((d > 0).sum())
+            n_px += d.numel()
+            lsb = 0 if raw_mode else tol["lsb"]
+            if int(d.max()) > lsb or flips > MEDIAN_TOL["flip_frac"] * n_px:
+                raise AssertionError(f"{tag}: maps differ (max "
+                                     f"{int(d.max())}, {flips} pixels)")
+            err = max(err, float(d.max()))
+        if not torch.equal(per(got[2]), per(exp[2])):
+            raise AssertionError(f"{tag}: baseline differs")
+        herr = _max_err(got[3], exp[3])
+        if herr > tol["heat_atol"]:
+            raise AssertionError(f"{tag}: heatmap err {herr}")
+        gs, es = (a.reshape(s, B, 4) for a in (got[1], exp[1]))
+        for si in range(s):
+            _check_stats(f"{tag} stream {si}", gs[si], es[si],
+                         tol["stats_rtol"])
+        err = max(err, herr, _max_err(got[1], exp[1]))
+    log(f"[kernels-tail] {tag} B={B}: maps, baseline and stats match the "
+        f"plain twin, with a flagged invalid slot; tie flips "
+        f"{flips}/{n_px}, max err {err}")
+    return err
+
+
+def phase_kernels_tail():
+    from dips_tpu_torch.properties import (DiPsFilter, DiPsMethod,
+                                           DiPsProperties, OutputMode)
+    errs = {"absdiff_step": 0.0, "batch_step": 0.0,
+            "absdiff_step_stacked": 0.0, "batch_step_stacked": 0.0}
+    roi = (40, 60, 440, 600)
+    for props, (h, w, s) in (
+            (DiPsProperties(output=OutputMode.ABSDIFF), (H1080, W1080, 1)),
+            (DiPsProperties(output=OutputMode.ABSDIFF,
+                            method=DiPsMethod.PER_FRAME), (H1080, W1080, 1)),
+            (DiPsProperties(), (H1080, W1080, 1)),
+            (DiPsProperties(output=OutputMode.ABSDIFF),
+             (H1080, W1080, FLEET)),
+            (DiPsProperties(), (H1080, W1080, FLEET)),
+            (DiPsProperties(method=DiPsMethod.PER_FRAME,
+                            output=OutputMode.GRAYSCALE,
+                            filter=DiPsFilter.INVERSE_SIGMOID,
+                            window_size=7, temporal_size=16, roi=roi),
+             (480, 640, 3)),
+            (DiPsProperties(output=OutputMode.THRESHOLD,
+                            method=DiPsMethod.PER_FRAME,
+                            change_threshold=20, roi=roi), (480, 640, 3))):
+        name = ("absdiff_step" if props.output in (OutputMode.ABSDIFF,
+                                                   OutputMode.THRESHOLD)
+                else "batch_step") + ("_stacked" if s > 1 else "")
+        errs[name] = max(errs[name], check_tail(props, h, w, s, 63))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the tail protocol's single-stream engine end to end
+# ---------------------------------------------------------------------------
+
+#: batch sizes of the tail-vs-ring runs: partial batches among full ones
+SPLITS = (16, 16, 11, 16, 5, 16, 16)
+
+
+def run_split(props, frames, ring_carry, engine=None, start=0, stop=None):
+    """Frames [start:stop] through a DiPsEngine of the given protocol in
+    SPLITS's batch sizes (start and stop on batch edges), snapshot before
+    frame 59."""
+    from dips_tpu_torch import DiPsEngine
+    eng = engine or DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                               ring_carry=ring_carry)
+    stop = len(frames) if stop is None else stop
+    outs, stats, i = [], [], 0
+    for k in SPLITS:
+        if start <= i < stop:
+            if i == 59:
+                eng.snapshot()
+            o, st = eng.process_batch(list(frames[i:i + k]))
+            outs.append(o)
+            stats.append(st)
+        i += k
+    return eng, np.concatenate(outs), np.concatenate(stats)
+
+
+def _same_run(tag, got, exp):
+    """Maps byte for byte, stats within 1e-5 relative."""
+    if not np.array_equal(got[0], exp[0]):
+        d = np.abs(got[0].astype(np.int16) - exp[0].astype(np.int16))
+        raise AssertionError(f"{tag}: maps differ (max {d.max()}, "
+                             f"{int((d > 0).sum())} pixels)")
+    _check_stats(tag, got[1], exp[1], 1e-5)
+
+
+def phase_tail(card):
+    import torch
+    from dips_tpu_torch import DiPsEngine, DiPsMethod, DiPsProperties, \
+        OutputMode
+    from dips_tpu_torch.ops import cuda_fused
+    n = sum(SPLITS)
+    frames = moving_square_frames(n, H1080, W1080, 23)
+    configs = [
+        ("COLORIZE OVERALL", DiPsProperties(refresh_markers=(48,))),
+        ("COLORIZE PER_FRAME", DiPsProperties(method=DiPsMethod.PER_FRAME)),
+        ("ABSDIFF OVERALL", DiPsProperties(output=OutputMode.ABSDIFF,
+                                           refresh_markers=(48,))),
+        ("ABSDIFF PER_FRAME", DiPsProperties(output=OutputMode.ABSDIFF,
+                                             method=DiPsMethod.PER_FRAME))]
+    cuda_fused.reset_launch_counts()
+    tails = {label: run_split(props, frames, False)
+             for label, props in configs}
+    torch.cuda.synchronize()
+    counts = cuda_fused.launch_counts()
+    launches = {k: counts[k] for k in ("absdiff_step", "batch_step")}
+    log(f"[tail] launches during the tail-engine runs: {counts}")
+    for name, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"{name} never launched on the tail path")
+    for label, props in configs:
+        ring_eng, *ring = run_split(props, frames, True)
+        tail_eng, *tail = tails[label]
+        _same_run(f"[tail] {label}", tail, ring)
+        for a, b_ in ((tail_eng.heatmap(), ring_eng.heatmap()),):
+            if np.abs(a - b_).max() > 1e-5 * max(1.0, np.abs(b_).max()):
+                raise AssertionError(f"[tail] {label}: heatmaps differ")
+        tb, rb = (e.state_dict()["baseline"] for e in (tail_eng, ring_eng))
+        if not np.array_equal(tb[..., :H1080, :W1080],
+                              rb[..., :H1080, :W1080]):
+            raise AssertionError(f"[tail] {label}: baselines differ")
+        if not np.isfinite(tail[1]).all() or tail[0].shape[0] != n:
+            raise AssertionError(f"[tail] {label}: bad output")
+        # a checkpoint taken in one protocol continues in the other
+        work = os.path.join("build", "chip_smoke")
+        os.makedirs(work, exist_ok=True)
+        cut = sum(SPLITS[:3])  # after the partial batch
+        for save_ring in (False, True):
+            src, _, _ = run_split(props, frames, save_ring, stop=cut)
+            ck = os.path.join(work, "tail_resume.npz")
+            src.save(ck)
+            dst = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                             ring_carry=not save_ring)
+            dst.load(ck)
+            _, o2, s2 = run_split(props, frames, not save_ring, engine=dst,
+                                  start=cut)
+            _same_run(f"[tail] {label} resumed", (o2, s2),
+                      (ring[0][cut:], ring[1][cut:]))
+        log(f"[tail] {label} 1080p {n} frames in batches {SPLITS}: the "
+            f"tail engine equals the ring engine (maps byte for byte, stats "
+            f"within 1e-5, baseline exact); a checkpoint from either "
+            f"protocol continues in the other")
+        del tails[label], ring, tail
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the tail protocol's fleet end to end
+# ---------------------------------------------------------------------------
+
+def phase_fleet_tail(card):
+    import torch
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    from dips_tpu_torch.ops import cuda_fused
+    frame = FleetFrames(73)
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = {"absdiff_step_stacked": 0, "batch_step_stacked": 0}
+    idle = 2
+    for label, props in (
+            ("COLORIZE w3/T4", DiPsProperties(refresh_markers=(24,))),
+            ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF,
+                                       refresh_markers=(24,)))):
+        name = ("absdiff_step_stacked" if props.output == OutputMode.ABSDIFF
+                else "batch_step_stacked")
+        # the checkpoint resume runs once, in the COLORIZE tail fleet: the
+        # ring fleet's is held in [fleet]
+        colorize = props.output != OutputMode.ABSDIFF
+        cuda_fused.reset_launch_counts()
+        tail = run_fleet(props, frame, work, ring_carry=False, idle=idle,
+                         checkpoint=colorize)
+        torch.cuda.synchronize()
+        counts = cuda_fused.launch_counts()
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the tail fleet")
+        launches[name] += counts[name]
+        log(f"[fleet-tail] {label}: launches during the tail fleet run "
+            f"{counts}")
+        ring = run_fleet(props, frame, work, ring_carry=True, idle=idle,
+                         checkpoint=False)
+        n_px = 0
+        for bi, ((idx, to, ts), (_, ro, rs)) in enumerate(zip(tail, ring)):
+            for si, ids in enumerate(idx):
+                if ids is None:
+                    continue
+                k = len(ids)
+                _same_run(f"[fleet-tail] {label} stream {si} batch {bi}",
+                          (to[si, :k], ts[si, :k]), (ro[si, :k], rs[si, :k]))
+                n_px += to[si, :k].size
+        log(f"[fleet-tail] {label} 1080p x {FLEET} streams, B={B}, 3 "
+            f"batches: the tail fleet equals the ring fleet stream by stream "
+            f"({n_px} map bytes equal, stats within 1e-5), through the "
+            f"lagging stream 7, idle stream {idle}, the snapshot of stream "
+            f"3, stream 5 isolated and revived"
+            + (", and the tail fleet's checkpoint resume" if colorize
+               else ""))
+        del tail, ring
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the fleet path end to end
 # ---------------------------------------------------------------------------
 
@@ -575,32 +859,40 @@ class FleetFrames:
         return f
 
 
-def run_fleet(props, frame, work):
+def run_fleet(props, frame, work, ring_carry=True, idle=None,
+              checkpoint=True):
     """Three batches of the 8-stream fleet: stream 7 lags by 6 frames,
     stream 3 takes a snapshot before batch 1, stream 5 sends a wrong-shape
-    frame in batch 1 (isolated), the fleet is saved after batch 1, resumed
-    in a fresh engine and stream 5 revived.  Returns, per batch, each
-    stream's frame indices (None where rejected) and the outputs."""
+    frame in batch 1 (isolated), the fleet is saved after batch 1 and
+    resumed in a fresh engine (unless ``checkpoint`` is False: the save
+    compresses 0.35 GB) and stream 5 revived; stream ``idle``, when given,
+    sends nothing in batch 1.  Returns, per batch, each stream's frame
+    indices (None where rejected or idle) and the outputs."""
     from dips_tpu_torch import MultiStreamEngine
     fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
-                              device="cuda")
+                              device="cuda", ring_carry=ring_carry)
     nxt = [0] * FLEET
     batches = []
     for bi in range(3):
         if bi == 1:
             fleet.snapshot(stream=3)
         if bi == 2:
-            ck = os.path.join(work, "fleet.npz")
-            fleet.save(ck)
-            fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
-                                      device="cuda")
-            fleet.load(ck)
-            if set(fleet.failed) != {5}:
-                raise AssertionError(f"restored failures {fleet.failed}")
+            if checkpoint:
+                ck = os.path.join(work, "fleet.npz")
+                fleet.save(ck)
+                fleet = MultiStreamEngine(props, H1080, W1080, FLEET,
+                                          batch=B, device="cuda",
+                                          ring_carry=ring_carry)
+                fleet.load(ck)
+                if set(fleet.failed) != {5}:
+                    raise AssertionError(f"restored failures "
+                                         f"{fleet.failed}")
             fleet.revive(5)
         idx = [list(range(nxt[si], nxt[si] + (10 if bi == 0 and si == 7
                                                else B)))
                for si in range(FLEET)]
+        if bi == 1 and idle is not None:
+            idx[idle] = []
         feeds = [[frame(si, k) for k in ids] for si, ids in enumerate(idx)]
         if bi == 1:
             feeds[5][7] = np.zeros((H1080, W1080 // 2, 3), np.uint8)
@@ -610,6 +902,8 @@ def run_fleet(props, frame, work):
                 raise AssertionError(f"stream 5 not isolated: "
                                      f"{fleet.failed}")
             idx[5] = None
+        if bi == 1 and idle is not None:
+            idx[idle] = None
         for si, ids in enumerate(idx):
             if ids is not None:
                 nxt[si] += len(ids)
@@ -620,7 +914,10 @@ def run_fleet(props, frame, work):
                 abs(gmean - exp_g) > 1e-5 * max(exp_g, 1e-12):
             raise AssertionError(f"gmean {gmean} != {exp_g}")
         batches.append((idx, out, stats))
-    if fleet.frame_cursors != [48] * 5 + [32] + [48, 42]:
+    cursors = [48] * 5 + [32] + [48, 42]
+    if idle is not None:
+        cursors[idle] -= B
+    if fleet.frame_cursors != cursors:
         raise AssertionError(f"cursors {fleet.frame_cursors}")
     return batches
 
@@ -770,142 +1067,216 @@ def phase_times(card):
     from dips_tpu_torch.ops.reference import pad_geometry
     dev = torch.device("cuda")
     hp, wp = pad_geometry(H1080, W1080)
-    raw = planar(moving_square_frames(B, H1080, W1080, 31), hp, wp).to(dev)
+    rp, mp = DiPsProperties(output=OutputMode.ABSDIFF), DiPsProperties()
+    t = mp.temporal_size
+    s = FLEET
+    rows = (s * hp, wp)
+    # T+B frames: the ring steps take the last B, the tail steps all
+    raw = planar(moving_square_frames(t + B, H1080, W1080, 31), hp,
+                 wp).to(dev)
+    sraw = stacked_frames(t + B, H1080, W1080, s, 32, dev)
     flags = torch.zeros(B, dtype=torch.bool, device=dev)
     flags[0] = True
     valid = torch.ones(B, dtype=torch.bool, device=dev)
-    times = {}
-
-    rp = DiPsProperties(output=OutputMode.ABSDIFF)
-    rs = [torch.zeros((3, hp, wp), dtype=torch.uint8, device=dev)
-          for _ in range(2)] + [torch.zeros((hp, wp), device=dev)]
-
-    def raw_k():
-        cuda_fused.absdiff_step_ring(rp, H1080, W1080, raw, rs[0], rs[1],
-                                     flags, rs[2], valid, 0)
-
-    def raw_p():
-        cuda_fused.absdiff_step_ring_plain(rp, H1080, W1080, raw, rs[0],
-                                           rs[1], flags, rs[2], valid, 0)
-
-    mp = DiPsProperties()
-    ms = [torch.zeros((4, hp, wp), device=dev)] + [
-        torch.zeros((hp, wp), device=dev) for _ in range(3)]
-
-    def med_k():
-        cuda_fused.batch_step_ring(mp, H1080, W1080, raw, *ms[:3], flags,
-                                   ms[3], valid, 0, 0)
-
-    def med_p():
-        cuda_fused.batch_step_ring_plain(mp, H1080, W1080, raw, *ms[:3],
-                                         flags, ms[3], valid, 0, 0)
-
-    # the stacked kernels: 8 streams of 1080p in one launch
-    s = FLEET
-    sraw = stacked_frames(B, H1080, W1080, s, 32, dev)
     sflags = torch.zeros((s, B), dtype=torch.bool, device=dev)
     sflags[:, 0] = True
     svalid = torch.ones((s, B), dtype=torch.bool, device=dev)
-    rows = (s * hp, wp)
-    srs = [torch.zeros((3,) + rows, dtype=torch.uint8, device=dev)
-           for _ in range(2)] + [torch.zeros(rows, device=dev)]
-    sms = [torch.zeros((4,) + rows, device=dev)] + [
-        torch.zeros(rows, device=dev) for _ in range(3)]
     zs = [0] * s
-
-    def sraw_k():
-        cuda_fused.absdiff_step_ring_stacked(rp, H1080, W1080, s, sraw,
-                                             srs[0], srs[1], sflags, srs[2],
-                                             svalid, zs)
-
-    def sraw_p():
-        cuda_fused.absdiff_step_ring_stacked_plain(
-            rp, H1080, W1080, s, sraw, srs[0], srs[1], sflags, srs[2],
-            svalid, zs)
-
-    def smed_k():
-        cuda_fused.batch_step_ring_stacked(mp, H1080, W1080, s, sraw,
-                                           *sms[:3], sflags, sms[3], svalid,
-                                           zs, zs)
-
-    def smed_p():
-        cuda_fused.batch_step_ring_stacked_plain(
-            mp, H1080, W1080, s, sraw, *sms[:3], sflags, sms[3], svalid, zs,
-            zs)
-
-    for name, k, p, frames in (
-            ("absdiff_step_ring", raw_k, raw_p, B),
-            ("batch_step_ring", med_k, med_p, B),
-            ("absdiff_step_ring_stacked", sraw_k, sraw_p, s * B),
-            ("batch_step_ring_stacked", smed_k, smed_p, s * B)):
+    u8 = dict(dtype=torch.uint8, device=dev)
+    rs = [torch.zeros((3, hp, wp), **u8) for _ in range(2)] + [
+        torch.zeros((hp, wp), device=dev)]
+    ms = [torch.zeros((t, hp, wp), device=dev)] + [
+        torch.zeros((hp, wp), device=dev) for _ in range(3)]
+    srs = [torch.zeros((3,) + rows, **u8) for _ in range(2)] + [
+        torch.zeros(rows, device=dev)]
+    sms = [torch.zeros((t,) + rows, device=dev)] + [
+        torch.zeros(rows, device=dev) for _ in range(3)]
+    cf = cuda_fused
+    # name -> (kernel call, plain call, stream-frames per call)
+    calls = {
+        "absdiff_step_ring": (
+            lambda: cf.absdiff_step_ring(rp, H1080, W1080, raw[t:], *rs[:2],
+                                         flags, rs[2], valid, 0),
+            lambda: cf.absdiff_step_ring_plain(rp, H1080, W1080, raw[t:],
+                                               *rs[:2], flags, rs[2], valid,
+                                               0), B),
+        "batch_step_ring": (
+            lambda: cf.batch_step_ring(mp, H1080, W1080, raw[t:], *ms[:3],
+                                       flags, ms[3], valid, 0, 0),
+            lambda: cf.batch_step_ring_plain(mp, H1080, W1080, raw[t:],
+                                             *ms[:3], flags, ms[3], valid, 0,
+                                             0), B),
+        "absdiff_step_ring_stacked": (
+            lambda: cf.absdiff_step_ring_stacked(
+                rp, H1080, W1080, s, sraw[t:], *srs[:2], sflags, srs[2],
+                svalid, zs),
+            lambda: cf.absdiff_step_ring_stacked_plain(
+                rp, H1080, W1080, s, sraw[t:], *srs[:2], sflags, srs[2],
+                svalid, zs), s * B),
+        "batch_step_ring_stacked": (
+            lambda: cf.batch_step_ring_stacked(
+                mp, H1080, W1080, s, sraw[t:], *sms[:3], sflags, sms[3],
+                svalid, zs, zs),
+            lambda: cf.batch_step_ring_stacked_plain(
+                mp, H1080, W1080, s, sraw[t:], *sms[:3], sflags, sms[3],
+                svalid, zs, zs), s * B),
+        "absdiff_step": (
+            lambda: cf.absdiff_step(rp, H1080, W1080, raw, rs[1], flags,
+                                    rs[2], valid),
+            lambda: cf.absdiff_step_plain(rp, H1080, W1080, raw, rs[1],
+                                          flags, rs[2], valid), B),
+        "batch_step": (
+            lambda: cf.batch_step(mp, H1080, W1080, raw, ms[2], flags,
+                                  ms[3], valid),
+            lambda: cf.batch_step_plain(mp, H1080, W1080, raw, ms[2], flags,
+                                        ms[3], valid), B),
+        "absdiff_step_stacked": (
+            lambda: cf.absdiff_step_stacked(rp, H1080, W1080, s, sraw,
+                                            srs[1], sflags, srs[2], svalid),
+            lambda: cf.absdiff_step_stacked_plain(
+                rp, H1080, W1080, s, sraw, srs[1], sflags, srs[2], svalid),
+            s * B),
+        "batch_step_stacked": (
+            lambda: cf.batch_step_stacked(mp, H1080, W1080, s, sraw, sms[2],
+                                          sflags, sms[3], svalid),
+            lambda: cf.batch_step_stacked_plain(
+                mp, H1080, W1080, s, sraw, sms[2], sflags, sms[3], svalid),
+            s * B),
+    }
+    times = {}
+    for name, (k, p, frames) in calls.items():
         seq = [("plain", p), ("kernel", k), ("kernel", k), ("plain", p)]
         got = {"plain": [], "kernel": []}
         for which, fn in seq:  # plain, kernel, kernel, plain
             got[which].append(_time(fn, 20 if which == "kernel" else 3)
                               / frames)
+        props = rp if name.startswith("absdiff") else mp
+        bound_ms, bound_by = bound(name, props, frames // B, B, hp, wp)
         times[name] = {w: float(np.mean(v)) for w, v in got.items()}
+        times[name].update(bound_ms=bound_ms, bound_by=bound_by)
         shape = f"1080p B={B}" + (f" s={s}" if frames > B else "")
         log(f"[time] {name} {shape}: kernel "
             f"{times[name]['kernel']:.4f} ms/frame ({got['kernel']}), plain "
-            f"{times[name]['plain']:.4f} ms/frame ({got['plain']}); "
-            f"frame = one stream's frame; {card}")
-    del sraw, srs, sms
+            f"{times[name]['plain']:.4f} ms/frame ({got['plain']}), bound "
+            f"{bound_ms:.5f} ms/frame by {bound_by}; frame = one stream's "
+            f"frame; {card}")
+    del raw, sraw, rs, ms, srs, sms, calls
 
-    # the engine end to end: host frames in, host maps out
+    # the engines end to end, ring and tail protocol in turns: host frames
+    # in, host maps out
     frames = moving_square_frames(2 * B, H1080, W1080, 41)
-    for label, props in (("COLORIZE w3/T4", DiPsProperties()),
-                         ("ABSDIFF", DiPsProperties(
-                             output=OutputMode.ABSDIFF))):
-        eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda")
-        batches = [list(frames[:B]), list(frames[B:])]
-        eng.process_batch(batches[0])  # warm-up
-        torch.cuda.synchronize()
-        n_b = 12
-        t_disp = t_coll = 0.0
-        t0 = time.perf_counter()
-        for i in range(n_b):
-            buf = eng.new_batch_buffer()
-            a = time.perf_counter()
-            for j, f in enumerate(batches[i % 2]):
-                buf[j] = f
-            h = eng.dispatch_async(buf, B)
-            c = time.perf_counter()
-            eng.collect(h)
-            d = time.perf_counter()
-            t_disp += c - a
-            t_coll += d - c
-        wall = time.perf_counter() - t0
-        fps = n_b * B / wall
-        times[f"engine {label}"] = fps
-        log(f"[time] engine {label} 1080p B={B}: {fps:.1f} frames/s end to "
-            f"end over {n_b * B} frames (host fill+upload+launch "
-            f"{1e3 * t_disp / (n_b * B):.3f} ms/frame, sync+download "
-            f"{1e3 * t_coll / (n_b * B):.3f} ms/frame); {card}")
+    for label, props in (("COLORIZE w3/T4", mp), ("ABSDIFF", rp)):
+        for ring in (True, False):
+            eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                             ring_carry=ring)
+            batches = [list(frames[:B]), list(frames[B:])]
+            eng.process_batch(batches[0])  # warm-up
+            torch.cuda.synchronize()
+            n_b = 12
+            t_disp = t_coll = 0.0
+            t0 = time.perf_counter()
+            for i in range(n_b):
+                buf = eng.new_batch_buffer()
+                a = time.perf_counter()
+                for j, f in enumerate(batches[i % 2]):
+                    buf[j] = f
+                h = eng.dispatch_async(buf, B)
+                c = time.perf_counter()
+                eng.collect(h)
+                d = time.perf_counter()
+                t_disp += c - a
+                t_coll += d - c
+            wall = time.perf_counter() - t0
+            fps = n_b * B / wall
+            key = ("engine " if ring else "tail engine ") + label
+            times[key] = fps
+            log(f"[time] {key} 1080p B={B}: {fps:.1f} frames/s end to end "
+                f"over {n_b * B} frames (host fill+upload+launch "
+                f"{1e3 * t_disp / (n_b * B):.3f} ms/frame, sync+download "
+                f"{1e3 * t_coll / (n_b * B):.3f} ms/frame); {card}")
+            del eng
 
-    # the fleet end to end: 8 streams of host frames in, host maps out
+    # the fleets end to end: 8 streams of host frames in, host maps out
     from dips_tpu_torch import MultiStreamEngine
     frame = FleetFrames(91)
     feeds = [[[frame(si, k) for k in range(j * B, (j + 1) * B)]
               for si in range(FLEET)] for j in range(2)]
-    for label, props in (("COLORIZE w3/T4", DiPsProperties()),
-                         ("ABSDIFF", DiPsProperties(
-                             output=OutputMode.ABSDIFF))):
-        fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
-                                  device="cuda")
-        fleet.process_batch(feeds[0])  # warm-up
-        torch.cuda.synchronize()
-        n_b = 4
-        t0 = time.perf_counter()
-        for i in range(n_b):
-            fleet.process_batch(feeds[i % 2])
-        wall = time.perf_counter() - t0
-        fps = n_b * B * FLEET / wall
-        times[f"fleet {label}"] = fps
-        log(f"[time] fleet {label} 1080p x {FLEET} streams B={B}: {fps:.1f} "
-            f"frames/s aggregate end to end over {n_b * B * FLEET} frames "
-            f"({fps / FLEET:.1f} per stream); {card}")
-        del fleet
+    for label, props in (("COLORIZE w3/T4", mp), ("ABSDIFF", rp)):
+        for ring in (True, False):
+            fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                                      device="cuda", ring_carry=ring)
+            fleet.process_batch(feeds[0])  # warm-up
+            torch.cuda.synchronize()
+            n_b = 4
+            t0 = time.perf_counter()
+            for i in range(n_b):
+                fleet.process_batch(feeds[i % 2])
+            wall = time.perf_counter() - t0
+            fps = n_b * B * FLEET / wall
+            key = ("fleet " if ring else "tail fleet ") + label
+            times[key] = fps
+            log(f"[time] {key} 1080p x {FLEET} streams B={B}: {fps:.1f} "
+                f"frames/s aggregate end to end over {n_b * B * FLEET} "
+                f"frames ({fps / FLEET:.1f} per stream); {card}")
+            del fleet
     return times
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take (for the record's bound_ms)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM device memory rate (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: INT32 peak: 64 integer / compare / min / max results per clock per SM
+#: (compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def bound(name, props, s, b, hp, wp):
+    """(least ms per stream-frame, "bytes" or "operations") of one launch of
+    kernel ``name`` over s streams of B frames: the larger of the bytes it
+    must move (each input read once, each output written once) over the
+    memory rate, and the integer operations it must do over the INT32 peak.
+    Operations counted: raw -- 3 subtractions, 3 abs, 2 max and 1 compare
+    per pixel and frame; median -- the intensity (5 min/max/add, or 1 for
+    one channel) and the spatial median network's min/max for every frame
+    it filters, the temporal median network's for every frame it emits.
+    Emphasis and statistics are not counted, so this is a lower bound."""
+    from dips_tpu_torch.ops import networks
+    from dips_tpu_torch.properties import ChromaFilter, DiPsMethod
+    px = s * hp * wp                  # pixels of one stacked plane
+    t, c = props.temporal_size, props.out_channels
+    overall = props.method == DiPsMethod.OVERALL
+    tail = "ring" not in name
+    if name.startswith("absdiff"):
+        # frames read: the B new ones, plus tail frame T-1 in PER_FRAME;
+        # the u8 reference state moves in and out unless the tail form
+        # reads it from the tail (PER_FRAME)
+        frames_in = b + (1 if tail and not overall else 0)
+        ref_state = 0 if tail and not overall else 2 * 3 * px
+        nbytes = 3 * px * frames_in + ref_state + 8 * px + c * b * px
+        ops = 9 * px * b
+    else:
+        w = props.window_size
+        col, merge, _ = networks.column_median_plan(w) if w > 1 else \
+            ([], [], 0)
+        wmed = w * 2 * len(col) + sum(a + b_ for _, _, a, b_ in merge)
+        tmed = sum(a + b_ for _, _, a, b_ in networks.median_network(t))
+        inten = 5 if props.chroma == ChromaFilter.ALL else 1
+        filtered = b + (t if tail else 0)
+        emitted = b + (1 if tail and not overall else 0)
+        ops = px * (filtered * (inten + wmed) + emitted * tmed)
+        # f32 state in and out: heatmap, baseline or prev (and the ring in
+        # the ring form); the tail form writes no prev and no ring
+        state = 4 * px * (2 + 2 + (2 * t if not tail else 0))
+        if tail and not overall:
+            state -= 4 * px  # the baseline passes through unread
+        nbytes = 3 * px * filtered + state + c * b * px
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    least = max(by_bytes, by_ops)
+    return least * 1e3 / (s * b), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
 
 
 #: kernel -> (CUDA source, the Pallas kernel body it replaces)
@@ -918,23 +1289,45 @@ KERNELS = {
                                   "dips_tpu/ops/pallas_fused.py:1071"),
     "batch_step_ring_stacked": ("dips_tpu_torch/csrc/median_ring.cu",
                                 "dips_tpu/ops/pallas_fused.py:799"),
+    "absdiff_step": ("dips_tpu_torch/csrc/raw_ring.cu",
+                     "dips_tpu/ops/pallas_fused.py:1071"),
+    "batch_step": ("dips_tpu_torch/csrc/median_tail.cu",
+                   "dips_tpu/ops/pallas_fused.py:362"),
+    "absdiff_step_stacked": ("dips_tpu_torch/csrc/raw_ring.cu",
+                             "dips_tpu/ops/pallas_fused.py:1071"),
+    "batch_step_stacked": ("dips_tpu_torch/csrc/median_tail.cu",
+                           "dips_tpu/ops/pallas_fused.py:362"),
 }
+
+
+def timed(fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    log(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def main():
     card = phase_card()
-    phase_build()
-    errs = phase_kernels()
-    launches = phase_main_path(card)
-    errs.update(phase_kernels_stacked())
-    launches.update(phase_fleet(card))
-    phase_fleet_file(card)
-    times = phase_times(card)
+    timed(phase_build)
+    errs = timed(phase_kernels)
+    launches = timed(phase_main_path, card)
+    errs.update(timed(phase_kernels_stacked))
+    launches.update(timed(phase_fleet, card))
+    timed(phase_fleet_file, card)
+    errs.update(timed(phase_kernels_tail))
+    launches.update(timed(phase_tail, card))
+    launches.update(timed(phase_fleet_tail, card))
+    times = timed(phase_times, card)
     import torch
+    # no single PyTorch call computes any of these steps: library_ms null
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name]["kernel"], "plain_ms": times[name]["plain"]}
+         "ms": times[name]["kernel"], "plain_ms": times[name]["plain"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:
         if k["launches"] <= 0:

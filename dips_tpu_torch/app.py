@@ -52,8 +52,9 @@ class DiPsJob:
     encoding: Encoding = Encoding.MJPG
     frame_callback: Optional[FrameCallback] = None
     batch: int = 8
-    #: "cuda", "cpu" or None (the card when present)
-    device: Optional[str] = None
+    #: "cuda", "cuda:N" or "cpu"; without a card "cuda" raises
+    #: DeviceError
+    device: Optional[str] = "cuda"
     #: a pre-opened reader to use instead of opening ``video_path``
     #: (stream_dips takes ownership and closes it)
     reader: Optional[object] = None
@@ -202,7 +203,7 @@ def run_dips_on_file(input_path: str, output_path: Optional[str],
                      encoding: "Encoding | str" = Encoding.MJPG,
                      properties: Optional[DiPsProperties] = None,
                      refresh_markers: Sequence[int] = (),
-                     batch: int = 8, device: Optional[str] = None
+                     batch: int = 8, device: Optional[str] = "cuda"
                      ) -> np.ndarray:
     """File in, diff-map video out; bare refresh markers re-capture the
     baseline mid-stream.  Returns the per-frame statistics."""
@@ -218,7 +219,7 @@ def run_dips_on_file(input_path: str, output_path: Optional[str],
 def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                       encoding: "Encoding | str" = Encoding.MJPG,
                       properties: Optional[DiPsProperties] = None,
-                      batch: int = 8, device: Optional[str] = None,
+                      batch: int = 8, device: Optional[str] = "cuda",
                       input_layout: str = "hwc",
                       video_backend: str = "auto",
                       events: Optional[dict] = None,

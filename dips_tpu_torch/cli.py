@@ -68,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overrides --colorize; stats_only writes no video")
     p.add_argument("--batch", type=int, default=8,
                    help="frames per kernel launch")
-    p.add_argument("--device", default=None,
-                   help="cuda | cpu (default: the card when present)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda | cuda:N | cpu (default: cuda; without a card "
+                        "the run fails unless --device cpu is given)")
     p.add_argument("--stats-json", metavar="PATH",
                    help="--inputs mode: write per-frame statistics to a "
                         "JSON file, one row list per stream keyed by input "

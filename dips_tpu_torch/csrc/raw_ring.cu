@@ -1,20 +1,33 @@
-// Kernel 1: the raw ring-carry step (ABSDIFF, THRESHOLD, STATS_ONLY).
+// Kernels 1 and 3: the raw step (ABSDIFF, THRESHOLD, STATS_ONLY), in its
+// ring-carry and its tail-protocol form.
 //
-// Replaces the Pallas kernel _make_raw_kernel(ring=True) in
-// dips_tpu/ops/pallas_fused.py (called through absdiff_step_ring and
-// absdiff_step_ring_stacked).
+// Replaces the Pallas kernel _make_raw_kernel in
+// dips_tpu/ops/pallas_fused.py: ring=True (called through absdiff_step_ring
+// and absdiff_step_ring_stacked) as raw_step_kernel<false>, ring=False
+// (called through absdiff_step and absdiff_step_stacked) as
+// raw_step_kernel<true>.
 //
 // Per pixel and frame, in int32: d = ref - cur per channel.  ABSDIFF writes
 // |d| as u8 (byte-equal to cv2.absdiff), THRESHOLD writes 255 where the
 // largest channel |d| >= thr, STATS_ONLY writes no map.  OVERALL: ref is the
-// u8 baseline, re-captured on a flagged valid frame.  PER_FRAME: ref is the
-// carried previous frame, advanced on valid frames only; `seed` makes frame
-// 0 diff against itself.  Per frame it also writes per-tile statistic
-// partials (signed sum, abs sum, max, changed count; roi-masked) and adds
+// u8 baseline, re-captured on a flagged frame.  PER_FRAME: ref is the
+// previous frame.  Per frame it also writes per-tile statistic partials
+// (signed sum, abs sum, max, changed count; roi-masked) and adds
 // sum|d| * (1/765) * valid to the heatmap.
 //
+// The two protocols differ only where they meet carried state, fixed at
+// compile time (no runtime branch in the frame loop):
+// * ring: raw is (B, 3, S*Hp, Wp).  PER_FRAME's ref is the carried prev,
+//   advanced on valid frames only, and `seed` makes frame 0 diff against
+//   itself; capture needs a valid frame too.  prev (PER_FRAME) or the
+//   baseline (OVERALL) goes back.
+// * tail: raw is (T+B, 3, S*Hp, Wp), the T tail frames first.  The frame
+//   loop reads only the B new frames; PER_FRAME's first ref is tail frame
+//   T-1.  Capture and advance are not gated on valid.  Only the baseline
+//   (OVERALL) goes back; there is no prev.
+//
 // Streams: S streams are stacked along the rows (JAX's row-stacked layout:
-// raw (B, 3, S*Hp, Wp), state (3 | 1, S*Hp, Wp)).  The grid's y dimension
+// raw (F, 3, S*Hp, Wp), state (3 | 1, S*Hp, Wp)).  The grid's y dimension
 // is the stream, so a statistics tile never straddles two streams and the
 // stream index comes from the grid; flags / valid are (S, B) and seed is
 // (S,), all int32 on the device.  The roi mask tests the stream-local row.
@@ -32,7 +45,8 @@
 // writes C*Hp*Wp bytes (C = 3, 1 or 0); at 1080p (Hp=1080, Wp=2048) ABSDIFF
 // moves 6.6 MB in and 6.6 MB out per frame and does a few integer ops per
 // byte.  Stacking S streams multiplies the bytes and the blocks by S and
-// changes nothing per byte.
+// changes nothing per byte; the tail form reads one more frame (tail frame
+// T-1) per stream in PER_FRAME and none in OVERALL.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,13 +70,16 @@ __device__ __forceinline__ int byte_at(const uint32_t (&w)[4], int k) {
   return (w[k >> 2] >> ((k & 3) * 8)) & 0xff;
 }
 
-__global__ void __launch_bounds__(kThreads) raw_ring_kernel(
+// kTail: the tail protocol (raw holds T tail frames first; prev and seeds
+// are unused); else the ring-carry protocol.
+template <bool kTail>
+__global__ void __launch_bounds__(kThreads) raw_step_kernel(
     const uint8_t* __restrict__ raw, uint8_t* __restrict__ prev,
     uint8_t* __restrict__ base, float* __restrict__ heat,
     uint8_t* __restrict__ out, int* __restrict__ parts,
     const int* __restrict__ flags, const int* __restrict__ valid,
-    const int* __restrict__ seeds, int B, int Hp, int Wp, int overall,
-    int out_mode, int thr, int y0, int x0, int y1, int x1,
+    const int* __restrict__ seeds, int B, int T, int Hp, int Wp,
+    int overall, int out_mode, int thr, int y0, int x0, int y1, int x1,
     float heat_scale) {
   __shared__ int red[2][kWarps][4];
   const int si = blockIdx.y, S = gridDim.y;
@@ -79,7 +96,9 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* fl = flags + (long long)si * B;
   const int* va = valid + (long long)si * B;
-  const int seed = seeds[si];
+  const int seed = kTail ? 0 : seeds[si];
+  // the B frames the loop diffs: after the T tail frames in tail mode
+  const uint8_t* frames = kTail ? raw + (long long)T * 3 * plane : raw;
 
   // roi (or whole-plane) mask, one bit per owned byte
   uint32_t mask = 0;
@@ -95,7 +114,9 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
 #pragma unroll
   for (int k = 0; k < kBytes; ++k) h[k] = 0.f;
   if (live) {
-    const uint8_t* src = overall ? base : prev;
+    // PER_FRAME's first ref: the carried prev, or the tail's last frame
+    const uint8_t* src =
+        overall ? base : (kTail ? raw + (long long)(T - 1) * 3 * plane : prev);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) load16(src + ch * plane + off, ref[ch]);
 #pragma unroll
@@ -113,15 +134,16 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
     if (live) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
-        load16(raw + ((long long)f * 3 + ch) * plane + off, cur[ch]);
+        load16(frames + ((long long)f * 3 + ch) * plane + off, cur[ch]);
     }
-    if (!overall && seed && f == 0) {
+    if (!kTail && !overall && seed && f == 0) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
         for (int i = 0; i < 4; ++i) ref[ch][i] = cur[ch][i];
     }
-    if (overall && fl[f] != 0 && v != 0) {  // baseline capture
+    // baseline capture; the ring form skips invalid frames
+    if (overall && fl[f] != 0 && (kTail || v != 0)) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
@@ -155,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
         o[0][k >> 2] |= (dmax >= thr ? 255u : 0u) << sh;
       }
     }
-    if (!overall && v != 0) {  // advance prev on valid frames only
+    if (!overall && (kTail || v != 0)) {  // advance ref
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
@@ -195,15 +217,28 @@ __global__ void __launch_bounds__(kThreads) raw_ring_kernel(
   }
 
   if (!live) return;
-  // carried state out: ref is the baseline (OVERALL) or the last valid
-  // frame (PER_FRAME); the other one passes through untouched
-  uint8_t* dst = overall ? base : prev;
+  // carried state out: ref is the baseline (OVERALL) or, in the ring form,
+  // the last valid frame (PER_FRAME); the other one passes through
+  // untouched
+  if (overall || !kTail) {
+    uint8_t* dst = overall ? base : prev;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) store16(dst + ch * plane + off, ref[ch]);
+    for (int ch = 0; ch < 3; ++ch) store16(dst + ch * plane + off, ref[ch]);
+  }
 #pragma unroll
   for (int k = 0; k < kBytes; k += 4)
     *reinterpret_cast<float4*>(heat + off + k) =
         make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+}
+
+__host__ bool valid_launch(int S, int B, int Hp, int Wp, int out_mode) {
+  return S >= 1 && S <= 65535 && B >= 1 && Hp >= 1 && Wp % kBytes == 0 &&
+         out_mode >= 0 && out_mode <= 2;
+}
+
+__host__ dim3 raw_grid(int S, int Hp, int Wp) {
+  const long long chunks = (long long)Hp * Wp / kBytes;
+  return dim3((unsigned)((chunks + kThreads - 1) / kThreads), (unsigned)S);
 }
 
 }  // namespace
@@ -214,17 +249,32 @@ extern "C" int dips_raw_ring(
     void* parts, const void* flags, const void* valid, const void* seeds,
     int S, int B, int Hp, int Wp, int overall, int out_mode, int thr, int y0,
     int x0, int y1, int x1, float heat_scale, void* stream) {
-  if (S < 1 || S > 65535 || B < 1 || Hp < 1 || Wp % kBytes != 0 ||
-      out_mode < 0 || out_mode > 2)
+  if (!valid_launch(S, B, Hp, Wp, out_mode))
     return (int)cudaErrorInvalidValue;
-  const long long chunks = (long long)Hp * Wp / kBytes;
-  const dim3 grid((unsigned)((chunks + kThreads - 1) / kThreads),
-                  (unsigned)S);
-  raw_ring_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)raw, (uint8_t*)prev, (uint8_t*)base, (float*)heat,
-      (uint8_t*)out, (int*)parts, (const int*)flags, (const int*)valid,
-      (const int*)seeds, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
-      heat_scale);
+  raw_step_kernel<false>
+      <<<raw_grid(S, Hp, Wp), kThreads, 0, (cudaStream_t)stream>>>(
+          (const uint8_t*)raw, (uint8_t*)prev, (uint8_t*)base, (float*)heat,
+          (uint8_t*)out, (int*)parts, (const int*)flags, (const int*)valid,
+          (const int*)seeds, B, 0, Hp, Wp, overall, out_mode, thr, y0, x0,
+          y1, x1, heat_scale);
+  return (int)cudaGetLastError();
+}
+
+// raw is (T+B, 3, S*Hp, Wp), the T tail frames first; otherwise as
+// dips_raw_ring, without prev and seeds.
+extern "C" int dips_raw_tail(
+    const void* raw, void* base, void* heat, void* out, void* parts,
+    const void* flags, const void* valid, int S, int B, int T, int Hp,
+    int Wp, int overall, int out_mode, int thr, int y0, int x0, int y1,
+    int x1, float heat_scale, void* stream) {
+  if (!valid_launch(S, B, Hp, Wp, out_mode) || T < 1)
+    return (int)cudaErrorInvalidValue;
+  raw_step_kernel<true>
+      <<<raw_grid(S, Hp, Wp), kThreads, 0, (cudaStream_t)stream>>>(
+          (const uint8_t*)raw, nullptr, (uint8_t*)base, (float*)heat,
+          (uint8_t*)out, (int*)parts, (const int*)flags, (const int*)valid,
+          nullptr, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
+          heat_scale);
   return (int)cudaGetLastError();
 }
 

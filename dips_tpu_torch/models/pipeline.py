@@ -1,23 +1,31 @@
-"""DiPsEngine: the streaming pipeline on the ring-carry protocol.
+"""DiPsEngine: the streaming pipeline, on either of the JAX engine's
+protocols.
 
-Counterpart of ``dips_tpu/models/pipeline.py`` with ``ring_carry=True``,
-the JAX package's default on its fast backend.  The engine owns its carried
-state as tensors on ``device`` -- the filtered temporal ring (median modes),
-the previous plane (PER_FRAME), the baseline and the heatmap -- and each
-batch's kernel updates them in place (no copy per step).
+Counterpart of ``dips_tpu/models/pipeline.py``.  The engine owns its
+carried state as tensors on ``device`` and each batch's kernel updates it
+in place (no copy per step):
+
+* ring-carry (``ring_carry=True``, the default, as on the JAX engine's fast
+  backend): the filtered temporal ring (median modes), the previous plane
+  (PER_FRAME), the baseline and the heatmap; the input is the B new frames;
+* tail (``ring_carry=False``): the baseline and the heatmap only; the input
+  is the raw planar tail of the last T frames followed by the B new ones,
+  and the kernel rebuilds the ring from the tail at every launch.  The tail
+  stays on the device: after a launch, rows [n, n+T) of the (T+B)-row
+  planar batch are the next batch's rows [0, T).
 
 Per batch: one upload of the (n, H, W, 3) frames (from a pinned host buffer
 on a card), the layout prep on the device (permute, optional BGR flip, zero
 pad into a planar buffer the engine keeps), one kernel launch, then crop and
 interleave on the device before one download of the maps.
 
-Checkpoints are byte-compatible with the JAX engine's: they hold the raw
-planar u8 tail of the last T frames, and the ring is rebuilt from it after a
-load by running the kernel over the tail with inert flags and seed 1.
+Checkpoints are byte-compatible with the JAX engine's and the same in both
+protocols: they hold the raw planar u8 tail of the last T frames.  After a
+load the ring engine rebuilds its ring from the tail by running the kernel
+over it with inert flags and seed 1; the tail engine just uploads it.
 
-Not in this slice: the tail protocol (``ring_carry=False``),
-``packed_wire``, ``downscale`` and the planar upload layout; each raises
-``NotImplementedError``.
+Not in this slice: ``packed_wire``, ``downscale`` and the planar upload
+layout; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,11 +49,10 @@ _PINNED_BUFFERS = 2
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` -> the first card when one is present, else the CPU; an
-    explicit CUDA device without a card raises."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """``None`` or "cuda" -> the current card, "cuda:N" -> card N; without
+    a card these raise :class:`DeviceError`.  "cpu" runs the kernels' plain
+    twins and must be asked for."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise DeviceError(f"device {device!r} requested but torch sees "
@@ -65,26 +72,25 @@ class DiPsEngine:
       props: pipeline configuration.
       height, width: true frame geometry.
       batch: frames per kernel launch (B).
-      device: "cuda", "cuda:N", "cpu" or None (the card when present).  On
-        the CPU the kernels' plain PyTorch twins run.
+      device: "cuda" (the default; None means the same), "cuda:N" or
+        "cpu".  Without a card "cuda" raises :class:`DeviceError`; on the
+        CPU the kernels' plain PyTorch twins run.
       input_layout: "hwc" (RGB frames) or "hwc_bgr" (cv2's BGR order,
         swapped on the device in the same copy).
-      ring_carry, packed_wire, downscale: accepted for signature parity
-        with the JAX engine; only the defaults are ported.
+      ring_carry: True for the ring-carry protocol, False for the tail
+        protocol; both give the same outputs.
+      packed_wire, downscale: accepted for signature parity with the JAX
+        engine; only the defaults are ported.
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
-                 batch: int = 8, device=None, input_layout: str = "hwc",
+                 batch: int = 8, device="cuda", input_layout: str = "hwc",
                  ring_carry: bool = True, packed_wire: bool = False,
                  downscale: int = 1):
         if height <= 0 or width <= 0:
             raise ValueError(f"bad geometry {height}x{width}")
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if not ring_carry:
-            raise NotImplementedError(
-                "the tail protocol (ring_carry=False) is not ported: the "
-                "port runs the ring-carry protocol only")
         if packed_wire:
             raise NotImplementedError("packed_wire is not ported yet")
         if int(downscale) != 1:
@@ -99,10 +105,12 @@ class DiPsEngine:
         self._swap_rb, self._prep = reference.make_layout_prep(
             input_layout, self.height, self.width, self.hp, self.wp)
         self._raw_mode = props.output in _RAW_MODES
-        # planar device batch: the padding stays zero, only the true
-        # region is rewritten per batch
-        self._planar = torch.zeros((self.batch, 3, self.hp, self.wp),
-                                   dtype=torch.uint8, device=self.device)
+        self.ring_carry = bool(ring_carry)
+        # planar device batch, the tail rows first in the tail protocol:
+        # the padding stays zero, only the true region is rewritten
+        self._planar = torch.zeros(
+            (self._tail_len + self.batch, 3, self.hp, self.wp),
+            dtype=torch.uint8, device=self.device)
         self._pinned: List[Tuple[torch.Tensor, np.ndarray, list]] = []
         self._pinned_next = 0
         if self.device.type == "cuda":
@@ -113,6 +121,17 @@ class DiPsEngine:
         self.reset()
 
     # -- state ------------------------------------------------------------
+    @property
+    def _tail_len(self) -> int:
+        """Rows of raw tail ahead of the new frames in a launch."""
+        return 0 if self.ring_carry else self.props.temporal_size
+
+    @property
+    def tail_rows(self) -> int:
+        """Leading tail rows in a :meth:`new_batch_buffer` buffer: 0, since
+        the port takes hwc frames (new frames go at ``buf[i]``)."""
+        return 0
+
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
@@ -133,7 +152,9 @@ class DiPsEngine:
         self._ring_off = 0
         self._seeded = False
         self._force_snapshot = False
-        self._ring = None
+        self._ring = self._prev = None
+        if not self.ring_carry:
+            return
         if self._raw_mode:
             self._prev = self._zeros((3,) + plane, torch.uint8)
         else:
@@ -205,7 +226,8 @@ class DiPsEngine:
                 buf.dtype != np.uint8:
             raise ValueError(f"batch buffer {buf.shape} {buf.dtype} != "
                              f"{(b, self.height, self.width, 3)} uint8")
-        if not self._tail:  # first batch: the tail starts as T x frame 0
+        first = not self._tail
+        if first:  # first batch: the tail starts as T x frame 0
             self._tail.extend([buf[0].copy()] * t)
         self._tail.extend(buf[i].copy() for i in range(max(0, n - t), n))
 
@@ -226,9 +248,38 @@ class DiPsEngine:
                     ev[0] = torch.cuda.Event()
                     ev[0].record()
         raw = self._planar
-        self._prep(src, out=raw[:n])
-        if n < b:  # padding replicas of the last frame; state ignores them
-            raw[n:] = raw[n - 1]
+        tr = self._tail_len
+        self._prep(src, out=raw[tr:tr + n])
+        if n < b:  # padding replicas of the last frame
+            raw[tr + n:] = raw[tr + n - 1]
+        if not self.ring_carry:
+            if first:
+                raw[:t] = raw[t]
+            out, stats = self._launch_tail(raw, flags, valid)
+            # the next batch's tail: the last T of (tail + n new frames),
+            # through a temporary (the two row ranges overlap when n < T)
+            raw[:t] = raw[n:n + t].clone()
+        else:
+            out, stats = self._launch_ring(raw, flags, valid)
+            self._ring_off = (self._ring_off + n) % t
+            self._seeded = True
+        self.frame_index += n
+        # crop + interleave on the device: one download per batch
+        if out.shape[1]:
+            out = out[:n, :, :self.height, :self.width].permute(0, 2, 3, 1)
+            out = out.contiguous()
+        return out, stats[:n], n
+
+    def _launch_tail(self, raw: torch.Tensor, flags, valid):
+        """One tail-protocol launch over the (T+B)-row planar batch."""
+        step = (cuda_fused.absdiff_step if self._raw_mode
+                else cuda_fused.batch_step)
+        out, stats, *_ = step(self.props, self.height, self.width, raw,
+                              self._baseline, flags, self._heatmap, valid)
+        return out, stats
+
+    def _launch_ring(self, raw: torch.Tensor, flags, valid):
+        """One ring-carry launch over the B-row planar batch."""
         seed = 0 if self._seeded else 1
         # host flags: the wrapper uploads them with the seed in one copy
         if self._raw_mode:
@@ -240,14 +291,7 @@ class DiPsEngine:
                 self.props, self.height, self.width, raw, self._ring,
                 self._prev, self._baseline, flags, self._heatmap, valid,
                 self._ring_off, seed)
-        self._ring_off = (self._ring_off + n) % t
-        self._seeded = True
-        self.frame_index += n
-        # crop + interleave on the device: one download per batch
-        if out.shape[1]:
-            out = out[:n, :, :self.height, :self.width].permute(0, 2, 3, 1)
-            out = out.contiguous()
-        return out, stats[:n], n
+        return out, stats
 
     def collect(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         """Download a :meth:`dispatch_async` handle: (outputs uint8
@@ -314,7 +358,11 @@ class DiPsEngine:
                 state["heatmap"], dtype=np.float32)).to(self.device)
         # a snapshot requested before the restore must not fire after it
         self._force_snapshot = False
-        self._rebuild_ring_state()
+        if self.ring_carry:
+            self._rebuild_ring_state()
+        elif self._tail:
+            self._planar[:self._tail_len] = torch.from_numpy(
+                self._planar_tail())
 
     def _rebuild_ring_state(self) -> None:
         """Rebuild the carried ring / prev from the raw tail: one kernel

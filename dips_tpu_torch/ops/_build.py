@@ -11,7 +11,7 @@ hash of the sources, of the generated network header and of the compiler
 flags: a changed source builds anew, an unchanged one loads the cached
 library.
 
-The median kernel's selection networks are generated here from
+The median kernels' selection networks are generated here from
 ``ops/networks.py`` (the same column-factored window plans and temporal
 median networks the plain version applies with ``torch.minimum`` /
 ``torch.maximum``) into ``median_networks.cuh`` beside the library.
@@ -36,7 +36,7 @@ from . import networks
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dips_tpu_torch"
-SOURCES = ("raw_ring.cu", "median_ring.cu")
+SOURCES = ("raw_ring.cu", "median_ring.cu", "median_tail.cu")
 LIB_NAME = "libdips_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -58,6 +58,14 @@ SIGNATURES = {
     # S, B, Hp, Wp, T, W, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
     "dips_median_ring": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_I] * 4 + [_P],
+    # raw, base, heat, out, parts, flags, valid,
+    # S, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
+    # heat_scale, stream
+    "dips_raw_tail": [_P] * 7 + [_I] * 12 + [_F, _P],
+    # raw, base, heat, out, parts, flags, valid,
+    # S, B, Hp, Wp, T, W, overall, out_mode, chroma, filter,
+    # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
+    "dips_median_tail": [_P] * 7 + [_I] * 10 + [_F] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

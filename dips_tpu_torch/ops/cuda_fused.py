@@ -1,6 +1,8 @@
-"""The ring-carry device steps: CUDA kernels and their plain twins.
+"""The device steps: CUDA kernels and their plain twins.
 
-Counterpart of the ring-carry half of ``dips_tpu/ops/pallas_fused.py``:
+Counterpart of ``dips_tpu/ops/pallas_fused.py``, in both of its protocols.
+The ring-carry steps carry the filtered temporal ring (median modes) or the
+previous raw frame (raw modes) as device state:
 
 * :func:`absdiff_step_ring_stacked` (raw ABSDIFF / THRESHOLD /
   STATS_ONLY), kernel ``csrc/raw_ring.cu``;
@@ -8,6 +10,15 @@ Counterpart of the ring-carry half of ``dips_tpu/ops/pallas_fused.py``:
   no maps), kernel ``csrc/median_ring.cu``;
 * :func:`absdiff_step_ring` / :func:`batch_step_ring`: one stream, the
   stacked steps at s = 1.
+
+The tail-protocol steps take the T raw tail frames ahead of the B new ones
+(raw (T+B, 3, s*Hp, Wp)) and carry only the baseline and the heatmap; their
+capture and PER_FRAME advance are not gated on ``valid``:
+
+* :func:`absdiff_step_stacked`, the tail form of ``csrc/raw_ring.cu``;
+* :func:`batch_step_stacked`, kernel ``csrc/median_tail.cu``, which
+  rebuilds the ring from the tail at every call;
+* :func:`absdiff_step` / :func:`batch_step`: one stream, at s = 1.
 
 The stacked steps fold s streams along the row axis of one launch (the JAX
 package's row-stacked layout, (B, 3, s*Hp, Wp)), with per-stream flags,
@@ -18,10 +29,10 @@ plain PyTorch twin (``*_plain``), which mirrors the Pallas body frame by
 frame, stream by stream.  Nothing falls back from the card to the plain
 version.  Each wrapper counts its own launches (``fn.launches``).
 
-Carried state is updated in place: the kernels read ring / prev / baseline
-/ heatmap once, keep them in registers for the batch, and write them back
-into the same tensors, which the functions also return (the JAX functions
-donate the same buffers).  The plain twins update in place too.
+Carried state is updated in place: the kernels read it once, keep it in
+registers for the batch, and write it back into the same tensors, which the
+functions also return (the JAX functions donate the same buffers).  The
+plain twins update in place too.
 
 Statistics leave the kernels as per-(frame, stream, tile) partials; the
 final reduction over tiles (the counterpart of ``_reduce_stats``) runs here
@@ -164,28 +175,22 @@ def reduce_raw_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
     """Integer partials (B, S, n_tiles, 4) -> (S, B, 4) float32 stats:
     channel-mean signed and abs diff on [-1, 1], max |diff| / 255, changed
     count.  Sums are taken in int64 and converted to float32 once."""
-    p = parts.transpose(0, 1).to(torch.int64)
-    inv = _f32(1.0 / (3 * props.analysis_pixels(h, w) * 255))
-    return torch.stack([
-        p[..., 0].sum(-1).to(torch.float32) * inv,
-        p[..., 1].sum(-1).to(torch.float32) * inv,
-        p[..., 2].amax(-1).to(torch.float32) * _f32(1 / 255.0),
-        p[..., 3].sum(-1).to(torch.float32),
-    ], dim=-1)
+    p = parts.sum(dim=2, dtype=torch.int64)
+    p[..., 2] = parts[..., 2].amax(dim=2)
+    st = p.to(torch.float32)
+    st[..., :2] *= _f32(1.0 / (3 * props.analysis_pixels(h, w) * 255))
+    st[..., 2] *= _f32(1 / 255.0)
+    return st.transpose(0, 1).contiguous()
 
 
 def reduce_median_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
                         w: int) -> torch.Tensor:
     """float32 partials (B, S, n_tiles, 4) -> (S, B, 4) stats: mean diff,
     mean |diff|, max |diff|, changed count."""
-    p = parts.transpose(0, 1)
-    inv = _f32(1.0 / props.analysis_pixels(h, w))
-    return torch.stack([
-        p[..., 0].sum(-1) * inv,
-        p[..., 1].sum(-1) * inv,
-        p[..., 2].amax(-1),
-        p[..., 3].sum(-1),
-    ], dim=-1)
+    p = parts.sum(dim=2)
+    p[..., 2] = parts[..., 2].amax(dim=2)
+    p[..., :2] *= _f32(1.0 / props.analysis_pixels(h, w))
+    return p.transpose(0, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -202,39 +207,38 @@ def _raw_out_mode(props: DiPsProperties) -> Tuple[int, int]:
     return 1, 3
 
 
-def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
-                            raw: torch.Tensor, prev: torch.Tensor,
-                            baseline_raw: torch.Tensor, snap_flags,
-                            heatmap: torch.Tensor, valid, seed):
-    """Plain twin of one stream of the raw ring step, frame by frame as the
-    Pallas body runs it: raw (B, 3, Hp, Wp), flags / valid (B,), seed int
-    -> (out, stats (B, 4), prev, baseline, heatmap), state in place."""
+def _raw_frames(props: DiPsProperties, h: int, w: int,
+                frames: torch.Tensor, refi: torch.Tensor, flags, vals,
+                heat: torch.Tensor, gated: bool):
+    """Frame loop of the raw plain twins, frame by frame as the body of
+    ``_make_raw_kernel`` runs it: frames u8 (B, 3, Hp, Wp), refi int32
+    (3, Hp, Wp) the reference of the first frame, heat a private heatmap
+    -> (out, int64 partials (B, 1, 1, 4), the final reference, heat).
+    ``gated`` (ring protocol): capture and the PER_FRAME advance skip
+    invalid frames; the tail protocol's are ungated."""
     overall = props.method == DiPsMethod.OVERALL
-    b = raw.shape[0]
-    hp, wp = raw.shape[-2], raw.shape[-1]
+    b = frames.shape[0]
+    hp, wp = frames.shape[-2], frames.shape[-1]
     mode, c = _raw_out_mode(props)
     thr = props.change_threshold
-    flags = _host_rows(snap_flags, (b,), "absdiff_step_ring", "snap_flags")
-    vals = _host_rows(valid, (b,), "absdiff_step_ring", "valid")
     rm = None
     if props.roi is not None:
         rm = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
-                            device=raw.device).to(torch.int32)
-    refi = (baseline_raw if overall else prev).to(torch.int32)
-    if not overall and int(seed):
-        refi = raw[0].to(torch.int32)
-    out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=raw.device)
-    parts = torch.empty((b, 1, 1, 4), dtype=torch.int64, device=raw.device)
-    heat = heatmap.clone()
+                            device=frames.device).to(torch.int32)
+    out = torch.empty((b, c, hp, wp), dtype=torch.uint8,
+                      device=frames.device)
+    parts = torch.empty((b, 1, 1, 4), dtype=torch.int64,
+                        device=frames.device)
     scale = _f32(1.0 / (3 * 255.0))
     for m in range(b):
-        cur = raw[m].to(torch.int32)
-        if overall and flags[m] and vals[m]:
+        cur = frames[m].to(torch.int32)
+        state_ok = bool(vals[m]) or not gated
+        if overall and flags[m] and state_ok:
             refi = cur
         sg = refi - cur
         ad = sg.abs()
         dmax = ad.amax(0)
-        if not overall and vals[m]:
+        if not overall and state_ok:
             refi = cur
         if rm is None:
             sg_m, ad_m, dmax_m = sg, ad, dmax
@@ -250,6 +254,25 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
             out[m] = ad.to(torch.uint8)
         elif mode == 2:
             out[m, 0] = torch.where(dmax >= thr, 255, 0).to(torch.uint8)
+    return out, parts, refi, heat
+
+
+def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
+                            raw: torch.Tensor, prev: torch.Tensor,
+                            baseline_raw: torch.Tensor, snap_flags,
+                            heatmap: torch.Tensor, valid, seed):
+    """Plain twin of one stream of the raw ring step: raw (B, 3, Hp, Wp),
+    flags / valid (B,), seed int -> (out, stats (B, 4), prev, baseline,
+    heatmap), state in place."""
+    overall = props.method == DiPsMethod.OVERALL
+    b = raw.shape[0]
+    flags = _host_rows(snap_flags, (b,), "absdiff_step_ring", "snap_flags")
+    vals = _host_rows(valid, (b,), "absdiff_step_ring", "valid")
+    refi = (baseline_raw if overall else prev).to(torch.int32)
+    if not overall and int(seed):
+        refi = raw[0].to(torch.int32)
+    out, parts, refi, heat = _raw_frames(props, h, w, raw, refi, flags,
+                                         vals, heatmap.clone(), gated=True)
     if overall:
         baseline_raw.copy_(refi.to(torch.uint8))
     else:
@@ -286,39 +309,64 @@ def absdiff_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
             heatmap)
 
 
+def _new_frames(name: str, props: DiPsProperties, raw: torch.Tensor) -> int:
+    """B of a tail-protocol batch (T+B, 3, s*Hp, Wp)."""
+    b = raw.shape[0] - props.temporal_size
+    if b < 1:
+        raise ValueError(f"{name}: raw holds {raw.shape[0]} frames, not the "
+                         f"T={props.temporal_size} tail frames and at least "
+                         f"one new frame")
+    return b
+
+
 def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
-                raw: torch.Tensor, prev: torch.Tensor,
-                baseline_raw: torch.Tensor, snap_flags,
-                heatmap: torch.Tensor, valid, seeds):
-    """One launch of ``csrc/raw_ring.cu`` over s row-stacked streams."""
+                raw: torch.Tensor, prev, baseline_raw: torch.Tensor,
+                snap_flags, heatmap: torch.Tensor, valid, seeds):
+    """One launch of ``csrc/raw_ring.cu`` over s row-stacked streams: the
+    ring step, or the tail step when ``prev`` is None (raw then starts with
+    the T tail frames, and there are no seeds)."""
     from . import _build
-    b, wp = raw.shape[0], raw.shape[-1]
+    tail = prev is None
+    t_in = props.temporal_size if tail else 0
+    b = _new_frames(name, props, raw) if tail else raw.shape[0]
+    wp = raw.shape[-1]
     hp = _stream_rows(name, raw, s)
     dev = raw.device
-    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3, s * hp, wp)),
-                prev=(prev, torch.uint8, (3, s * hp, wp)),
-                baseline_raw=(baseline_raw, torch.uint8, (3, s * hp, wp)),
-                heatmap=(heatmap, torch.float32, (s * hp, wp)))
+    state = (3, s * hp, wp)
+    tensors = dict(raw=(raw, torch.uint8, (t_in + b,) + state),
+                   baseline_raw=(baseline_raw, torch.uint8, state),
+                   heatmap=(heatmap, torch.float32, state[1:]))
+    if not tail:
+        tensors["prev"] = (prev, torch.uint8, state)
+    _check_cuda(name, dev, **tensors)
     if wp % 16:
         raise ValueError(f"{name}: Wp={wp} is not a multiple of 16")
-    flags, vals, sd = _stream_i32(name, dev, [
-        ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b)),
-        ("seeds", seeds, (s,))])
+    scalars = _stream_i32(name, dev, [
+        ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
+        + ([] if tail else [("seeds", seeds, (s,))]))
     mode, c = _raw_out_mode(props)
     n_tiles = -(-(hp * wp // 16) // 256)
     out = torch.empty((b, c, s * hp, wp), dtype=torch.uint8, device=dev)
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.int32, device=dev)
     y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
                       else props.roi_bounds(h, w))
-    rc = _build.lib().dips_raw_ring(
-        _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
-        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), _ptr(sd), s, b, hp,
-        wp, int(props.method == DiPsMethod.OVERALL), mode,
-        props.change_threshold, y0, x0, y1, x1, _f32(1.0 / (3 * 255.0)),
-        _stream_ptr(dev))
+    common = (int(props.method == DiPsMethod.OVERALL), mode,
+              props.change_threshold, y0, x0, y1, x1,
+              _f32(1.0 / (3 * 255.0)), _stream_ptr(dev))
+    if tail:
+        rc = _build.lib().dips_raw_tail(
+            _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
+            _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp, *common)
+    else:
+        rc = _build.lib().dips_raw_ring(
+            _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
+            _ptr(out), _ptr(parts), *map(_ptr, scalars), s, b, hp, wp,
+            *common)
     _build.check(rc, name)
-    return (out, reduce_raw_stats(parts, props, h, w), prev, baseline_raw,
-            heatmap)
+    stats = reduce_raw_stats(parts, props, h, w)
+    if tail:
+        return out, stats, baseline_raw, heatmap
+    return out, stats, prev, baseline_raw, heatmap
 
 
 def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
@@ -392,55 +440,47 @@ def _check_median_props(name: str, props: DiPsProperties) -> None:
                          f"(absdiff_step_ring)")
 
 
-def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
-                          raw: torch.Tensor, ring: torch.Tensor,
-                          prev: torch.Tensor, baseline: torch.Tensor,
-                          snap_flags, heatmap: torch.Tensor, valid, offset,
-                          seed):
-    """Plain twin of one stream of the median ring step, frame by frame as
-    the Pallas body runs it: raw (B, 3, Hp, Wp), flags / valid (B,),
-    offset / seed int -> (out, stats (B, 4), ring, prev, baseline,
-    heatmap), state in place (``approx_median`` and ``quirk_compat`` are
-    not part of this slice and raise)."""
-    name = "batch_step_ring"
-    _check_median_props(name, props)
+def _check_exact_median(name: str, props: DiPsProperties) -> None:
     if props.approx_median or props.quirk_compat:
         raise NotImplementedError(
             f"{name}: approx_median and quirk_compat are not ported yet")
+
+
+def _median_frames(props: DiPsProperties, h: int, w: int,
+                   phis: torch.Tensor, slots: list, off: int,
+                   pv: torch.Tensor, base: torch.Tensor, heat: torch.Tensor,
+                   flags, vals, gated: bool):
+    """Frame loop of the median plain twins, frame by frame as the kernel
+    bodies run it (the counterpart of ``_emit_median_frame``): phis f32
+    (B, Hp, Wp) the frames' spatial medians, ``slots`` the T ring planes
+    (a list, rewritten here), frame m writing slot (off + m) mod T; pv /
+    base / heat private planes -> (out, partials (B, 1, 1, 4), pv, base,
+    heat).  ``gated`` (ring protocol): invalid frames write no slot, no
+    capture and no PER_FRAME advance; the tail protocol's are ungated."""
     overall = props.method == DiPsMethod.OVERALL
     t = props.temporal_size
-    b = raw.shape[0]
-    hp, wp = raw.shape[-2], raw.shape[-1]
+    b = phis.shape[0]
+    hp, wp = phis.shape[-2], phis.shape[-1]
     mode, c = _median_out_mode(props)
-    flags = _host_rows(snap_flags, (b,), name, "snap_flags")
-    vals = _host_rows(valid, (b,), name, "valid")
-    off, seed = int(offset) % t, int(seed)
     mask = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
-                          device=raw.device)
+                          device=phis.device)
     thr = _change_thr(props)
-    phis = ref.spatial_median(ref.intensity_planar(raw, props.chroma),
-                              props.window_size)
-    slots = [ring[k].clone() for k in range(t)]
-    pv, base, heat = prev.clone(), baseline.clone(), heatmap.clone()
-    out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=raw.device)
-    parts = torch.empty((b, 1, 1, 4), dtype=torch.float32, device=raw.device)
+    out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=phis.device)
+    parts = torch.empty((b, 1, 1, 4), dtype=torch.float32,
+                        device=phis.device)
     for m in range(b):
-        phi = phis[m]
-        if vals[m]:
-            slots[(off + m) % t] = phi
-        if m == 0 and seed:
-            slots = [phi] * t
-            if not overall:
-                pv = phi
+        state_ok = bool(vals[m]) or not gated
+        if state_ok:
+            slots[(off + m) % t] = phis[m]
         cur = ref.temporal_median(slots)
-        capture = overall and flags[m] and vals[m]
+        capture = overall and bool(flags[m]) and state_ok
         if overall:
             if capture:
                 base = cur
             diff_i = base - cur
         else:
             diff_i = pv - cur
-            if vals[m]:
+            if state_ok:
                 pv = cur
         rd = diff_i * ref.INTENSITY_SCALE
         dm = rd * mask
@@ -467,9 +507,39 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
             out[m, 2] = lo8
         else:
             out[m, 0] = ref.quantize_u8(0.5 - d)
+    return out, parts, pv, base, heat
+
+
+def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
+                          raw: torch.Tensor, ring: torch.Tensor,
+                          prev: torch.Tensor, baseline: torch.Tensor,
+                          snap_flags, heatmap: torch.Tensor, valid, offset,
+                          seed):
+    """Plain twin of one stream of the median ring step: raw (B, 3, Hp,
+    Wp), flags / valid (B,), offset / seed int -> (out, stats (B, 4), ring,
+    prev, baseline, heatmap), state in place.  ``seed`` fills every ring
+    slot (and prev, in PER_FRAME) with frame 0."""
+    name = "batch_step_ring"
+    _check_median_props(name, props)
+    _check_exact_median(name, props)
+    t = props.temporal_size
+    b = raw.shape[0]
+    flags = _host_rows(snap_flags, (b,), name, "snap_flags")
+    vals = _host_rows(valid, (b,), name, "valid")
+    phis = ref.spatial_median(ref.intensity_planar(raw, props.chroma),
+                              props.window_size)
+    slots = [ring[k].clone() for k in range(t)]
+    pv = prev.clone()
+    if int(seed):
+        slots = [phis[0]] * t
+        if props.method != DiPsMethod.OVERALL:
+            pv = phis[0]
+    out, parts, pv, base, heat = _median_frames(
+        props, h, w, phis, slots, int(offset) % t, pv, baseline.clone(),
+        heatmap.clone(), flags, vals, gated=True)
     for k in range(t):
         ring[k].copy_(slots[k])
-    if overall:
+    if props.method == DiPsMethod.OVERALL:
         baseline.copy_(base)
     else:
         prev.copy_(pv)
@@ -508,54 +578,63 @@ def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
 
 
 def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
-                   raw: torch.Tensor, ring: torch.Tensor, prev: torch.Tensor,
-                   baseline: torch.Tensor, snap_flags, heatmap: torch.Tensor,
-                   valid, offsets, seeds):
-    """One launch of ``csrc/median_ring.cu`` over s row-stacked streams."""
+                   raw: torch.Tensor, ring, prev, baseline: torch.Tensor,
+                   snap_flags, heatmap: torch.Tensor, valid, offsets, seeds):
+    """One launch over s row-stacked streams of ``csrc/median_ring.cu``,
+    or of ``csrc/median_tail.cu`` when ``ring`` is None (raw then starts
+    with the T tail frames; there is no ring, prev, offset or seed)."""
     _check_median_props(name, props)
-    if props.approx_median or props.quirk_compat:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no approx_median or quirk_compat "
-            f"mode yet")
+    _check_exact_median(name, props)
     from . import _build
+    tail = ring is None
     t = props.temporal_size
-    b, wp = raw.shape[0], raw.shape[-1]
+    b = _new_frames(name, props, raw) if tail else raw.shape[0]
+    wp = raw.shape[-1]
     hp = _stream_rows(name, raw, s)
     dev = raw.device
     plane = (s * hp, wp)
-    _check_cuda(name, dev, raw=(raw, torch.uint8, (b, 3) + plane),
-                ring=(ring, torch.float32, (t,) + plane),
-                prev=(prev, torch.float32, plane),
-                baseline=(baseline, torch.float32, plane),
-                heatmap=(heatmap, torch.float32, plane))
+    tensors = dict(raw=(raw, torch.uint8, ((t if tail else 0) + b, 3)
+                        + plane),
+                   baseline=(baseline, torch.float32, plane),
+                   heatmap=(heatmap, torch.float32, plane))
+    if not tail:
+        tensors.update(ring=(ring, torch.float32, (t,) + plane),
+                       prev=(prev, torch.float32, plane))
+    _check_cuda(name, dev, **tensors)
     if hp % 8 or wp % 32:
         raise ValueError(f"{name}: padded geometry {hp}x{wp} must be a "
                          f"multiple of 8 x 32")
-    if isinstance(offsets, torch.Tensor):
-        offsets = offsets % t
-    else:
-        offsets = np.asarray(offsets) % t
-    flags, vals, offs, sd = _stream_i32(name, dev, [
-        ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b)),
-        ("offsets", offsets, (s,)), ("seeds", seeds, (s,))])
+    items = [("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
+    if not tail:
+        offsets = offsets % t if isinstance(offsets, torch.Tensor) \
+            else np.asarray(offsets) % t
+        items += [("offsets", offsets, (s,)), ("seeds", seeds, (s,))]
+    scalars = _stream_i32(name, dev, items)
     mode, c = _median_out_mode(props)
     n_tiles = (hp // 8) * (wp // 32)
     out = torch.empty((b, c) + plane, dtype=torch.uint8, device=dev)
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = props.roi_bounds(h, w)
-    rc = _build.lib().dips_median_ring(
-        _ptr(raw), _ptr(ring), _ptr(prev), _ptr(baseline), _ptr(heatmap),
-        _ptr(out), _ptr(parts), _ptr(flags), _ptr(vals), _ptr(offs),
-        _ptr(sd), s, b, hp, wp, t, props.window_size,
-        int(props.method == DiPsMethod.OVERALL), mode,
-        _CHROMA_CODE[props.chroma], _FILTER_CODE[props.filter],
-        _f32(props.sigmoid_horizontal_scalar), _f32(props.sensitivity),
-        _f32(-0.5 + ref.INV_SIGMOID_EPS), _f32(0.5 - ref.INV_SIGMOID_EPS),
-        ref.INTENSITY_SCALE, _change_thr(props), y0, x0, y1, x1,
-        _stream_ptr(dev))
+    common = (s, b, hp, wp, t, props.window_size,
+              int(props.method == DiPsMethod.OVERALL), mode,
+              _CHROMA_CODE[props.chroma], _FILTER_CODE[props.filter],
+              _f32(props.sigmoid_horizontal_scalar), _f32(props.sensitivity),
+              _f32(-0.5 + ref.INV_SIGMOID_EPS),
+              _f32(0.5 - ref.INV_SIGMOID_EPS), ref.INTENSITY_SCALE,
+              _change_thr(props), y0, x0, y1, x1, _stream_ptr(dev))
+    if tail:
+        rc = _build.lib().dips_median_tail(
+            _ptr(raw), _ptr(baseline), _ptr(heatmap), _ptr(out), _ptr(parts),
+            *map(_ptr, scalars), *common)
+    else:
+        rc = _build.lib().dips_median_ring(
+            _ptr(raw), _ptr(ring), _ptr(prev), _ptr(baseline), _ptr(heatmap),
+            _ptr(out), _ptr(parts), *map(_ptr, scalars), *common)
     _build.check(rc, name)
-    return (out, reduce_median_stats(parts, props, h, w), ring, prev,
-            baseline, heatmap)
+    stats = reduce_median_stats(parts, props, h, w)
+    if tail:
+        return out, stats, baseline, heatmap
+    return out, stats, ring, prev, baseline, heatmap
 
 
 def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
@@ -610,8 +689,206 @@ def batch_step_ring(props: DiPsProperties, h: int, w: int,
 
 batch_step_ring.launches = 0
 
+# ---------------------------------------------------------------------------
+# Kernel 3: raw tail step
+# ---------------------------------------------------------------------------
+
+def absdiff_step_plain(props: DiPsProperties, h: int, w: int,
+                       raw: torch.Tensor, baseline_raw: torch.Tensor,
+                       snap_flags, heatmap: torch.Tensor, valid):
+    """Plain twin of one stream of the raw tail step: raw (T+B, 3, Hp, Wp),
+    flags / valid (B,) -> (out, stats (B, 4), baseline, heatmap), state in
+    place.  OVERALL reads only the B new frames; PER_FRAME starts from the
+    tail's last frame."""
+    name = "absdiff_step"
+    t = props.temporal_size
+    b = _new_frames(name, props, raw)
+    flags = _host_rows(snap_flags, (b,), name, "snap_flags")
+    vals = _host_rows(valid, (b,), name, "valid")
+    overall = props.method == DiPsMethod.OVERALL
+    refi = (baseline_raw if overall else raw[t - 1]).to(torch.int32)
+    out, parts, refi, heat = _raw_frames(props, h, w, raw[t:], refi, flags,
+                                         vals, heatmap.clone(), gated=False)
+    if overall:
+        baseline_raw.copy_(refi.to(torch.uint8))
+    heatmap.copy_(heat)
+    return (out, reduce_raw_stats(parts, props, h, w)[0], baseline_raw,
+            heatmap)
+
+
+def absdiff_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
+                               raw: torch.Tensor, baseline_raw: torch.Tensor,
+                               snap_flags, heatmap: torch.Tensor, valid):
+    """Plain twin of :func:`absdiff_step_stacked`: each stream's row
+    section (a view) runs through :func:`absdiff_step_plain`."""
+    name = "absdiff_step_stacked"
+    b = _new_frames(name, props, raw)
+    hp = _stream_rows(name, raw, s)
+    flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
+    vals = _host_rows(valid, (s, b), name, "valid")
+    outs, stats = [], []
+    for si in range(s):
+        r = slice(si * hp, (si + 1) * hp)
+        o, st, *_ = absdiff_step_plain(props, h, w, raw[:, :, r],
+                                       baseline_raw[:, r], flags[si],
+                                       heatmap[r], vals[si])
+        outs.append(o)
+        stats.append(st)
+    return torch.cat(outs, dim=2), torch.stack(stats), baseline_raw, heatmap
+
+
+def absdiff_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
+                         raw: torch.Tensor, baseline_raw: torch.Tensor,
+                         snap_flags, heatmap: torch.Tensor, valid):
+    """Raw tail step over ``s`` streams stacked along the rows.
+
+    raw u8 (T+B, 3, s*Hp, Wp), the T tail frames first; baseline_raw u8
+    (3, s*Hp, Wp); heatmap f32 (s*Hp, Wp); snap_flags / valid (s, B) ->
+    (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), baseline, heatmap).
+    Capture is not gated on ``valid``.  State is updated in place and
+    returned."""
+    name = "absdiff_step_stacked"
+    if not _route(name, raw):
+        return absdiff_step_stacked_plain(props, h, w, s, raw, baseline_raw,
+                                          snap_flags, heatmap, valid)
+    res = _launch_raw(name, props, h, w, s, raw, None, baseline_raw,
+                      snap_flags, heatmap, valid, None)
+    absdiff_step_stacked.launches += 1
+    return res
+
+
+absdiff_step_stacked.launches = 0
+
+
+def absdiff_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
+                 baseline_raw: torch.Tensor, snap_flags,
+                 heatmap: torch.Tensor, valid):
+    """Raw tail step of one stream: the stacked step at s = 1.
+
+    raw u8 (T+B, 3, Hp, Wp), baseline_raw u8 (3, Hp, Wp), heatmap f32
+    (Hp, Wp), snap_flags / valid (B,) -> (out u8 (B, C, Hp, Wp), stats f32
+    (B, 4), baseline, heatmap).  State is updated in place and returned."""
+    name = "absdiff_step"
+    b = _new_frames(name, props, raw)
+    flags = _one_stream(snap_flags, b, name, "snap_flags")
+    vals = _one_stream(valid, b, name, "valid")
+    if not _route(name, raw):
+        out, stats, *state = absdiff_step_stacked_plain(
+            props, h, w, 1, raw, baseline_raw, flags, heatmap, vals)
+    else:
+        out, stats, *state = _launch_raw(name, props, h, w, 1, raw, None,
+                                         baseline_raw, flags, heatmap, vals,
+                                         None)
+        absdiff_step.launches += 1
+    return (out, stats[0], *state)
+
+
+absdiff_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: median tail step
+# ---------------------------------------------------------------------------
+
+def batch_step_plain(props: DiPsProperties, h: int, w: int,
+                     raw: torch.Tensor, baseline: torch.Tensor, snap_flags,
+                     heatmap: torch.Tensor, valid):
+    """Plain twin of one stream of the median tail step: raw (T+B, 3, Hp,
+    Wp), flags / valid (B,) -> (out, stats (B, 4), baseline, heatmap),
+    state in place.  The T tail frames fill the ring (slot k = tail frame
+    k); PER_FRAME's first reference is their median."""
+    name = "batch_step"
+    _check_median_props(name, props)
+    _check_exact_median(name, props)
+    t = props.temporal_size
+    b = _new_frames(name, props, raw)
+    flags = _host_rows(snap_flags, (b,), name, "snap_flags")
+    vals = _host_rows(valid, (b,), name, "valid")
+    phis = ref.spatial_median(ref.intensity_planar(raw, props.chroma),
+                              props.window_size)
+    slots = [phis[k] for k in range(t)]
+    out, parts, _, base, heat = _median_frames(
+        props, h, w, phis[t:], slots, 0, ref.temporal_median(slots),
+        baseline.clone(), heatmap.clone(), flags, vals, gated=False)
+    if props.method == DiPsMethod.OVERALL:
+        baseline.copy_(base)
+    heatmap.copy_(heat)
+    return (out, reduce_median_stats(parts, props, h, w)[0], baseline,
+            heatmap)
+
+
+def batch_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
+                             raw: torch.Tensor, baseline: torch.Tensor,
+                             snap_flags, heatmap: torch.Tensor, valid):
+    """Plain twin of :func:`batch_step_stacked`: the halo stops at each
+    stream's rows, so each stream's row section (a view) runs through
+    :func:`batch_step_plain`."""
+    name = "batch_step_stacked"
+    b = _new_frames(name, props, raw)
+    hp = _stream_rows(name, raw, s)
+    flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
+    vals = _host_rows(valid, (s, b), name, "valid")
+    outs, stats = [], []
+    for si in range(s):
+        r = slice(si * hp, (si + 1) * hp)
+        o, st, *_ = batch_step_plain(props, h, w, raw[:, :, r], baseline[r],
+                                     flags[si], heatmap[r], vals[si])
+        outs.append(o)
+        stats.append(st)
+    return torch.cat(outs, dim=2), torch.stack(stats), baseline, heatmap
+
+
+def batch_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
+                       raw: torch.Tensor, baseline: torch.Tensor, snap_flags,
+                       heatmap: torch.Tensor, valid):
+    """Median tail step over ``s`` streams stacked along the rows.
+
+    raw u8 (T+B, 3, s*Hp, Wp), the T tail frames first; baseline / heatmap
+    f32 (s*Hp, Wp); snap_flags / valid (s, B) -> (out u8 (B, C, s*Hp, Wp),
+    stats f32 (s, B, 4), baseline, heatmap).  The ring is rebuilt from the
+    tail at every call; capture and the PER_FRAME advance are not gated on
+    ``valid``.  State is updated in place and returned."""
+    name = "batch_step_stacked"
+    if not _route(name, raw):
+        return batch_step_stacked_plain(props, h, w, s, raw, baseline,
+                                        snap_flags, heatmap, valid)
+    res = _launch_median(name, props, h, w, s, raw, None, None, baseline,
+                         snap_flags, heatmap, valid, None, None)
+    batch_step_stacked.launches += 1
+    return res
+
+
+batch_step_stacked.launches = 0
+
+
+def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
+               baseline: torch.Tensor, snap_flags, heatmap: torch.Tensor,
+               valid):
+    """Median tail step of one stream: the stacked step at s = 1.
+
+    raw u8 (T+B, 3, Hp, Wp), baseline / heatmap f32 (Hp, Wp), snap_flags /
+    valid (B,) -> (out u8 (B, C, Hp, Wp), stats f32 (B, 4), baseline,
+    heatmap).  State is updated in place and returned."""
+    name = "batch_step"
+    b = _new_frames(name, props, raw)
+    flags = _one_stream(snap_flags, b, name, "snap_flags")
+    vals = _one_stream(valid, b, name, "valid")
+    if not _route(name, raw):
+        out, stats, *state = batch_step_stacked_plain(
+            props, h, w, 1, raw, baseline, flags, heatmap, vals)
+    else:
+        out, stats, *state = _launch_median(name, props, h, w, 1, raw, None,
+                                            None, baseline, flags, heatmap,
+                                            vals, None, None)
+        batch_step.launches += 1
+    return (out, stats[0], *state)
+
+
+batch_step.launches = 0
+
 _KERNELS = (absdiff_step_ring, batch_step_ring, absdiff_step_ring_stacked,
-            batch_step_ring_stacked)
+            batch_step_ring_stacked, absdiff_step, batch_step,
+            absdiff_step_stacked, batch_step_stacked)
 
 
 def reset_launch_counts() -> None:

@@ -2,12 +2,17 @@
 
 Counterpart of ``dips_tpu/ops/reference.py``: the same padded geometry,
 layouts and op order, written as plain functions on tensors.  The plain
-twins of the two CUDA kernels (``ops/cuda_fused.py``) are built from these
+twins of the CUDA kernels (``ops/cuda_fused.py``) are built from these
 stages, and the CPU tests hold each stage against its JAX original.
 
 Filtering runs on the integer intensity scale [0, 510] carried in float32:
 medians are selections, so they stay integer-exact, and the diff gets one
 rounding (``diff_i * INTENSITY_SCALE``).
+
+:func:`batch_step` and :func:`absdiff_step` are the whole tail-protocol
+steps, as the JAX package's portable backend runs them: the input is the T
+raw tail frames followed by the B new ones, and every step is a pure
+function of its arguments (new tensors out, nothing updated in place).
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..properties import ChromaFilter, DiPsFilter
+from ..properties import (ChromaFilter, DiPsFilter, DiPsMethod,
+                          DiPsProperties, OutputMode)
 from . import networks
 
 #: Per-frame statistic order: mean_diff, mean_abs_diff, max_abs_diff,
@@ -164,3 +170,154 @@ def valid_mask(hp: int, wp: int, h: int, w: int, roi=None,
     m = torch.zeros((hp, wp), dtype=torch.float32, device=device)
     m[y0:y1, x0:x1] = 1.0
     return m
+
+
+def temporal_median_windows(filtered: torch.Tensor, t: int) -> torch.Tensor:
+    """(N, H, W) -> (N - t + 1, H, W): the median of each length-t window
+    of consecutive planes."""
+    m = filtered.shape[0] - t + 1
+    return temporal_median([filtered[k:k + m] for k in range(t)])
+
+
+def masked_stats(raw_diff: torch.Tensor, n_valid: int,
+                 change_threshold: int) -> torch.Tensor:
+    """(B, H, W) masked raw diff -> (B, NUM_STATS) float32 reductions."""
+    a = raw_diff.abs()
+    thr = _f32(np.float32(change_threshold) / np.float32(255.0))
+    inv_n = _f32(1.0 / n_valid)
+    return torch.stack([
+        raw_diff.sum(dim=(-2, -1)) * inv_n,
+        a.sum(dim=(-2, -1)) * inv_n,
+        a.amax(dim=(-2, -1)),
+        (a >= thr).to(torch.float32).sum(dim=(-2, -1)),
+    ], dim=-1)
+
+
+def capture_scan(baseline: torch.Tensor, cur: torch.Tensor, flags
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OVERALL baseline pinning, frame by frame in order: returns (the
+    carried baseline, the baseline each frame diffs against).  A flagged
+    frame pins itself before it is diffed."""
+    pinned = []
+    bl = baseline
+    for c, flag in zip(cur, np.asarray(torch.as_tensor(flags).cpu())):
+        if flag:
+            bl = c
+        pinned.append(bl)
+    return bl, torch.stack(pinned)
+
+
+def render_output(props: DiPsProperties, d: torch.Tensor, cur: torch.Tensor,
+                  flags) -> torch.Tensor:
+    """Emphasised diff (B, H, W) -> quantized u8 maps (B, C, H, W);
+    OVERALL capture frames render the freshly pinned baseline as gray."""
+    if props.output == OutputMode.COLORIZE:
+        out = torch.stack(diff_to_color_planes(d), dim=1)
+    else:  # GRAYSCALE: 0.5 - diff
+        out = (0.5 - d)[:, None]
+    if props.method == DiPsMethod.OVERALL:
+        flags = torch.as_tensor(flags, device=d.device).to(torch.bool)
+        out = torch.where(flags[:, None, None, None],
+                          (cur * INTENSITY_SCALE)[:, None], out)
+    return quantize_u8(out)
+
+
+def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
+               baseline: torch.Tensor, snap_flags, heatmap: torch.Tensor,
+               valid) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """One tail-protocol step of the median pipeline.
+
+    raw u8 (T+B, 3, Hp, Wp), tail first; baseline / heatmap f32 (Hp, Wp);
+    snap_flags / valid bool (B,) -> (out u8 (B, C, Hp, Wp), stats f32
+    (B, 4), new baseline, new heatmap).  Padding frames (valid False) add
+    nothing to the heatmap.  ``approx_median`` and ``quirk_compat`` are not
+    ported yet and raise."""
+    if props.approx_median or props.quirk_compat:
+        raise NotImplementedError(
+            "batch_step: approx_median and quirk_compat are not ported yet")
+    t = props.temporal_size
+    hp, wp = raw.shape[-2], raw.shape[-1]
+    dev = raw.device
+    mask = valid_mask(hp, wp, h, w, device=dev)
+    filtered = spatial_median(intensity_planar(raw, props.chroma),
+                              props.window_size)
+    cur_all = temporal_median_windows(filtered, t)        # (B+1, Hp, Wp)
+    prev, cur = cur_all[:-1], cur_all[1:]
+    if props.method == DiPsMethod.OVERALL:
+        new_baseline, baselines = capture_scan(baseline, cur, snap_flags)
+        raw_diff = (baselines - cur) * INTENSITY_SCALE
+    else:  # PER_FRAME: diff against the previous window's median
+        new_baseline = baseline
+        raw_diff = (prev - cur) * INTENSITY_SCALE
+    raw_diff = raw_diff * mask
+    # statistics and heatmap reduce over the analysis region; the maps keep
+    # the full-frame diff
+    dm = raw_diff if props.roi is None else raw_diff * valid_mask(
+        hp, wp, h, w, props.roi_bounds(h, w), device=dev)
+    stats = masked_stats(dm, props.analysis_pixels(h, w),
+                         props.change_threshold)
+    vw = torch.as_tensor(valid, device=dev).to(torch.float32)[:, None, None]
+    heatmap = heatmap + (dm.abs() * vw).sum(dim=0)
+    if props.out_channels == 0:
+        out = torch.zeros((cur.shape[0], 0, hp, wp), dtype=torch.uint8,
+                          device=dev)
+        return out, stats, new_baseline, heatmap
+    d = emphasize(raw_diff, props.filter, props.sigmoid_horizontal_scalar,
+                  props.sensitivity)
+    return (render_output(props, d, cur, snap_flags), stats, new_baseline,
+            heatmap)
+
+
+def absdiff_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
+                 baseline_raw: torch.Tensor, snap_flags,
+                 heatmap: torch.Tensor, valid
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """One tail-protocol step of the raw path: integer ``|ref - cur|`` per
+    channel, byte-equal to ``cv2.absdiff``.
+
+    raw u8 (T+B, 3, Hp, Wp), tail first; baseline_raw u8 (3, Hp, Wp);
+    heatmap f32 (Hp, Wp); snap_flags / valid bool (B,) -> (out u8
+    (B, C, Hp, Wp) with C = 3 (ABSDIFF), 1 (THRESHOLD) or 0 (STATS_ONLY),
+    stats f32 (B, 4), new baseline, new heatmap).  OVERALL diffs against the
+    pinned baseline; PER_FRAME against the frame before, the tail's last
+    frame for the first new one."""
+    t = props.temporal_size
+    new = raw[t:]
+    if props.method == DiPsMethod.OVERALL:
+        new_baseline, baselines = capture_scan(baseline_raw, new, snap_flags)
+    else:
+        new_baseline, baselines = baseline_raw, raw[t - 1:-1]
+    # zero padding is zero in both operands, so it adds to no reduction
+    signed = baselines.to(torch.int16) - new.to(torch.int16)
+    d16 = signed.abs()
+    d_u8 = d16.to(torch.uint8)
+    dmax = d_u8.amax(dim=1, keepdim=True)
+    hp, wp = raw.shape[-2], raw.shape[-1]
+    inv = _f32(1.0 / (3 * props.analysis_pixels(h, w) * 255))
+    sf = signed.to(torch.float32)
+    af = d16.to(torch.float32)
+    changed = (dmax[:, 0] >= props.change_threshold).to(torch.float32)
+    if props.roi is not None:
+        rm = valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
+                        device=raw.device)
+        sf, af, changed = sf * rm, af * rm, changed * rm
+    stats = torch.stack([
+        sf.sum(dim=(1, 2, 3)) * inv,
+        af.sum(dim=(1, 2, 3)) * inv,
+        af.amax(dim=(1, 2, 3)) * _f32(1 / 255.0),
+        changed.sum(dim=(1, 2)),
+    ], dim=-1)
+    vw = torch.as_tensor(valid, device=raw.device).to(
+        torch.float32)[:, None, None]
+    heatmap = heatmap + (af.sum(dim=1) * _f32(1.0 / (3 * 255.0))
+                         * vw).sum(dim=0)
+    if props.out_channels == 0:
+        out = d_u8[:, :0]
+    elif props.output == OutputMode.THRESHOLD:
+        out = torch.where(dmax >= props.change_threshold, 255, 0).to(
+            torch.uint8)
+    else:
+        out = d_u8
+    return out, stats, new_baseline, heatmap

@@ -1,31 +1,43 @@
 """MultiStreamEngine: a fleet of video streams through one stacked launch.
 
-Counterpart of ``dips_tpu/parallel/multistream.py`` on one device, on the
-ring-carry protocol (the JAX engine's default on its fast backend, where it
-builds ``make_sharded_ring_step``).  All S streams fold along the row axis
-of ONE launch of the stacked ring kernels per batch
-(``ops/cuda_fused.absdiff_step_ring_stacked`` / ``batch_step_ring_stacked``).
+Counterpart of ``dips_tpu/parallel/multistream.py`` on one device, on
+either of the JAX engine's protocols.  All S streams fold along the row
+axis of ONE launch of a stacked kernel per batch:
+
+* ring-carry (``ring_carry=True``, the default; the JAX engine builds
+  ``make_sharded_ring_step`` for it): ``ops/cuda_fused.
+  absdiff_step_ring_stacked`` / ``batch_step_ring_stacked``, with the
+  filtered ring and prev carried per stream;
+* tail (``ring_carry=False``, the JAX engine's ``make_sharded_step``):
+  ``ops/cuda_fused.absdiff_step_stacked`` / ``batch_step_stacked`` over
+  (T+B, 3, S*Hp, Wp), each stream's raw tail in rows [0, T).
 
 The engine owns its state row-stacked on ``device``, in the kernels' own
 layout: ring (T, S*Hp, Wp), prev / baseline (3 or 1, S*Hp, Wp), heatmap
 (S*Hp, Wp); stream ``si`` owns rows [si*Hp, (si+1)*Hp).  Each batch is
-staged straight into the row-stacked planar input (B, 3, S*Hp, Wp), seen as
-(B, 3, S, Hp, Wp), so the fleet pays no transpose copy per batch.
+staged straight into the row-stacked planar input, seen as
+(F, 3, S, Hp, Wp), so the fleet pays no transpose copy per batch.
+
+A stream that is not staged in a batch (idle, exhausted or failed) is fed
+zeros, in its frame rows and, in the tail protocol, in its tail rows, as
+the JAX engine stages it; its real tail stays in the host bookkeeping and
+goes back up when it is staged again.
 
 Per batch: the frames go into one persistent (S, B, H, W, 3) host buffer
 (pinned on a card), up in one copy, through the layout prep on the device
 (permute, optional BGR flip, zero pad), one kernel launch, then crop and
 interleave on the device to (S, n, H, W, C) before one download.
 
-Checkpoints are byte-compatible with the JAX engine's in both directions:
-the fleet's ``save`` / ``load`` and one slot's ``save_stream`` /
-``load_stream`` (``DiPsEngine``'s format, so a slot moves to and from a
-single-stream engine of either package).  They hold raw planar u8 tails;
-after a load the ring is rebuilt from them with one stacked launch.
+Checkpoints are byte-compatible with the JAX engine's in both directions
+and in both protocols: the fleet's ``save`` / ``load`` and one slot's
+``save_stream`` / ``load_stream`` (``DiPsEngine``'s format, so a slot moves
+to and from a single-stream engine of either package).  They hold raw
+planar u8 tails; after a load the ring engine rebuilds its ring from them
+with one stacked launch.
 
-Not in this slice: the tail protocol (``ring_carry=False``),
-``packed_wire``, ``downscale``, the planar upload layout, and meshes (the
-port runs on one device); each raises ``NotImplementedError``.
+Not in this slice: ``packed_wire``, ``downscale``, the planar upload
+layout, and meshes (the port runs on one device); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,18 +71,21 @@ class MultiStreamEngine:
       height, width: true frame geometry, shared by every stream.
       n_streams: S.
       batch: frames per stream per launch (B).
-      device: "cuda", "cuda:N", "cpu" or None (the card when present).  On
-        the CPU the kernels' plain PyTorch twins run.
+      device: "cuda" (the default; None means the same), "cuda:N" or
+        "cpu".  Without a card "cuda" raises :class:`DeviceError`; on the
+        CPU the kernels' plain PyTorch twins run.
       input_layout: "hwc" (RGB frames) or "hwc_bgr" (cv2's BGR order,
         swapped on the device in the same copy).
-      ring_carry, packed_wire, downscale: accepted for signature parity
-        with the JAX engine; only the defaults are ported.
+      ring_carry: True for the ring-carry protocol, False for the tail
+        protocol; both give the same outputs for every staged stream.
+      packed_wire, downscale: accepted for signature parity with the JAX
+        engine; only the defaults are ported.
       slab_impl: "bands" or "extended", validated for parity and ignored
         (it shapes 2-D meshes, which the port does not have).
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
-                 n_streams: int, batch: int = 8, device=None,
+                 n_streams: int, batch: int = 8, device="cuda",
                  input_layout: str = "hwc", ring_carry: bool = True,
                  packed_wire: bool = False, downscale: int = 1,
                  slab_impl: str = "bands"):
@@ -82,10 +97,6 @@ class MultiStreamEngine:
             raise ValueError("n_streams must be >= 1")
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if not ring_carry:
-            raise NotImplementedError(
-                "the tail protocol (ring_carry=False) is not ported: the "
-                "port runs the ring-carry protocol only")
         if packed_wire:
             raise NotImplementedError("packed_wire is not ported yet")
         if int(downscale) != 1:
@@ -100,6 +111,7 @@ class MultiStreamEngine:
         self._swap_rb, self._prep = reference.make_layout_prep(
             input_layout, self.height, self.width, self.hp, self.wp)
         self._raw_mode = props.output in _RAW_MODES
+        self.ring_carry = bool(ring_carry)
         s, b = self.n_streams, self.batch
         frames = (s, b, self.height, self.width, 3)
         # persistent staging: host rows a batch does not write are re-zeroed
@@ -112,11 +124,21 @@ class MultiStreamEngine:
                                  device=self.device) if on_card
                      else self._host)
         self._stage_written: set = set()
-        # row-stacked planar input: the padding stays zero, only the true
-        # region of each stream is rewritten per batch
-        self._planar = torch.zeros((b, 3, s * self.hp, self.wp),
-                                   dtype=torch.uint8, device=self.device)
+        # row-stacked planar input, the tail rows first in the tail
+        # protocol: the padding stays zero, only the true region of each
+        # stream is rewritten per batch
+        self._planar = torch.zeros(
+            (self._tail_len + b, 3, s * self.hp, self.wp),
+            dtype=torch.uint8, device=self.device)
+        #: streams whose tail rows of ``_planar`` hold their tail; every
+        #: other stream's tail rows are zero
+        self._tail_live: set = set()
         self.reset()
+
+    @property
+    def _tail_len(self) -> int:
+        """Rows of raw tail ahead of the new frames in a launch."""
+        return 0 if self.ring_carry else self.props.temporal_size
 
     # -- state ------------------------------------------------------------
     def _zeros(self, shape, dtype) -> torch.Tensor:
@@ -127,9 +149,11 @@ class MultiStreamEngine:
         return slice(stream * self.hp, (stream + 1) * self.hp)
 
     def _zero_carry(self) -> None:
-        """Fresh ring (median modes) and prev."""
+        """Fresh ring (median modes) and prev of the ring protocol."""
         rows = (self.n_streams * self.hp, self.wp)
-        self._ring = None
+        self._ring = self._prev = None
+        if not self.ring_carry:
+            return
         if self._raw_mode:
             self._prev = self._zeros((3,) + rows, torch.uint8)
         else:
@@ -152,6 +176,7 @@ class MultiStreamEngine:
             self._baseline = self._zeros(rows, torch.float32)
         self._heatmap = self._zeros(rows, torch.float32)
         self._zero_carry()
+        self._drop_tails(range(s))
         self._ring_offs = [0] * s
         self._snap_pending = [False] * s
         self.failed: Dict[int, StreamError] = {}
@@ -188,6 +213,15 @@ class MultiStreamEngine:
                       self._prev):
             if state is not None:
                 state[..., r, :] = 0
+        self._drop_tails([stream])
+
+    def _drop_tails(self, streams) -> None:
+        """Zero the tail rows of ``streams`` in the planar input (tail
+        protocol); their tails go back up from the host bookkeeping when
+        they are staged again."""
+        for si in set(streams) & self._tail_live:
+            self._planar[:self._tail_len, :, self._rows(si)] = 0
+            self._tail_live.discard(si)
 
     def heatmaps(self) -> np.ndarray:
         """(S, H, W) accumulated |diff| heatmaps, cropped."""
@@ -275,6 +309,7 @@ class MultiStreamEngine:
             for si in state.get("failed", ())}
         # a snapshot requested before the restore must not fire after it
         self._snap_pending = [False] * s
+        self._drop_tails(range(s))
         self._rebuild_ring_state()
 
     def _rebuild_ring_state(self) -> None:
@@ -282,10 +317,13 @@ class MultiStreamEngine:
         tail: one stacked launch over the T tail frames with inert capture
         flags, valid and seed 1 for each stream that has a tail, and a
         scratch heatmap; outputs are discarded.  Streams without a tail
-        keep zero state and seed on their first frame."""
+        keep zero state and seed on their first frame.  The tail protocol
+        has no ring: nothing to do."""
         s, t, hp = self.n_streams, self.props.temporal_size, self.hp
         self._ring_offs = [0] * s
         self._zero_carry()
+        if not self.ring_carry:
+            return
         has = np.asarray([tl is not None for tl in self._tails])
         if not has.any():
             return
@@ -340,6 +378,7 @@ class MultiStreamEngine:
         hm = state.get("heatmap")
         if hm is not None:
             self._heatmap[r] = torch.from_numpy(np.array(hm, np.float32))
+        self._drop_tails([stream])
         self._rebuild_ring_state()
 
     def save_stream(self, stream: int, path: str) -> None:
@@ -419,7 +458,10 @@ class MultiStreamEngine:
         valid = np.zeros((s, b), np.bool_)
         seeds = np.zeros((s,), np.int32)
         offsets = np.asarray(self._ring_offs, np.int32)
-        written = set()
+        written: Dict[int, int] = {}  # stream -> frames staged
+        # tail protocol: streams whose tail rows must be filled before the
+        # launch, from frame 0 (a fresh stream) or from the host tail
+        fresh, resumed = [], {}
         for si, frames in enumerate(frames_per_stream):
             if si in self.failed:
                 continue  # dead stream: nothing to stage
@@ -437,8 +479,11 @@ class MultiStreamEngine:
             # reads them as invalid and leaves the carried state alone
             buf[si, n_si:] = buf[si, n_si - 1]
             if self._tails[si] is None:
+                fresh.append(si)
                 self._tails[si] = [buf[si, 0].copy()] * t
                 seeds[si] = 1
+            elif not self.ring_carry and si not in self._tail_live:
+                resumed[si] = self._planar_tail(si)
             self._tails[si] = (self._tails[si] + [
                 buf[si, i].copy() for i in range(max(0, n_si - t), n_si)
             ])[-t:]
@@ -453,26 +498,24 @@ class MultiStreamEngine:
                 self._snap_pending[si] = False
             self.frame_cursors[si] = cursor + n_si
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
-            written.add(si)
-        for si in self._stage_written - written:
+            written[si] = n_si
+        for si in self._stage_written - set(written):
             buf[si] = 0  # stale frames of a stream that went quiet or died
-        self._stage_written = written
+        self._stage_written = set(written)
 
         if self._hwc is not self._host:
             self._hwc.copy_(self._host, non_blocking=True)
         raw = self._planar
+        tr = self._tail_len
         # (B, 3, S*Hp, Wp) seen as (S, B, 3, Hp, Wp): the prep writes each
         # stream's true region in place
-        self._prep(self._hwc, out=raw.view(b, 3, s, self.hp, self.wp)
+        self._prep(self._hwc, out=raw[tr:].view(b, 3, s, self.hp, self.wp)
                    .permute(2, 0, 1, 3, 4))
-        if self._raw_mode:
-            out, stats, *_ = cuda_fused.absdiff_step_ring_stacked(
-                self.props, h, w, s, raw, self._prev, self._baseline, flags,
-                self._heatmap, valid, seeds)
+        if self.ring_carry:
+            out, stats = self._launch_ring(raw, flags, valid, offsets, seeds)
         else:
-            out, stats, *_ = cuda_fused.batch_step_ring_stacked(
-                self.props, h, w, s, raw, self._ring, self._prev,
-                self._baseline, flags, self._heatmap, valid, offsets, seeds)
+            out, stats = self._launch_tail(raw, flags, valid, written,
+                                           fresh, resumed)
         # crop + interleave on the device: one download of the maps
         if c:
             maps = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
@@ -486,3 +529,45 @@ class MultiStreamEngine:
         gmean = float((stats_t[..., 1] * vw).sum()
                       / torch.clamp(vw.sum(), min=1.0))
         return maps, stats_t.numpy(), gmean
+
+    def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):
+        """One stacked ring-carry launch over the B-row planar input."""
+        s, h, w = self.n_streams, self.height, self.width
+        if self._raw_mode:
+            out, stats, *_ = cuda_fused.absdiff_step_ring_stacked(
+                self.props, h, w, s, raw, self._prev, self._baseline, flags,
+                self._heatmap, valid, seeds)
+        else:
+            out, stats, *_ = cuda_fused.batch_step_ring_stacked(
+                self.props, h, w, s, raw, self._ring, self._prev,
+                self._baseline, flags, self._heatmap, valid, offsets, seeds)
+        return out, stats
+
+    def _launch_tail(self, raw: torch.Tensor, flags, valid,
+                     written: Dict[int, int], fresh: List[int],
+                     resumed: Dict[int, np.ndarray]):
+        """One stacked tail launch over the (T+B)-row planar input.  Before
+        it, every staged stream's rows [0, T) hold its tail and every other
+        stream's are zero; after it, each staged stream's next tail is its
+        rows [n_si, n_si + T)."""
+        s, t = self.n_streams, self.props.temporal_size
+        h, w = self.height, self.width
+        self._drop_tails(set(range(s)) - set(written))
+        for si in fresh:  # the tail starts as T copies of frame 0
+            r = self._rows(si)
+            raw[:t, :, r] = raw[t, :, r]
+        for si, tail in resumed.items():
+            raw[:t, :, self._rows(si)] = torch.from_numpy(tail)
+        step = (cuda_fused.absdiff_step_stacked if self._raw_mode
+                else cuda_fused.batch_step_stacked)
+        out, stats, *_ = step(self.props, h, w, s, raw, self._baseline,
+                              flags, self._heatmap, valid)
+        # through a temporary: the two row ranges overlap when n_si < T
+        if len(written) == s and len(set(written.values())) == 1:
+            spans = [(next(iter(written.values())), slice(None))]
+        else:
+            spans = [(n_si, self._rows(si)) for si, n_si in written.items()]
+        for n_si, r in spans:
+            raw[:t, :, r] = raw[n_si:n_si + t, :, r].clone()
+        self._tail_live = set(written)
+        return out, stats

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card
+(ring-carry and tail protocol, one stream and stacked).
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for a card and skips
 when there is none (decided inside the fixture, never at import, so every
@@ -324,3 +325,127 @@ def test_fleet_engine_cuda_matches_cpu(cuda):
         assert d.max() <= 1 and (d > 0).mean() <= 1e-4
         np.testing.assert_allclose(gs, es, rtol=1e-5, atol=1e-7)
         np.testing.assert_allclose(gh, eh, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the tail protocol: T tail frames ahead of the B new ones
+# ---------------------------------------------------------------------------
+
+TAIL_CASES = [
+    DiPsProperties(output=OutputMode.ABSDIFF),
+    DiPsProperties(method=DiPsMethod.PER_FRAME, output=OutputMode.ABSDIFF,
+                   temporal_size=3),
+    DiPsProperties(method=DiPsMethod.PER_FRAME, output=OutputMode.THRESHOLD,
+                   change_threshold=20, roi=(4, 10, 50, 150)),
+    DiPsProperties(),
+    DiPsProperties(method=DiPsMethod.PER_FRAME, output=OutputMode.GRAYSCALE,
+                   filter=DiPsFilter.INVERSE_SIGMOID, window_size=7,
+                   temporal_size=16, roi=(2, 5, 60, 190)),
+    DiPsProperties(window_size=5, temporal_size=9, emit_maps=False),
+]
+
+
+def _tail_pair(props):
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
+                                OutputMode.STATS_ONLY)
+    if raw_mode:
+        return (raw_mode, cuda_fused.absdiff_step,
+                cuda_fused.absdiff_step_plain)
+    return raw_mode, cuda_fused.batch_step, cuda_fused.batch_step_plain
+
+
+@pytest.mark.parametrize("props", TAIL_CASES)
+def test_tail_kernel_matches_plain(cuda, props):
+    """Two batches of one stream; the second is partial, and its slot 4 is
+    flagged but invalid (the tail kernels capture on it all the same)."""
+    hp, wp = pad_geometry(H, W)
+    t = props.temporal_size
+    raw = torch.from_numpy(make_raw(t + 12, H, W, 7)).to(cuda)
+    raw_mode, kernel, plain = _tail_pair(props)
+    mk = lambda: ([torch.zeros((3, hp, wp), dtype=torch.uint8, device=cuda)]
+                  if raw_mode else [torch.zeros((hp, wp), device=cuda)]) + [
+        torch.zeros((hp, wp), device=cuda)]
+    states = [mk(), mk()]
+    dev = lambda a: torch.tensor(a, dtype=torch.bool, device=cuda)
+    batches = [(raw[:t + 6], [1, 0, 0, 1, 0, 0], [1] * 6),
+               (raw[6:t + 12], [0, 1, 0, 0, 1, 0], [1] * 4 + [0] * 2)]
+    before = cuda_fused.launch_counts()[kernel.__name__]
+    for x, flags, valid in batches:
+        got, exp = (fn(props, H, W, x, st[0], dev(flags), st[1], dev(valid))
+                    for fn, st in zip((kernel, plain), states))
+        torch.cuda.synchronize()
+        _assert_maps(got[0], exp[0], raw_mode, H, W)
+        _assert_stats(got[1], exp[1])
+        assert torch.equal(got[2][..., :H, :W], exp[2][..., :H, :W])
+        torch.testing.assert_close(got[3], exp[3], rtol=0, atol=1e-6)
+    assert cuda_fused.launch_counts()[kernel.__name__] == before + 2
+
+
+@pytest.mark.parametrize("props", [TAIL_CASES[0], TAIL_CASES[2],
+                                   TAIL_CASES[3], TAIL_CASES[4]])
+def test_stacked_tail_kernels_match_plain(cuda, props):
+    """S streams in one tail launch: stream 2 all-invalid in the first
+    batch, a flagged invalid slot and a partial stream in the second."""
+    hp, wp = pad_geometry(SH, SW)
+    t = props.temporal_size
+    raw = torch.from_numpy(make_stacked(t + 12, 8)).to(cuda)
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD)
+    kernel, plain = ((cuda_fused.absdiff_step_stacked,
+                      cuda_fused.absdiff_step_stacked_plain) if raw_mode
+                     else (cuda_fused.batch_step_stacked,
+                           cuda_fused.batch_step_stacked_plain))
+    rows = (S * hp, wp)
+    mk = lambda: ([torch.zeros((3,) + rows, dtype=torch.uint8, device=cuda)]
+                  if raw_mode else [torch.zeros(rows, device=cuda)]) + [
+        torch.zeros(rows, device=cuda)]
+    states = [mk(), mk()]
+    dev = lambda a: torch.tensor(a, dtype=torch.bool, device=cuda)
+    batches = [
+        (raw[:t + 6], [[1, 0, 0, 1, 0, 0], [0, 0, 1, 0, 0, 0], [1] * 6],
+         [[1] * 6, [1] * 6, [0] * 6]),
+        (raw[6:t + 12], [[0, 1, 0, 0, 0, 1], [0] * 6, [0, 0, 0, 1, 0, 0]],
+         [[1] * 4 + [0] * 2, [1] * 6, [1] * 5 + [0]]),
+    ]
+    for x, flags, valid in batches:
+        got, exp = (fn(props, SH, SW, S, x, st[0], dev(flags), st[1],
+                       dev(valid)) for fn, st in zip((kernel, plain), states))
+        torch.cuda.synchronize()
+        for si in range(S):
+            r = slice(si * hp, si * hp + SH)
+            _assert_maps(got[0][:, :, r], exp[0][:, :, r], raw_mode, SH, SW)
+            _assert_stats(got[1][si], exp[1][si])
+        g = got[2].view(got[2].shape[:-2] + (S, hp, wp))[..., :SH, :SW]
+        e = exp[2].view(exp[2].shape[:-2] + (S, hp, wp))[..., :SH, :SW]
+        assert torch.equal(g, e)
+        torch.testing.assert_close(got[3], exp[3], rtol=0, atol=1e-6)
+
+
+def test_tail_engines_equal_ring_engines_on_the_card(cuda):
+    """The tail protocol and the ring protocol give the same maps and
+    stats, single stream and fleet, with partial batches."""
+    from dips_tpu_torch import DiPsEngine, MultiStreamEngine
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (S, 11, H, W, 3), np.uint8)
+    frames[:, :, 10:20, 30:40] = 255
+    for props in (DiPsProperties(refresh_markers=(5,)),
+                  DiPsProperties(method=DiPsMethod.PER_FRAME,
+                                 output=OutputMode.ABSDIFF)):
+        res = []
+        for ring in (True, False):
+            eng = DiPsEngine(props, H, W, batch=4, device="cuda",
+                             ring_carry=ring)
+            fleet = MultiStreamEngine(props, H, W, S, batch=4,
+                                      device="cuda", ring_carry=ring)
+            one = [eng.process_batch(list(frames[0, i:i + n]))
+                   for i, n in ((0, 4), (4, 3), (7, 4))]
+            many = [fleet.process_batch([list(f[i:i + 4]) for f in frames])
+                    for i in (0, 4, 8)]
+            res.append((np.concatenate([o for o, _ in one]),
+                        np.concatenate([s for _, s in one]),
+                        np.concatenate([m[0] for m in many], axis=1),
+                        np.concatenate([m[1] for m in many], axis=1)))
+        for a, b in zip(*res):
+            if a.dtype == np.uint8:
+                np.testing.assert_array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)

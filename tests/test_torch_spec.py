@@ -144,17 +144,54 @@ def test_chip_smoke_imports_nothing_of_jax():
                 and not s.endswith(" dips_tpu"), s
 
 
-@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
 def test_engine_refuses_a_missing_card(device):
+    """No CPU fallback: without a card the default device raises too."""
     from dips_tpu_torch import DiPsEngine, DiPsProperties, DeviceError
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    kw = {} if device is None else dict(device=device)
     with pytest.raises(DeviceError):
-        DiPsEngine(DiPsProperties(), 12, 140, device=device)
+        DiPsEngine(DiPsProperties(), 12, 140, **kw)
 
 
-@pytest.mark.parametrize("kwargs", [dict(ring_carry=False),
-                                    dict(packed_wire=True),
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_fleet_refuses_a_missing_card(device):
+    from dips_tpu_torch import DeviceError, DiPsProperties, MultiStreamEngine
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    kw = {} if device is None else dict(device=device)
+    with pytest.raises(DeviceError):
+        MultiStreamEngine(DiPsProperties(), 12, 140, 3, **kw)
+
+
+def test_job_defaults_to_the_card():
+    from dips_tpu_torch.app import DiPsJob
+    from dips_tpu_torch.cli import build_parser
+    assert DiPsJob().device == "cuda"
+    assert build_parser().parse_args([]).device == "cuda"
+
+
+def test_cli_without_a_card_fails(tmp_path, capsys):
+    """No --device and no card: exit 1 with the DeviceError's message, on
+    the file and the fleet paths."""
+    import cv2
+    import dips_tpu_torch.cli
+    from tests.conftest import make_clip
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    src = str(tmp_path / "in.avi")
+    vw = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"MJPG"), 10, (32, 16))
+    for f in make_clip(n=3, h=16, w=32):
+        vw.write(f[..., ::-1])
+    vw.release()
+    for argv in (["--input", src, "--output", str(tmp_path / "out.avi")],
+                 ["--inputs", src, src, "--output-dir", str(tmp_path)]):
+        assert dips_tpu_torch.cli.main(argv) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kwargs", [dict(packed_wire=True),
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_engine_options_raise(kwargs):
@@ -163,8 +200,7 @@ def test_unported_engine_options_raise(kwargs):
         DiPsEngine(DiPsProperties(), 12, 140, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(ring_carry=False),
-                                    dict(packed_wire=True),
+@pytest.mark.parametrize("kwargs", [dict(packed_wire=True),
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_fleet_options_raise(kwargs):
