@@ -27,10 +27,22 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   COLORIZE and ABSDIFF, OVERALL and PER_FRAME, with checkpoints crossing
   the protocols (``[tail]``); the tail fleet at 1080p x 8 against the ring
   fleet through an idle and an isolated stream (``[fleet-tail]``);
+* the spatial-filter variants: each of the four median wrappers in
+  approx_median (w3, w7) and quirk_compat (w1, w3, w5, w7) against its
+  plain twin at 1080p s = 1 and 480p x 3 (``[kernels-variants]``);
+* the engine options (``[options]``): a 4K ``downscale=2`` engine against
+  a 1080p engine fed ``pool_frame_host`` frames (checkpoint resume
+  included), a ``packed_wire`` THRESHOLD engine against the unpacked one
+  and ``pack_mask_host``, a planar-layout engine against the hwc one, the
+  approx w7 and quirk w5 COLORIZE engines over 96 frames with every batch
+  held against the plain twins, ring and tail; the 1080p x 8 fleet with
+  ``packed_wire``, and 1080p x 8 fleets with ``downscale=2`` in both
+  variants, against single-stream engines;
 
-then times kernels, plain twins and every engine with CUDA events
-(``[time]``).  Each path's launch counts are set to 0 just before it runs
-and read just after.
+then times kernels (wrapper, and alone for the variants), plain twins and
+every engine with CUDA events (``[time]``), the variants and the options
+included.  Each path's launch counts are set to 0 just before it runs and
+read just after.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
@@ -79,6 +91,14 @@ def moving_square_frames(n, h, w, seed, start=0):
         x = (13 * k) % (w - side)
         f[y:y + side, x:x + side] = (250, 30, 30)
     return frames
+
+
+def ptag(props):
+    """w<W>/T<T>, and the spatial mode when it is not the exact median."""
+    mode = ("approx" if props.approx_median
+            else "quirk" if props.quirk_compat else "")
+    return f"w{props.window_size}/T{props.temporal_size}" + (
+        f" {mode}" if mode else "")
 
 
 def planar(frames, hp, wp):
@@ -220,7 +240,7 @@ def check_median(props, h, w, seed):
               for _ in range(2)]
     err = 0.0
     tag = (f"median {props.output.name} {props.method.name} "
-           f"w{props.window_size}/T{t} {props.filter.name}")
+           f"{ptag(props)} {props.filter.name}")
     for x, flags, valid, off, seed_ in _two_batches(hp, wp, h, w, seed, dev):
         got = cuda_fused.batch_step_ring(props, h, w, x, *states[0][:3],
                                          flags, states[0][3], valid, off % t,
@@ -497,7 +517,7 @@ def check_stacked(props, h, w, s, seed):
     states = [mk(), mk()]
     raw = stacked_frames(2 * B, h, w, s, seed, dev)
     tag = (f"stacked {props.output.name} {props.method.name} "
-           f"w{props.window_size}/T{t} {h}x{w} s={s}")
+           f"{ptag(props)} {h}x{w} s={s}")
     tol = RAW_TOL if raw_mode else MEDIAN_TOL
     err, flips, n_px = 0.0, 0, 0
     for i, (flags, valid, offs, seeds) in enumerate(_stacked_batches(s, t)):
@@ -615,7 +635,7 @@ def check_tail(props, h, w, s, seed):
            else planar(moving_square_frames(t + 2 * B, h, w, seed), hp,
                        wp).to(dev))
     tag = (f"tail {props.output.name} {props.method.name} "
-           f"w{props.window_size}/T{t} {h}x{w} s={s}")
+           f"{ptag(props)} {h}x{w} s={s}")
     tol = RAW_TOL if raw_mode else MEDIAN_TOL
     err, flips, n_px = 0.0, 0, 0
     for start, flags, valid in _tail_batches(s, t):
@@ -1043,6 +1063,336 @@ def phase_fleet_file(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the spatial-filter variants of both median kernels
+# ---------------------------------------------------------------------------
+
+#: (mode, window) of the variant checks and timings
+VARIANTS = (("approx_median", 3), ("approx_median", 7), ("quirk_compat", 1),
+            ("quirk_compat", 3), ("quirk_compat", 5), ("quirk_compat", 7))
+#: the variants the [options] engines and fleets run (the record's rows)
+MAIN_VARIANTS = {"approx_median": 7, "quirk_compat": 5}
+
+
+def variant_props(mode, w, **kw):
+    from dips_tpu_torch.properties import DiPsProperties
+    return DiPsProperties(window_size=w, **{mode: True}, **kw)
+
+
+def phase_kernels_variants():
+    """Each median wrapper in each variant against its plain twin: 1080p
+    s = 1 and 480p x 3 stacked streams (noisy next to white); the
+    [options] variants (approx w7, quirk w5) also at the shapes their
+    engines, fleets and timings give them: 1080p x 8 stacked, and the
+    downscale fleet's 540 x 960 (Hp 544: padding rows) at s = 1 and x 8.
+    The tail checks have a flagged invalid slot.  Carried state exact on
+    the true region, maps within MEDIAN_TOL, stats within 1e-5."""
+    from dips_tpu_torch.properties import (DiPsFilter, DiPsMethod,
+                                           OutputMode)
+    checks = {"batch_step_ring": check_median,
+              "batch_step_ring_stacked": check_stacked,
+              "batch_step": lambda p, h, w, seed: check_tail(p, h, w, 1,
+                                                             seed),
+              "batch_step_stacked": check_tail}
+    shapes = {"batch_step_ring": [(H1080, W1080)],
+              "batch_step_ring_stacked": [(480, 640, 3)],
+              "batch_step": [(H1080, W1080)],
+              "batch_step_stacked": [(480, 640, 3)]}
+    main_shapes = {"batch_step_ring": [(540, 960)],
+                   "batch_step_ring_stacked": [(H1080, W1080, FLEET),
+                                               (540, 960, FLEET)],
+                   "batch_step": [(540, 960)],
+                   "batch_step_stacked": [(H1080, W1080, FLEET),
+                                          (540, 960, FLEET)]}
+    errs, n = {}, 0
+    for i, (mode, w) in enumerate(VARIANTS):
+        # alternate the method, output and filter across the variants
+        kw = [dict(), dict(method=DiPsMethod.PER_FRAME,
+                           output=OutputMode.GRAYSCALE,
+                           filter=DiPsFilter.INVERSE_SIGMOID,
+                           temporal_size=3)][i % 2]
+        runs = [(variant_props(mode, w, **kw), shapes)]
+        if MAIN_VARIANTS.get(mode) == w:  # the [options] runs' properties
+            runs.append((variant_props(mode, w), main_shapes))
+        for props, at in runs:
+            for name, fn in checks.items():
+                key = f"{name}:{mode}"
+                for args in at[name]:
+                    errs[key] = max(errs.get(key, 0.0),
+                                    fn(props, *args, 65 + i))
+                    n += 1
+    log(f"[kernels-variants] {n} checks of {len(VARIANTS)} variants x 4 "
+        f"median wrappers: carried state exact, maps within "
+        f"{MEDIAN_TOL['lsb']} LSB, stats within {MEDIAN_TOL['stats_rtol']}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the engine options (downscale, packed_wire, planar) and the
+# variant engines and fleets
+# ---------------------------------------------------------------------------
+
+H4K, W4K = 2160, 3840
+
+
+def _equal(tag, got, exp):
+    """Maps byte for byte, stats bit for bit."""
+    if not (np.array_equal(got[0], exp[0]) and np.array_equal(got[1],
+                                                              exp[1])):
+        raise AssertionError(f"{tag}: outputs differ")
+
+
+def options_downscale(work):
+    """A 4K engine with downscale=2 against a 1080p engine fed
+    pool_frame_host frames, COLORIZE (ring) and THRESHOLD (tail), with a
+    checkpoint resume before the third batch."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, OutputMode
+    from dips_tpu_torch.ops.reference import pool_frame_host
+    batches = [moving_square_frames(B, H4K, W4K, 51, start=i * B)
+               for i in range(3)]
+    pooled = [np.stack([pool_frame_host(f, 2) for f in fb]) for fb in batches]
+    for label, props, ring in (
+            ("COLORIZE ring", DiPsProperties(refresh_markers=(24,)), True),
+            ("THRESHOLD tail", DiPsProperties(output=OutputMode.THRESHOLD,
+                                              refresh_markers=(24,)), False)):
+        ek = DiPsEngine(props, H4K, W4K, batch=B, device="cuda",
+                        ring_carry=ring, downscale=2)
+        e1 = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                        ring_carry=ring)
+        if (ek.height, ek.width, ek.in_height) != (H1080, W1080, H4K):
+            raise AssertionError(f"downscale geometry {ek.height}x{ek.width}")
+        for bi in range(3):
+            if bi == 2:
+                ck = os.path.join(work, "downscale.npz")
+                ek.save(ck)
+                resumed = DiPsEngine(props, H4K, W4K, batch=B, device="cuda",
+                                     ring_carry=ring, downscale=2)
+                resumed.load(ck)
+                r = resumed.process_batch(list(batches[bi]))
+            got = ek.process_batch(list(batches[bi]))
+            _equal(f"[options] downscale {label} batch {bi}", got,
+                   e1.process_batch(list(pooled[bi])))
+        _equal(f"[options] downscale {label} resumed", r, got)
+        log(f"[options] downscale=2 {label}: a 4K engine equals a 1080p "
+            f"engine fed pool_frame_host frames over {3 * B} frames, byte "
+            f"for byte, checkpoint resume included")
+
+
+def options_packed():
+    """A packed_wire THRESHOLD engine against the unpacked one, ring and
+    tail; packed batches equal pack_mask_host of the padded masks."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, OutputMode
+    from dips_tpu_torch.ops import wire
+    from dips_tpu_torch.ops.reference import pad_geometry
+    hp, wp = pad_geometry(H1080, W1080)
+    props = DiPsProperties(output=OutputMode.THRESHOLD, refresh_markers=(20,))
+    frames = moving_square_frames(3 * B, H1080, W1080, 53)
+    for ring in (True, False):
+        pk = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                        ring_carry=ring, packed_wire=True)
+        un = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                        ring_carry=ring)
+        n_bytes = [0, 0]
+        for bi in range(3):
+            fb = list(frames[bi * B:(bi + 1) * B])
+            exp = un.process_batch(fb)
+            if bi % 2:  # the engine unpacks
+                _equal(f"[options] packed_wire batch {bi}",
+                       pk.process_batch(fb), exp)
+                continue
+            packed, st = pk.process_batch(fb, packed=True)
+            pad = np.zeros((B, 1, hp, wp), np.uint8)
+            pad[:, 0, :H1080, :W1080] = exp[0][..., 0]
+            if not (np.array_equal(packed, wire.pack_mask_host(pad))
+                    and np.array_equal(st, exp[1])):
+                raise AssertionError(f"[options] packed_wire batch {bi}: "
+                                     f"packed bytes differ")
+            n_bytes[0] += packed.nbytes
+            n_bytes[1] += exp[0].nbytes
+        log(f"[options] packed_wire THRESHOLD 1080p {'ring' if ring else 'tail'}"
+            f": equals the unpacked engine over {3 * B} frames, and the "
+            f"packed batches equal pack_mask_host of the padded masks "
+            f"({n_bytes[0]} packed bytes for {n_bytes[1]} unpacked)")
+
+
+def options_planar():
+    """A planar-layout engine (host planarize) against the hwc one."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties
+    props = DiPsProperties(refresh_markers=(20,))
+    frames = moving_square_frames(3 * B, H1080, W1080, 55)
+    for ring in (True, False):
+        engs = [DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                           ring_carry=ring, input_layout=layout)
+                for layout in ("planar", "hwc")]
+        if engs[0].tail_rows != (0 if ring else props.temporal_size):
+            raise AssertionError(f"planar tail_rows {engs[0].tail_rows}")
+        for bi, k in enumerate((B, 11, B)):
+            fb = list(frames[bi * B:bi * B + k])
+            _equal(f"[options] planar batch {bi}",
+                   *(e.process_batch(fb) for e in engs))
+    log(f"[options] input_layout='planar' COLORIZE 1080p, ring and tail: "
+        f"equals the hwc engine over 3 batches (one partial), byte for "
+        f"byte")
+
+
+def held_engine(eng):
+    """Wrap ``eng``'s launches so that each batch also runs the plain twin
+    of its step on a copy of the same state and input, and is held
+    against it (MEDIAN_TOL; carried state exact on the true region)."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused as cf
+    h, w, props = eng.height, eng.width, eng.props
+    launch_ring, launch_tail = eng._launch_ring, eng._launch_tail
+    held = {"batches": 0, "flips": 0, "px": 0}
+
+    def compare(tag, got, exp, state_got, state_exp):
+        d = (got[0][..., :h, :w].to(torch.int16)
+             - exp[0][..., :h, :w].to(torch.int16)).abs()
+        held["flips"] += int((d > 0).sum())
+        held["px"] += d.numel()
+        if int(d.max()) > MEDIAN_TOL["lsb"] or \
+                held["flips"] > MEDIAN_TOL["flip_frac"] * held["px"]:
+            raise AssertionError(f"{tag}: maps differ")
+        for g, e in zip(state_got[:-1], state_exp[:-1]):
+            if not torch.equal(g[..., :h, :w], e[..., :h, :w]):
+                raise AssertionError(f"{tag}: carried state differs")
+        if _max_err(state_got[-1], state_exp[-1]) > MEDIAN_TOL["heat_atol"]:
+            raise AssertionError(f"{tag}: heatmap differs")
+        _check_stats(tag, got[1], exp[1], MEDIAN_TOL["stats_rtol"])
+        held["batches"] += 1
+
+    def ring_step(raw, flags, valid):
+        state = [x.clone() for x in (eng._ring, eng._prev, eng._baseline,
+                                     eng._heatmap)]
+        off, seed = eng._ring_off, 0 if eng._seeded else 1
+        x = raw.clone()
+        got = launch_ring(raw, flags, valid)
+        exp = cf.batch_step_ring_plain(props, h, w, x, *state[:3], flags,
+                                       state[3], valid, off, seed)
+        compare(f"[options] {ptag(props)} ring batch {held['batches']}",
+                got, exp, [eng._ring, eng._prev, eng._baseline,
+                           eng._heatmap], state)
+        return got
+
+    def tail_step(raw, flags, valid):
+        state = [eng._baseline.clone(), eng._heatmap.clone()]
+        x = raw.clone()
+        got = launch_tail(raw, flags, valid)
+        exp = cf.batch_step_plain(props, h, w, x, state[0], flags, state[1],
+                                  valid)
+        compare(f"[options] {ptag(props)} tail batch {held['batches']}",
+                got, exp, [eng._baseline, eng._heatmap], state)
+        return got
+
+    eng._launch_ring, eng._launch_tail = ring_step, tail_step
+    return held
+
+
+def options_variant_engines(card):
+    """The approx w7 and quirk w5 COLORIZE engines over 96 frames in
+    uneven batches with a refresh marker and a snapshot, ring and tail,
+    every batch held against the plain twins of its step.  Returns the
+    variants' launches during these runs."""
+    import torch
+    from dips_tpu_torch import DiPsEngine
+    from dips_tpu_torch.ops import cuda_fused
+    frames = moving_square_frames(sum(SPLITS), H1080, W1080, 57)
+    cuda_fused.reset_launch_counts()
+    helds = []
+    for mode, w in MAIN_VARIANTS.items():
+        props = variant_props(mode, w, refresh_markers=(48,))
+        for ring in (True, False):
+            eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                             ring_carry=ring)
+            helds.append(held_engine(eng))
+            _, out, stats = run_split(props, frames, ring, engine=eng)
+            if out.shape != (len(frames), H1080, W1080, 3) or \
+                    not np.isfinite(stats).all():
+                raise AssertionError(f"[options] {ptag(props)}: bad output")
+            if (stats[[0, 48, 59], 3] != 0).any() or stats[20, 3] == 0:
+                raise AssertionError(f"[options] {ptag(props)}: captures "
+                                     f"{stats[:, 3]}")
+    torch.cuda.synchronize()
+    counts = cuda_fused.launch_counts()
+    launches = {k: counts[k] for k in counts if ":" in k
+                and not k.split(":")[0].endswith("stacked")}
+    log(f"[options] launches during the variant engine runs: {launches}")
+    log(f"[options] approx w7 and quirk w5 COLORIZE 1080p, ring and tail, "
+        f"{len(frames)} frames in batches {SPLITS}: {sum(h['batches'] for h in helds)} "
+        f"batches held against the plain twins on the same state; tie flips "
+        f"{sum(h['flips'] for h in helds)}/{sum(h['px'] for h in helds)}")
+    return launches
+
+
+def _fleet_vs_engines(tag, props, frame, ring, **kw):
+    """Two batches of a 1080p x 8 fleet (stream 7 partial in the first)
+    against single-stream engines fed each stream's frames: maps byte for
+    byte, stats within 1e-6."""
+    from dips_tpu_torch import DiPsEngine, MultiStreamEngine
+    fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                              device="cuda", ring_carry=ring, **kw)
+    single = [DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                         ring_carry=ring, downscale=kw.get("downscale", 1))
+              for _ in range(FLEET)]
+    nxt = [0] * FLEET
+    for bi in range(2):
+        feeds = [[frame(si, nxt[si] + k)
+                  for k in range(10 if bi == 0 and si == 7 else B)]
+                 for si in range(FLEET)]
+        out, stats, _ = fleet.process_batch(feeds)
+        for si, fs in enumerate(feeds):
+            o, st = single[si].process_batch(fs)
+            if not np.array_equal(out[si, :len(fs)], o):
+                raise AssertionError(f"{tag} stream {si} batch {bi}: maps "
+                                     f"differ from the single engine")
+            _check_stats(f"{tag} stream {si} batch {bi}",
+                         stats[si, :len(fs)], st, 1e-6)
+            nxt[si] += len(fs)
+
+
+def options_fleets(card):
+    """The 1080p x 8 fleet with packed_wire (THRESHOLD), and 1080p x 8
+    fleets with downscale=2 running the approx w7 and quirk w5 variants,
+    ring and tail, each against single-stream engines.  Returns the
+    stacked variants' launches during the downscale fleets."""
+    import torch
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    from dips_tpu_torch.ops import cuda_fused
+    frame = FleetFrames(75)
+    for ring in (True, False):
+        _fleet_vs_engines(f"[options] packed fleet {ring}", DiPsProperties(
+            output=OutputMode.THRESHOLD), frame, ring, packed_wire=True)
+    log("[options] packed_wire THRESHOLD fleet 1080p x 8, ring and tail: "
+        "every stream equals its single-stream engine byte for byte")
+    cuda_fused.reset_launch_counts()
+    for mode, w in MAIN_VARIANTS.items():
+        for ring in (True, False):
+            _fleet_vs_engines(f"[options] downscale fleet {mode} {ring}",
+                              variant_props(mode, w, refresh_markers=(8,)),
+                              frame, ring, downscale=2)
+    torch.cuda.synchronize()
+    counts = cuda_fused.launch_counts()
+    launches = {k: counts[k] for k in counts if ":" in k
+                and k.split(":")[0].endswith("stacked")}
+    log(f"[options] launches during the downscale fleets: {launches}")
+    log("[options] downscale=2 fleets 1080p x 8 (540x960 analysis), approx "
+        "w7 and quirk w5, ring and tail: every stream equals a "
+        "single-stream downscale engine (maps byte for byte, stats within "
+        "1e-6)")
+    return launches
+
+
+def phase_options(card):
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    options_downscale(work)
+    options_packed()
+    options_planar()
+    launches = options_variant_engines(card)
+    launches.update(options_fleets(card))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -1058,6 +1408,155 @@ def _time(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def engine_fps(eng, batches, label, card, n_b=12, packed=False):
+    """Frames/s of ``eng`` end to end over ``n_b`` batches (host frames
+    in, host maps out, or the packed masks with ``packed``; ``batches``
+    alternate) after one warm-up batch."""
+    import torch
+    eng.process_batch(list(batches[0]))  # warm-up
+    torch.cuda.synchronize()
+    t_disp = t_coll = 0.0
+    t0 = time.perf_counter()
+    for i in range(n_b):
+        buf = eng.new_batch_buffer()
+        a = time.perf_counter()
+        for j, f in enumerate(batches[i % 2]):
+            buf[j] = f
+        h = eng.dispatch_async(buf, B)
+        c = time.perf_counter()
+        eng.collect(h, packed=packed)
+        d = time.perf_counter()
+        t_disp += c - a
+        t_coll += d - c
+    fps = n_b * B / (time.perf_counter() - t0)
+    log(f"[time] {label}: {fps:.1f} frames/s end to end over {n_b * B} "
+        f"frames (host fill+upload+launch {1e3 * t_disp / (n_b * B):.3f} "
+        f"ms/frame, sync+download {1e3 * t_coll / (n_b * B):.3f} "
+        f"ms/frame); {card}")
+    return fps
+
+
+def kernel_alone(fn, reps=20):
+    """ms per call of the step kernels (raw or median) that ``fn``
+    launches, from their device intervals in a ``torch.profiler`` trace;
+    None when the trace shows no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "_kernel" in e.name
+          and ("raw_step" in e.name or "median_" in e.name)]
+    return sum(us) / 1e3 / reps if us else None
+
+
+def time_wrapper(key, kernel, plain, frames, props, name, hp, wp, card,
+                 plain_reps=3):
+    """Wrapper (plain / kernel / kernel / plain, CUDA events), the kernel
+    alone (:func:`kernel_alone`) and the bound, in ms per stream-frame."""
+    got = {"plain": [], "kernel": []}
+    for which, fn in (("plain", plain), ("kernel", kernel),
+                      ("kernel", kernel), ("plain", plain)):
+        got[which].append(_time(fn, 20 if which == "kernel" else plain_reps)
+                          / frames)
+    bound_ms, bound_by = bound(name, props, frames // B, B, hp, wp)
+    res = {w: float(np.mean(v)) for w, v in got.items()}
+    res.update(bound_ms=bound_ms, bound_by=bound_by)
+    alone = kernel_alone(kernel)
+    res["alone"] = None if alone is None else alone / frames
+    shape = f"1080p B={B}" + (f" s={frames // B}" if frames > B else "")
+    log(f"[time] {key} {shape}: kernel {res['kernel']:.4f} ms/frame "
+        f"({got['kernel']}), alone "
+        + ("not measured (no kernel in the profiler trace)"
+           if alone is None else f"{res['alone']:.4f}")
+        + f", plain {res['plain']:.4f} ms/frame ({got['plain']}), bound "
+        f"{bound_ms:.5f} ms/frame by {bound_by}; frame = one stream's "
+        f"frame; {card}")
+    return res
+
+
+def times_of_variants(card):
+    """The four median wrappers in each spatial variant (and the exact w7
+    for comparison) at 1080p: s = 1 for every variant, s = 8 for the
+    [options] variants."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused as cf
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.properties import DiPsProperties
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(H1080, W1080)
+    t = 4
+    raw = planar(moving_square_frames(t + B, H1080, W1080, 33), hp,
+                 wp).to(dev)
+    sraw = stacked_frames(t + B, H1080, W1080, FLEET, 34, dev)
+    configs = [(mode, w, 1) for mode, w in VARIANTS] + [("exact", 7, 1)] + [
+        (mode, w, FLEET) for mode, w in MAIN_VARIANTS.items()]
+    times = {}
+    for mode, w, s in configs:
+        props = (DiPsProperties(window_size=w) if mode == "exact"
+                 else variant_props(mode, w))
+        rows = (s * hp, wp)
+        flags = torch.zeros((s, B), dtype=torch.bool, device=dev)
+        flags[:, 0] = True
+        valid = torch.ones((s, B), dtype=torch.bool, device=dev)
+        zs = [0] * s
+        for ring in (True, False):
+            name = ("batch_step_ring" if ring else "batch_step") + (
+                "_stacked" if s > 1 else "")
+            st = [torch.zeros((t,) + rows, device=dev)] + [
+                torch.zeros(rows, device=dev) for _ in range(3)]
+            x = (sraw if s > 1 else raw)
+            fl, va = (flags, valid) if s > 1 else (flags[0], valid[0])
+            one = (() if s == 1 else (s,))
+            if ring:
+                ta = (zs, zs) if s > 1 else (0, 0)
+                args = (props, H1080, W1080, *one, x[t:], *st[:3], fl, st[3],
+                        va, *ta)
+            else:
+                args = (props, H1080, W1080, *one, x, st[2], fl, st[3], va)
+            fn = getattr(cf, name)
+            plain_fn = getattr(cf, name + "_plain")
+            key = name + ("" if mode == "exact" else f":{mode}")
+            label = f"{key} {ptag(props)}"
+            times[label] = time_wrapper(
+                label, lambda: fn(*args), lambda: plain_fn(*args),
+                s * B, props, key, hp, wp, card, plain_reps=1)
+            if MAIN_VARIANTS.get(mode) == w:
+                times[key] = times[label]
+    return times
+
+
+def times_of_options(card):
+    """THRESHOLD engine frames/s without packed_wire, with it (maps
+    unpacked on the host) and with it collecting the packed bytes, in
+    turns; and the 4K -> 1080p (downscale=2) COLORIZE engine's."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, OutputMode
+    times = {}
+    frames = moving_square_frames(2 * B, H1080, W1080, 43)
+    props = DiPsProperties(output=OutputMode.THRESHOLD)
+    runs = (("", False, False), (" packed_wire", True, False),
+            (" packed_wire collect(packed=True)", True, True))
+    for label, packed_wire, packed in runs + runs[::-1]:
+        key = "engine THRESHOLD" + label
+        times.setdefault(key, []).append(engine_fps(
+            DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                       packed_wire=packed_wire), [frames[:B], frames[B:]],
+            f"{key} 1080p B={B}", card, packed=packed))
+    f4 = [moving_square_frames(B, H4K, W4K, 45, start=i * B)
+          for i in range(2)]
+    times["engine COLORIZE 4K->1080p downscale=2"] = engine_fps(
+        DiPsEngine(DiPsProperties(), H4K, W4K, batch=B, device="cuda",
+                   downscale=2), f4, f"engine COLORIZE 4K->1080p "
+        f"downscale=2 B={B}", card)
+    return times
 
 
 def phase_times(card):
@@ -1145,21 +1644,9 @@ def phase_times(card):
     }
     times = {}
     for name, (k, p, frames) in calls.items():
-        seq = [("plain", p), ("kernel", k), ("kernel", k), ("plain", p)]
-        got = {"plain": [], "kernel": []}
-        for which, fn in seq:  # plain, kernel, kernel, plain
-            got[which].append(_time(fn, 20 if which == "kernel" else 3)
-                              / frames)
         props = rp if name.startswith("absdiff") else mp
-        bound_ms, bound_by = bound(name, props, frames // B, B, hp, wp)
-        times[name] = {w: float(np.mean(v)) for w, v in got.items()}
-        times[name].update(bound_ms=bound_ms, bound_by=bound_by)
-        shape = f"1080p B={B}" + (f" s={s}" if frames > B else "")
-        log(f"[time] {name} {shape}: kernel "
-            f"{times[name]['kernel']:.4f} ms/frame ({got['kernel']}), plain "
-            f"{times[name]['plain']:.4f} ms/frame ({got['plain']}), bound "
-            f"{bound_ms:.5f} ms/frame by {bound_by}; frame = one stream's "
-            f"frame; {card}")
+        times[name] = time_wrapper(name, k, p, frames, props, name, hp, wp,
+                                   card)
     del raw, sraw, rs, ms, srs, sms, calls
 
     # the engines end to end, ring and tail protocol in turns: host frames
@@ -1167,34 +1654,11 @@ def phase_times(card):
     frames = moving_square_frames(2 * B, H1080, W1080, 41)
     for label, props in (("COLORIZE w3/T4", mp), ("ABSDIFF", rp)):
         for ring in (True, False):
-            eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
-                             ring_carry=ring)
-            batches = [list(frames[:B]), list(frames[B:])]
-            eng.process_batch(batches[0])  # warm-up
-            torch.cuda.synchronize()
-            n_b = 12
-            t_disp = t_coll = 0.0
-            t0 = time.perf_counter()
-            for i in range(n_b):
-                buf = eng.new_batch_buffer()
-                a = time.perf_counter()
-                for j, f in enumerate(batches[i % 2]):
-                    buf[j] = f
-                h = eng.dispatch_async(buf, B)
-                c = time.perf_counter()
-                eng.collect(h)
-                d = time.perf_counter()
-                t_disp += c - a
-                t_coll += d - c
-            wall = time.perf_counter() - t0
-            fps = n_b * B / wall
             key = ("engine " if ring else "tail engine ") + label
-            times[key] = fps
-            log(f"[time] {key} 1080p B={B}: {fps:.1f} frames/s end to end "
-                f"over {n_b * B} frames (host fill+upload+launch "
-                f"{1e3 * t_disp / (n_b * B):.3f} ms/frame, sync+download "
-                f"{1e3 * t_coll / (n_b * B):.3f} ms/frame); {card}")
-            del eng
+            times[key] = engine_fps(
+                DiPsEngine(props, H1080, W1080, batch=B, device="cuda",
+                           ring_carry=ring),
+                [frames[:B], frames[B:]], f"{key} 1080p B={B}", card)
 
     # the fleets end to end: 8 streams of host frames in, host maps out
     from dips_tpu_torch import MultiStreamEngine
@@ -1219,6 +1683,8 @@ def phase_times(card):
                 f"frames/s aggregate end to end over {n_b * B * FLEET} "
                 f"frames ({fps / FLEET:.1f} per stream); {card}")
             del fleet
+    times.update(times_of_variants(card))
+    times.update(times_of_options(card))
     return times
 
 
@@ -1233,6 +1699,30 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
+def units(ops):
+    """min/max operations of a pruned network."""
+    return sum(int(a) + int(b) for _, _, a, b in ops)
+
+
+def spatial_ops(props):
+    """min/max per pixel of the spatial filter: the exact median's column
+    sorts and merge plan; the separable median's two median networks of w;
+    the quirk window's rank selection over (w-1)^2 taps (none at w <= 3,
+    where the pick is the constant 0)."""
+    from dips_tpu_torch.ops import networks
+    w = props.window_size
+    if w == 1:
+        return 0
+    if props.quirk_compat:
+        rank = w * w // 2 + 1 - 2 * w
+        return (units(networks.selection_network((w - 1) ** 2, (rank,)))
+                if rank >= 0 else 0)
+    if props.approx_median:
+        return 2 * units(networks.median_network(w))
+    col, merge, _ = networks.column_median_plan(w)
+    return w * 2 * len(col) + units(merge)
+
+
 def bound(name, props, s, b, hp, wp):
     """(least ms per stream-frame, "bytes" or "operations") of one launch of
     kernel ``name`` over s streams of B frames: the larger of the bytes it
@@ -1240,9 +1730,10 @@ def bound(name, props, s, b, hp, wp):
     memory rate, and the integer operations it must do over the INT32 peak.
     Operations counted: raw -- 3 subtractions, 3 abs, 2 max and 1 compare
     per pixel and frame; median -- the intensity (5 min/max/add, or 1 for
-    one channel) and the spatial median network's min/max for every frame
-    it filters, the temporal median network's for every frame it emits.
-    Emphasis and statistics are not counted, so this is a lower bound."""
+    one channel) and the spatial filter's min/max (:func:`spatial_ops`) for
+    every frame it filters, the temporal median network's for every frame
+    it emits.  Emphasis, the quirk store-back and statistics are not
+    counted, so this is a lower bound."""
     from dips_tpu_torch.ops import networks
     from dips_tpu_torch.properties import ChromaFilter, DiPsMethod
     px = s * hp * wp                  # pixels of one stacked plane
@@ -1258,11 +1749,8 @@ def bound(name, props, s, b, hp, wp):
         nbytes = 3 * px * frames_in + ref_state + 8 * px + c * b * px
         ops = 9 * px * b
     else:
-        w = props.window_size
-        col, merge, _ = networks.column_median_plan(w) if w > 1 else \
-            ([], [], 0)
-        wmed = w * 2 * len(col) + sum(a + b_ for _, _, a, b_ in merge)
-        tmed = sum(a + b_ for _, _, a, b_ in networks.median_network(t))
+        wmed = spatial_ops(props)
+        tmed = units(networks.median_network(t))
         inten = 5 if props.chroma == ChromaFilter.ALL else 1
         filtered = b + (t if tail else 0)
         emitted = b + (1 if tail and not overall else 0)
@@ -1298,6 +1786,13 @@ KERNELS = {
     "batch_step_stacked": ("dips_tpu_torch/csrc/median_tail.cu",
                            "dips_tpu/ops/pallas_fused.py:362"),
 }
+# the spatial-filter variants: instances of the same two kernels, replacing
+# the approx / quirk branch of _filtered_plane
+for _name in ("batch_step_ring", "batch_step_ring_stacked", "batch_step",
+              "batch_step_stacked"):
+    for _mode in ("approx_median", "quirk_compat"):
+        KERNELS[f"{_name}:{_mode}"] = (KERNELS[_name][0],
+                                       "dips_tpu/ops/pallas_fused.py:171")
 
 
 def timed(fn, *args):
@@ -1319,6 +1814,8 @@ def main():
     errs.update(timed(phase_kernels_tail))
     launches.update(timed(phase_tail, card))
     launches.update(timed(phase_fleet_tail, card))
+    errs.update(timed(phase_kernels_variants))
+    launches.update(timed(phase_options, card))
     times = timed(phase_times, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null

@@ -6,7 +6,11 @@ in, diff-map video out, per-frame statistics back),
 :func:`run_dips_on_file`, and the fleet run :func:`run_dips_on_files` (many
 videos in lockstep through one :class:`MultiStreamEngine`).  In the
 single-file run, decode runs on one worker thread feeding a bounded
-``queue.Queue`` (backpressure), so decode overlaps the device step.
+``queue.Queue`` (backpressure), so decode overlaps the device step.  The
+engine options ``packed_wire``, ``downscale`` (video written at the
+analysis geometry) and ``input_layout`` ("hwc": the device lays out the
+decoded BGR bytes; "planar": the host does) pass through, and ``profile``
+collects per-stage :class:`~dips_tpu_torch.utils.profiling.StageTimers`.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import numpy as np
 from .errors import (DecodeError, FrameCallbackError, OutputPathError,
                      VideoPathError)
 from .models import DiPsEngine
-from .ops.reference import NUM_STATS
+from .models.pipeline import analysis_geometry
+from .ops.reference import NUM_STATS, planarize_host
 from .properties import DiPsMethod, DiPsProperties, Encoding
+from .utils.profiling import StageTimers
 
 log = logging.getLogger("dips_tpu_torch")
 
@@ -58,6 +64,19 @@ class DiPsJob:
     #: a pre-opened reader to use instead of opening ``video_path``
     #: (stream_dips takes ownership and closes it)
     reader: Optional[object] = None
+    #: collect per-stage timings (decode, h2d, dispatch, d2h, device,
+    #: encode); populated on the job as ``job.timers`` after a run
+    profile: bool = False
+    timers: Optional[StageTimers] = None
+    #: THRESHOLD only: bit-pack masks on the device before the download
+    #: (1/8 of the bytes; ops/wire.py).  Output is unchanged.
+    packed_wire: bool = False
+    #: "hwc" (default): the decoded BGR bytes go up as they are and the
+    #: device lays them out; "planar": the host planarizes each frame
+    input_layout: str = "hwc"
+    #: analyze (and write) at 1/k scale: the k x k box mean runs on the
+    #: device; k must divide the input dimensions
+    downscale: int = 1
     #: run artifacts
     frame_geometry: Optional[tuple] = None
     engine: Optional[DiPsEngine] = None
@@ -68,10 +87,21 @@ class DiPsJob:
 
 
 def _decode_worker(reader, q: queue.Queue, stop: threading.Event,
-                   errbox: list) -> None:
-    """Decode thread: BGR frames into the bounded queue, then _EOS."""
+                   errbox: list, timers: Optional[StageTimers] = None
+                   ) -> None:
+    """Decode thread: BGR frames into the bounded queue, then _EOS.  With
+    ``timers``, each decode counts in the "decode" stage (only this thread
+    uses that stage)."""
     try:
-        for frame in reader.iter_bgr():
+        frames = reader.iter_bgr()
+        while True:
+            if timers:
+                with timers.stage("decode"):
+                    frame = next(frames, _EOS)
+            else:
+                frame = next(frames, _EOS)
+            if frame is _EOS:
+                break
             while not stop.is_set():
                 try:
                     q.put(frame, timeout=0.1)
@@ -98,29 +128,43 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
     a ``frame_callback`` (it costs a host pass per frame); else None."""
     if not job.video_path and job.reader is None:
         raise VideoPathError("no video path set (DiPsJob.video_path)")
+    if job.input_layout not in ("planar", "hwc"):
+        raise ValueError(f"unknown input_layout {job.input_layout!r}")
     from .io.video import VideoReader
     reader = job.reader if job.reader is not None \
         else VideoReader(job.video_path)
     try:
+        # the device lays out the decoder's BGR bytes unless the host does
+        host_planar = analysis_geometry(reader.height, reader.width,
+                                        job.downscale,
+                                        job.input_layout)[3] == "planar"
         engine = DiPsEngine(job.properties, reader.height, reader.width,
                             batch=job.batch, device=job.device,
-                            input_layout="hwc_bgr")
+                            input_layout=("planar" if host_planar
+                                          else "hwc_bgr"),
+                            packed_wire=job.packed_wire,
+                            downscale=job.downscale)
     except Exception:
         reader.close()
         raise
     job.engine = engine
+    timers = StageTimers() if job.profile else None
+    job.timers = engine.timers = timers
     want_inputs = job.frame_callback is not None
     q: queue.Queue = queue.Queue(maxsize=_QUEUE_BATCHES * job.batch)
     stop = threading.Event()
     errbox: list = []
     worker = threading.Thread(target=_decode_worker,
-                              args=(reader, q, stop, errbox), daemon=True)
+                              args=(reader, q, stop, errbox, timers),
+                              daemon=True)
     worker.start()
+    tr = engine.tail_rows
     idx = 0
     try:
         eos = False
         while not eos:
             buf = engine.new_batch_buffer()
+            inputs: Optional[list] = [] if want_inputs else None
             n = 0
             while n < job.batch:
                 try:
@@ -131,15 +175,25 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
                 if item is _EOS:
                     eos = True
                     break
-                buf[n] = item
+                if host_planar:
+                    buf[tr + n] = planarize_host(item, engine.hp, engine.wp,
+                                                 swap_rb=True)
+                else:
+                    buf[n] = item
+                if inputs is not None:
+                    inputs.append(np.ascontiguousarray(item[..., ::-1]))
                 n += 1
             if errbox:
                 raise DecodeError(str(errbox[0])) from errbox[0]
             if not n:
                 break
-            inputs = ([np.ascontiguousarray(buf[i, :, :, ::-1])
-                       for i in range(n)] if want_inputs else None)
-            outs, stats = engine.collect(engine.dispatch_async(buf, n))
+            if timers:
+                with timers.stage("device"):
+                    outs, stats = engine.collect(engine.dispatch_async(buf,
+                                                                       n))
+                timers.add_frames(n)
+            else:
+                outs, stats = engine.collect(engine.dispatch_async(buf, n))
             for i in range(n):
                 inp = inputs[i] if inputs is not None else None
                 out = outs[i]
@@ -172,7 +226,15 @@ def perform_dips(job: DiPsJob) -> np.ndarray:
         raise VideoPathError("no video path set")
     from .io.video import VideoReader, VideoWriter
     reader = VideoReader(job.video_path)
-    fps, w, h = reader.fps, reader.width, reader.height
+    fps = reader.fps
+    try:
+        # the written video lives at the analysis geometry (the engine
+        # checks the same divisibility)
+        h, w, _, _ = analysis_geometry(reader.height, reader.width,
+                                       job.downscale, job.input_layout)
+    except ValueError:
+        reader.close()
+        raise
     caller_job = job
     job = dataclasses.replace(job, reader=reader)
     if stats_only:
@@ -190,11 +252,18 @@ def perform_dips(job: DiPsJob) -> np.ndarray:
         with writer:
             for _idx, _inp, out, stats in stream_dips(job):
                 if write is not None:
-                    write(out)
+                    if job.timers:
+                        with job.timers.stage("encode"):
+                            write(out)
+                    else:
+                        write(out)
                 rows.append(stats)
     finally:
         caller_job.frame_geometry = (h, w)
         caller_job.engine = job.engine
+        caller_job.timers = job.timers
+    if job.timers:
+        log.info("%s", job.timers)
     return (np.stack(rows) if rows
             else np.zeros((0, NUM_STATS), np.float32))
 
@@ -203,16 +272,21 @@ def run_dips_on_file(input_path: str, output_path: Optional[str],
                      encoding: "Encoding | str" = Encoding.MJPG,
                      properties: Optional[DiPsProperties] = None,
                      refresh_markers: Sequence[int] = (),
-                     batch: int = 8, device: Optional[str] = "cuda"
+                     batch: int = 8, device: Optional[str] = "cuda",
+                     packed_wire: bool = False, input_layout: str = "hwc",
+                     downscale: int = 1, profile: bool = False
                      ) -> np.ndarray:
     """File in, diff-map video out; bare refresh markers re-capture the
-    baseline mid-stream.  Returns the per-frame statistics."""
+    baseline mid-stream.  Returns the per-frame statistics.  The engine
+    options are :class:`DiPsJob`'s."""
     props = properties or DiPsProperties()
     if refresh_markers:
         props = props.with_refresh_markers(
             tuple(props.refresh_markers) + tuple(refresh_markers))
     job = DiPsJob(properties=props, video_path=input_path,
-                  output_path=output_path, batch=batch, device=device)
+                  output_path=output_path, batch=batch, device=device,
+                  packed_wire=packed_wire, input_layout=input_layout,
+                  downscale=downscale, profile=profile)
     return perform_dips(job.with_encoding(encoding))
 
 
@@ -244,21 +318,19 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
       OVERALL only): each stream's own adaptive baseline refresh, and one
       list of fired frame indices per input.
 
-    The decoders yield cv2's BGR frames; the engine swaps them on the
-    device (``input_layout`` "hwc" is the only host layout the port takes).
-    ``downscale``, ``flicker`` and the "gstreamer" video backend are not
-    ported yet and raise ``NotImplementedError``; ``slab_impl`` is
-    validated and ignored (it shapes 2-D meshes).
+    The decoders yield cv2's BGR frames: with ``input_layout`` "hwc" the
+    engine swaps them on the device, with "planar" the host planarizes
+    them in RGB order.  ``downscale`` = k decimates every stream on the
+    device and writes the videos at the analysis geometry.  ``flicker``
+    and the "gstreamer" video backend are not ported yet and raise
+    ``NotImplementedError``; ``slab_impl`` is validated and ignored (it
+    shapes 2-D meshes).
     """
     from .io.video import VideoReader, VideoWriter
     from .parallel import MultiStreamEngine
     props = properties or DiPsProperties()
     enc = Encoding[encoding.upper()] if isinstance(encoding, str) else encoding
-    if input_layout == "planar":
-        raise NotImplementedError(
-            "input_layout 'planar' is not ported: the port uploads hwc "
-            "frames and lays them out on the device")
-    if input_layout != "hwc":
+    if input_layout not in ("planar", "hwc"):
         raise ValueError(f"unknown input_layout {input_layout!r}")
     if video_backend == "gstreamer":
         raise NotImplementedError("the gstreamer video backend is not "
@@ -267,8 +339,6 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
         raise ValueError(f"unknown video backend {video_backend!r}")
     if flicker is not None:
         raise NotImplementedError("fleet flicker analysis is not ported yet")
-    if int(downscale) != 1:
-        raise NotImplementedError("downscale is not ported yet")
     if auto_refresh is not None and props.method is not DiPsMethod.OVERALL:
         raise ValueError("auto_refresh re-pins the OVERALL baseline; "
                          "method=per_frame has none")
@@ -290,9 +360,15 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                     f"outputs share one clock; retime or process "
                     f"separately)")
         s = len(readers)
+        planar = analysis_geometry(h, w, downscale,
+                                   input_layout)[3] == "planar"
         eng = MultiStreamEngine(props, h, w, n_streams=s, batch=batch,
-                                device=device, input_layout="hwc_bgr",
-                                slab_impl=slab_impl)
+                                device=device,
+                                input_layout="planar" if planar
+                                else "hwc_bgr",
+                                downscale=downscale, slab_impl=slab_impl)
+        # outputs, stats and events live at the analysis geometry
+        h, w = eng.height, eng.width
         stats_only = props.out_channels == 0
         if not stats_only:  # no diff videos, no writers at all
             os.makedirs(output_dir, exist_ok=True)
@@ -335,8 +411,8 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                     f = next(frames_in[si], None)
                     if f is None:
                         done[si] = True
-                    else:
-                        frames.append(f)
+                    else:  # the planar host layout takes RGB
+                        frames.append(f[..., ::-1] if planar else f)
                 feeds.append(frames)
             if not any(feeds):
                 break

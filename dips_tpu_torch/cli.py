@@ -4,11 +4,15 @@ Counterpart of two modes of ``dips_tpu/cli.py``, with the same option names,
 defaults, messages and exit codes (2 for usage errors, 1 for a failed run):
 
 * file in, file out: --input --output --encoding --filter --sig_scalar
-  --chroma --win_size --colorize --method --output-mode --batch, bare
+  --chroma --win_size --approx-median --quirk-compat --roi --colorize
+  --method --output-mode --no-maps --sensitivity --temporal --threshold
+  --batch --packed-wire --downscale --input-layout --profile, bare
   integers as refresh markers, plus --device;
-* the fleet: --inputs FILE... --output-dir DIR, with --stats-json,
-  --events-json (and the --event-* options) and --auto-refresh; exit code 1
-  when a stream failed and was isolated.
+* the fleet: --inputs FILE... --output-dir DIR with the same pipeline and
+  engine options (--packed-wire is accepted and, as in the JAX CLI, not
+  used: the fleet writes unpacked maps), and --stats-json, --events-json (and the --event-*
+  options) and --auto-refresh; exit code 1 when a stream failed and was
+  isolated.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
@@ -57,6 +61,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="r | g | b | '' (luminance)")
     p.add_argument("--win_size", type=int, default=3,
                    help="spatial median window, odd, clamped 1..7")
+    p.add_argument("--approx-median", action="store_true",
+                   help="separable spatial median (fast approximation "
+                        "with documented rank bounds; default is exact)")
+    p.add_argument("--quirk-compat", action="store_true",
+                   help="replicate the reference's WGSL spatial-filter "
+                        "bugs bit-for-bit (off-center window, structural "
+                        "zeros, (n/2)+1 pick, u8 re-quantization) instead "
+                        "of the clean median — for matching legacy output")
+    p.add_argument("--roi", metavar="Y0,X0,Y1,X1",
+                   help="analysis region (pixel bounds, end exclusive): "
+                        "per-frame statistics, the heatmap and motion "
+                        "events consider only this rectangle; output maps "
+                        "stay full-frame")
     p.add_argument("--colorize", default="true",
                    help="true | false (false = grayscale diff)")
     p.add_argument("--method", default="overall",
@@ -66,8 +83,39 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["colorize", "grayscale", "absdiff", "threshold",
                             "stats_only"],
                    help="overrides --colorize; stats_only writes no video")
+    p.add_argument("--no-maps", action="store_true",
+                   help="suppress diff-map output for ANY pipeline "
+                        "(emit_maps=False): the full configured pipeline "
+                        "(spatial/temporal medians, emphasis, colorize/"
+                        "grayscale stats semantics) still runs, but no map "
+                        "bytes are computed or transferred — median-"
+                        "filtered statistics/events/heatmap at stats-only "
+                        "egress cost.  --output-mode stats_only is the "
+                        "raw-absdiff shorthand (skips the medians too)")
+    p.add_argument("--sensitivity", type=float, default=5.0)
+    p.add_argument("--temporal", type=int, default=4,
+                   help="temporal median ring length, 1..16")
+    p.add_argument("--threshold", type=int, default=10,
+                   help="uint8 change threshold for stats / threshold mode")
     p.add_argument("--batch", type=int, default=8,
                    help="frames per kernel launch")
+    p.add_argument("--packed-wire", action="store_true",
+                   help="THRESHOLD output only: bit-pack masks on the "
+                        "device before download (8x less D2H transfer)")
+    p.add_argument("--downscale", type=int, default=1, metavar="K",
+                   help="on-device input decimation: analyze (and write) "
+                        "at 1/K scale — K x K box mean inside the device "
+                        "layout prep, so a 4K feed costs ~1080p device "
+                        "work with no host resize.  K must divide the "
+                        "input dimensions")
+    p.add_argument("--input-layout", choices=("planar", "hwc"),
+                   default="hwc",
+                   help="'hwc' (default): upload raw decoded frames and run "
+                        "the layout transform (+BGR swap) on the device; "
+                        "'planar': the host planarizes each frame before "
+                        "the upload")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings after the run")
     p.add_argument("--device", default="cuda",
                    help="cuda | cuda:N | cpu (default: cuda; without a card "
                         "the run fails unless --device cpu is given)")
@@ -109,6 +157,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _parse_roi(spec: Optional[str]):
+    if not spec:
+        return None
+    try:
+        parts = tuple(int(v) for v in spec.split(","))
+    except ValueError:
+        parts = ()
+    if len(parts) != 4:
+        # ValueError: the props_from_args caller turns it into rc 2
+        raise ValueError(f"--roi wants Y0,X0,Y1,X1 integers, got {spec!r}")
+    return parts
+
+
 def props_from_args(args: argparse.Namespace) -> DiPsProperties:
     if args.output_mode:
         output = OutputMode[args.output_mode.upper()]
@@ -127,8 +188,12 @@ def props_from_args(args: argparse.Namespace) -> DiPsProperties:
     return DiPsProperties(
         method=DiPsMethod[args.method.upper()], output=output, filter=filt,
         chroma=chroma, window_size=args.win_size,
+        temporal_size=args.temporal, sensitivity=args.sensitivity,
         sigmoid_horizontal_scalar=args.sig_scalar,
-        refresh_markers=tuple(args.markers))
+        refresh_markers=tuple(args.markers),
+        change_threshold=args.threshold, approx_median=args.approx_median,
+        quirk_compat=args.quirk_compat, roi=_parse_roi(args.roi),
+        emit_maps=not args.no_maps)
 
 
 def _parse_encoding(name: str) -> Optional[Encoding]:
@@ -156,11 +221,6 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
         print("--inputs requires --output-dir (or --output-mode "
               "stats_only for a no-video fleet run)", file=sys.stderr)
         return 2
-    if stats_only and args.output_dir:
-        print("--output-mode stats_only writes no diff video — drop "
-              "--output/--output-dir (stats/events/heatmap artifacts "
-              "are the products)", file=sys.stderr)
-        return 2
     enc = _parse_encoding(args.encoding)
     if enc is None:
         print(f"unknown --encoding {args.encoding!r} "
@@ -172,8 +232,11 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
     try:
         result = run_dips_on_files(args.inputs, args.output_dir or ".", enc,
                                    props, batch=args.batch,
-                                   device=args.device, events=ev_cfg,
+                                   device=args.device,
+                                   input_layout=args.input_layout,
+                                   events=ev_cfg,
                                    collect_stats=want_stats,
+                                   downscale=args.downscale,
                                    auto_refresh=auto_refresh)
     except (DiPsError, NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -240,7 +303,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "(want FRAC[:PERSIST[:COOLDOWN]], e.g. 0.6:3:64)",
                   file=sys.stderr)
             return 2
-    props = props_from_args(args)
+    stats_only = args.output_mode == "stats_only" or args.no_maps
+    if stats_only:
+        why = ("--output-mode stats_only" if args.output_mode == "stats_only"
+               else "--no-maps")
+        if args.output or args.output_dir:
+            print(f"{why} writes no diff video — drop "
+                  "--output/--output-dir (stats/events/heatmap artifacts "
+                  "are the products)", file=sys.stderr)
+            return 2
+        if args.packed_wire:
+            print(f"--packed-wire needs diff maps; {why} suppresses them",
+                  file=sys.stderr)
+            return 2
+    if args.downscale < 1:
+        print(f"--downscale must be >= 1, got {args.downscale}",
+              file=sys.stderr)
+        return 2
+    try:
+        props = props_from_args(args)
+    except ValueError as e:  # e.g. --approx-median with --quirk-compat
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if args.inputs:
         return _run_inputs(args, props, auto_refresh)
     for flag, val in (("--stats-json", args.stats_json),
@@ -251,14 +335,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"{flag} needs the --inputs mode in this port",
                   file=sys.stderr)
             return 2
-    stats_only = props.out_channels == 0
     if not args.input or (not args.output and not stats_only):
         print("need --input and --output (--output-mode stats_only runs "
               "without --output)", file=sys.stderr)
-        return 2
-    if stats_only and args.output:
-        print("--output-mode stats_only writes no diff video: drop --output",
-              file=sys.stderr)
         return 2
     enc = _parse_encoding(args.encoding)
     if enc is None:
@@ -268,12 +347,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .app import DiPsJob, perform_dips
     job = DiPsJob(properties=props, video_path=args.input,
                   output_path=args.output, encoding=enc, batch=args.batch,
-                  device=args.device)
+                  device=args.device, packed_wire=args.packed_wire,
+                  input_layout=args.input_layout, downscale=args.downscale,
+                  profile=args.profile)
     try:
         stats = perform_dips(job)
     except (DiPsError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if args.profile and job.timers:
+        print(job.timers)
     print(f"processed {stats.shape[0]} frames -> "
           + (args.output if args.output else "stats only"))
     return 0

@@ -1,6 +1,7 @@
 // Device helpers shared by the two median kernels (median_ring.cu and
-// median_tail.cu): the argument block, intensity, the spatial median of one
-// staged frame, and the per-frame emit (statistic partials, heatmap,
+// median_tail.cu): the argument block, intensity, the spatial filter of one
+// staged frame (exact median, separable approximation or the reference's
+// quirk, a compile-time mode), and the per-frame emit (statistic partials, heatmap,
 // emphasis, COLORIZE / GRAYSCALE maps) -- the counterparts of _intensity_i,
 // _filtered_plane and _emit_median_frame in dips_tpu/ops/pallas_fused.py.
 //
@@ -90,6 +91,11 @@ __device__ __forceinline__ float emphasize(float raw, const MedianArgs& a) {
   return d * a.sens;
 }
 
+// Spatial filter modes (DiPsProperties): the exact w x w median, the
+// separable approximation (approx_median) and the reference's off-center
+// rank pick with its u8 store-back (quirk_compat).
+constexpr int kExact = 0, kApprox = 1, kQuirk = 2;
+
 template <int W>
 __device__ __forceinline__ int window_median(const int* s, int ld) {
   if constexpr (W == 1) return s[0];
@@ -98,15 +104,45 @@ __device__ __forceinline__ int window_median(const int* s, int ld) {
   else return wmed7(s, ld);
 }
 
-// Stage frame f's intensity for the tile plus a W/2-pixel halo in `strip`,
-// then return this thread's exact W x W median.  Taps outside the stream's
-// own rows [0, Hp) or the columns [0, Wp) read zero, so a halo never reaches
-// the neighbouring stream.  The caller must have passed a barrier since the
-// strip's previous readers read it.
+// the median of W taps s[0], s[step], ... (networks.median_network(W))
 template <int W>
+__device__ __forceinline__ int line_median(const int* s, int step) {
+  if constexpr (W == 3) return smed3(s, step);
+  else if constexpr (W == 5) return smed5(s, step);
+  else return smed7(s, step);
+}
+
+// networks.quirk_window_select over the (W-1) x (W-1) taps at s
+template <int W>
+__device__ __forceinline__ int quirk_select(const int* s, int ld) {
+  if constexpr (W == 3) return qsel3(s, ld);
+  else if constexpr (W == 5) return qsel5(s, ld);
+  else return qsel7(s, ld);
+}
+
+// Rows of the column-median scratch: only the separable mode uses it.
+template <int M>
+constexpr int kCmRows = M == kApprox ? kTy : 1;
+
+// Stage frame f's intensity for the tile plus a W/2-pixel halo in `strip`,
+// then return this thread's filtered value in mode M:
+// * kExact: the exact W x W median of the taps at offsets [-P, P];
+// * kApprox (networks.separable_median): each column's median over rows
+//   [-P, P] for the tile's columns and their P-column halo, written to `cm`,
+//   a barrier, then the median across the thread's W column medians;
+// * kQuirk (networks.quirk_window_select): the rank pick over the taps at
+//   offsets [-P, P) in both axes, then the u8 store-back 2 * rint(phi / 2)
+//   (also at W = 1, where there is no window).
+// Taps outside the stream's own rows [0, Hp) or the columns [0, Wp) read
+// zero, so a halo never reaches the neighbouring stream, and an
+// out-of-range column's median is 0, as the TPU's wrapped zero lanes give.
+// The caller must have passed a barrier since the strip's and cm's
+// previous readers read them.
+template <int W, int M, int CR>
 __device__ __forceinline__ float filtered(
-    int (&strip)[kTy + 2 * (W / 2)][kTx + 2 * (W / 2)], const MedianArgs& a,
-    const Pixel& p, int f) {
+    int (&strip)[kTy + 2 * (W / 2)][kTx + 2 * (W / 2)],
+    int (&cm)[CR][kTx + 2 * (W / 2)], const MedianArgs& a, const Pixel& p,
+    int f) {
   constexpr int P = W / 2;
   constexpr int SW = kTx + 2 * P, SH = kTy + 2 * P;
   const uint8_t* fr = a.raw + (long long)f * 3 * p.plane + p.si * p.sec;
@@ -119,7 +155,21 @@ __device__ __forceinline__ float filtered(
     strip[r][c] = v;
   }
   __syncthreads();
-  return (float)window_median<W>(&strip[p.ty][p.tx], SW);
+  if constexpr (M == kQuirk) {
+    float phi;
+    if constexpr (W == 1) phi = (float)strip[p.ty][p.tx];
+    else phi = (float)quirk_select<W>(&strip[p.ty][p.tx], SW);
+    return 2.f * rintf(phi * 0.5f);
+  } else if constexpr (M == kApprox && W > 1) {
+    for (int i = p.tid; i < kTy * SW; i += kTx * kTy) {
+      const int r = i / SW, c = i % SW;
+      cm[r][c] = line_median<W>(&strip[r][c], SW);
+    }
+    __syncthreads();
+    return (float)line_median<W>(&cm[p.ty][p.tx], 1);
+  } else {
+    return (float)window_median<W>(&strip[p.ty][p.tx], SW);
+  }
 }
 
 // Emit output frame f from its temporal median `cur` and integer diff
@@ -192,12 +242,39 @@ __device__ __forceinline__ void emit(const MedianArgs& a, const Pixel& p,
   }
 }
 
+// Launch K::go<W, M> for the runtime window W and spatial mode M (every
+// instance is compiled; the mode is a template parameter, not a branch in
+// the kernel), then report the launch's error code.
+template <class K, int W>
+__host__ inline int launch_mode(int mode, dim3 grid, dim3 block,
+                                cudaStream_t s, const MedianArgs& a) {
+  switch (mode) {
+    case kExact: K::template go<W, kExact>(grid, block, s, a); break;
+    case kApprox: K::template go<W, kApprox>(grid, block, s, a); break;
+    case kQuirk: K::template go<W, kQuirk>(grid, block, s, a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class K>
+__host__ inline int launch(int W, int mode, dim3 grid, dim3 block,
+                           cudaStream_t s, const MedianArgs& a) {
+  switch (W) {
+    case 1: return launch_mode<K, 1>(mode, grid, block, s, a);
+    case 3: return launch_mode<K, 3>(mode, grid, block, s, a);
+    case 5: return launch_mode<K, 5>(mode, grid, block, s, a);
+    case 7: return launch_mode<K, 7>(mode, grid, block, s, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The argument checks shared by both entry points.
 __host__ inline bool valid_launch(int S, int B, int Hp, int Wp, int T,
-                                  int out_mode, int chroma) {
+                                  int mode, int out_mode, int chroma) {
   return S >= 1 && S <= 65535 && B >= 1 && Hp % kTy == 0 && Wp % kTx == 0 &&
-         T >= 1 && T <= DIPS_MAX_T && out_mode >= 0 && out_mode <= 2 &&
-         chroma >= 0 && chroma <= 3;
+         T >= 1 && T <= DIPS_MAX_T && mode >= kExact && mode <= kQuirk &&
+         out_mode >= 0 && out_mode <= 2 && chroma >= 0 && chroma <= 3;
 }
 
 }  // namespace dips_median

@@ -6,8 +6,11 @@
 // batch_step_ring and batch_step_ring_stacked).
 //
 // Per pixel and frame: intensity on the integer scale [0, 510] (cmax+cmin,
-// or 2*channel) -> exact w x w spatial median with zero taps outside
-// [0,Hp) x [0,Wp) -> write into the carried ring at slot (off+f) mod T when
+// or 2*channel) -> spatial filter with zero taps outside [0,Hp) x [0,Wp):
+// the exact w x w median, the separable approximation (approx_median) or
+// the reference's off-center rank pick followed by the even-integer
+// store-back (quirk_compat), a compile-time mode -> write into the carried
+// ring at slot (off+f) mod T when
 // the frame is valid (`seed` fills every slot, and prev in PER_FRAME, with
 // frame 0) -> exact temporal median (index T/2) -> diff against the
 // baseline (OVERALL, captured on a flagged valid frame) or the previous
@@ -40,7 +43,10 @@
 // Bound: per frame it reads 3*Hp*Wp bytes (plus the halo re-reads) and
 // writes C*Hp*Wp bytes, and does a few hundred integer min/max per pixel at
 // w=7 (about 30 at w=3) plus the emphasis transcendental, so w=3 is near
-// the memory bound and w=7 is bound by the integer pipes.
+// the memory bound and w=7 is bound by the integer pipes.  The separable
+// mode needs 8 / 24 / 44 min/max per pixel at w = 3 / 5 / 7 (column
+// medians for the tile's halo columns too, through one more barrier), the
+// quirk mode 0 / 83 / 389.
 //
 // Arithmetic mirrors the float32 reference op for op (multiplies where it
 // multiplies, expf/logf, rintf = round half to even); build with
@@ -52,10 +58,11 @@ namespace {
 
 using namespace dips_median;
 
-template <int W>
+template <int W, int M>
 __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   constexpr int P = W / 2;
   __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
+  __shared__ int cm[kCmRows<M>][kTx + 2 * P];
   __shared__ float red[kWarps][4];
 
   const Pixel p = locate(a);
@@ -76,7 +83,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   for (int f = 0; f < a.B; ++f) {
     // the previous frame's readers of the strip are done: they passed that
     // frame's reduction barrier
-    const float phi = filtered<W>(strip, a, p, f);
+    const float phi = filtered<W, M>(strip, cm, a, p, f);
 
     const int v = valid[f];
     const int slot = (off + f) % a.T;
@@ -108,6 +115,13 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   a.heat[p.pix] = heat;
 }
 
+struct RingKernel {
+  template <int W, int M>
+  static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
+    median_ring_kernel<W, M><<<grid, block, 0, s>>>(a);
+  }
+};
+
 }  // namespace
 
 // Hp is one stream's padded height; parts is float (B, S, n_tiles, 4); the
@@ -116,10 +130,10 @@ extern "C" int dips_median_ring(
     const void* raw, void* ring, void* prev, void* base, void* heat,
     void* out, void* parts, const void* flags, const void* valid,
     const void* offs, const void* seeds, int S, int B, int Hp, int Wp, int T,
-    int W, int overall, int out_mode, int chroma, int filter, float k,
-    float sens, float lo_clip, float hi_clip, float scale, float thr, int y0,
-    int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, out_mode, chroma))
+    int W, int mode, int overall, int out_mode, int chroma, int filter,
+    float k, float sens, float lo_clip, float hi_clip, float scale, float thr,
+    int y0, int x0, int y1, int x1, void* stream) {
+  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma))
     return (int)cudaErrorInvalidValue;
   MedianArgs a{(const uint8_t*)raw, (float*)ring, (float*)prev,
                (float*)base, (float*)heat, (uint8_t*)out, (float*)parts,
@@ -128,12 +142,6 @@ extern "C" int dips_median_ring(
                filter, k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1};
   const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy, S);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 1: median_ring_kernel<1><<<grid, block, 0, s>>>(a); break;
-    case 3: median_ring_kernel<3><<<grid, block, 0, s>>>(a); break;
-    case 5: median_ring_kernel<5><<<grid, block, 0, s>>>(a); break;
-    case 7: median_ring_kernel<7><<<grid, block, 0, s>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<RingKernel>(W, mode, grid, block, s, a);
 }
+

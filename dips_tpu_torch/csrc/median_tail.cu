@@ -7,8 +7,10 @@
 //
 // The input is the T raw tail frames followed by the B new ones, raw
 // (T+B, 3, S*Hp, Wp).  No ring is carried between launches: each launch
-// rebuilds it from the tail.  Per pixel: the T tail frames' spatial medians
-// fill ring slots 0..T-1 (global frame g writes slot g mod T); PER_FRAME's
+// rebuilds it from the tail.  Per pixel: the T tail frames' spatially
+// filtered planes (the exact median, the separable approximation or the
+// quirk pick with its store-back, as in median_ring.cu) fill ring slots
+// 0..T-1 (global frame g writes slot g mod T); PER_FRAME's
 // first reference is their temporal median.  Then for each new frame f:
 // spatial median -> slot f mod T (every frame, valid or not) -> temporal
 // median -> diff against the baseline (OVERALL, captured on every flagged
@@ -38,10 +40,11 @@ namespace {
 
 using namespace dips_median;
 
-template <int W>
+template <int W, int M>
 __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
   constexpr int P = W / 2;
   __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
+  __shared__ int cm[kCmRows<M>][kTx + 2 * P];
   __shared__ float red[kWarps][4];
 
   const Pixel p = locate(a);
@@ -53,7 +56,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
 #pragma unroll
   for (int k = 0; k < DIPS_MAX_T; ++k) ring[k] = 0.f;
   for (int g = 0; g < a.T; ++g) {
-    const float phi = filtered<W>(strip, a, p, g);
+    const float phi = filtered<W, M>(strip, cm, a, p, g);
 #pragma unroll
     for (int k = 0; k < DIPS_MAX_T; ++k)
       if (k == g) ring[k] = phi;
@@ -64,7 +67,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
   float heat = a.heat[p.pix];
 
   for (int f = 0; f < a.B; ++f) {
-    const float phi = filtered<W>(strip, a, p, a.T + f);
+    const float phi = filtered<W, M>(strip, cm, a, p, a.T + f);
     const int slot = f % a.T;  // global frame T+f
 #pragma unroll
     for (int k = 0; k < DIPS_MAX_T; ++k)
@@ -88,6 +91,13 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
   a.heat[p.pix] = heat;
 }
 
+struct TailKernel {
+  template <int W, int M>
+  static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
+    median_tail_kernel<W, M><<<grid, block, 0, s>>>(a);
+  }
+};
+
 }  // namespace
 
 // raw is (T+B, 3, S*Hp, Wp); Hp is one stream's padded height; parts is
@@ -95,10 +105,10 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
 extern "C" int dips_median_tail(
     const void* raw, void* base, void* heat, void* out, void* parts,
     const void* flags, const void* valid, int S, int B, int Hp, int Wp,
-    int T, int W, int overall, int out_mode, int chroma, int filter, float k,
-    float sens, float lo_clip, float hi_clip, float scale, float thr, int y0,
-    int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, out_mode, chroma))
+    int T, int W, int mode, int overall, int out_mode, int chroma,
+    int filter, float k, float sens, float lo_clip, float hi_clip,
+    float scale, float thr, int y0, int x0, int y1, int x1, void* stream) {
+  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma))
     return (int)cudaErrorInvalidValue;
   MedianArgs a{(const uint8_t*)raw, nullptr, nullptr, (float*)base,
                (float*)heat, (uint8_t*)out, (float*)parts,
@@ -107,12 +117,6 @@ extern "C" int dips_median_tail(
                hi_clip, scale, thr, y0, x0, y1, x1};
   const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy, S);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 1: median_tail_kernel<1><<<grid, block, 0, s>>>(a); break;
-    case 3: median_tail_kernel<3><<<grid, block, 0, s>>>(a); break;
-    case 5: median_tail_kernel<5><<<grid, block, 0, s>>>(a); break;
-    case 7: median_tail_kernel<7><<<grid, block, 0, s>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<TailKernel>(W, mode, grid, block, s, a);
 }
+

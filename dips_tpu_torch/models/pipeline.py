@@ -15,22 +15,25 @@ in place (no copy per step):
   planar batch are the next batch's rows [0, T).
 
 Per batch: one upload of the (n, H, W, 3) frames (from a pinned host buffer
-on a card), the layout prep on the device (permute, optional BGR flip, zero
-pad into a planar buffer the engine keeps), one kernel launch, then crop and
-interleave on the device before one download of the maps.
+on a card), the layout prep on the device (optional k x k box mean, permute,
+optional BGR flip, zero pad into a planar buffer the engine keeps), one
+kernel launch, then crop and interleave on the device before one download
+of the maps.  With ``input_layout="planar"`` the host hands over padded
+planar frames and the upload goes straight into the planar buffer; with
+``packed_wire`` (THRESHOLD) the masks are bit-packed on the device and
+unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's and the same in both
-protocols: they hold the raw planar u8 tail of the last T frames.  After a
-load the ring engine rebuilds its ring from the tail by running the kernel
-over it with inert flags and seed 1; the tail engine just uploads it.
-
-Not in this slice: ``packed_wire``, ``downscale`` and the planar upload
-layout; each raises ``NotImplementedError``.
+protocols: they hold the raw planar u8 tail of the last T frames (at the
+analysis geometry under ``downscale``).  After a load the ring engine
+rebuilds its ring from the tail by running the kernel over it with inert
+flags and seed 1; the tail engine just uploads it.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +41,7 @@ import torch
 
 from ..errors import DeviceError
 from ..properties import DiPsProperties, OutputMode
-from ..ops import cuda_fused, reference
+from ..ops import cuda_fused, reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
@@ -64,23 +67,66 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def analysis_geometry(height: int, width: int, downscale, input_layout: str
+                      ) -> Tuple[int, int, int, str]:
+    """(analysis height, width, k, input layout) of an engine fed
+    ``height`` x ``width`` frames with ``downscale`` = k: the k x k box
+    mean runs in the device layout prep, so a "planar" layout becomes
+    "hwc" when k > 1 (as the JAX engines promote it)."""
+    k = int(downscale)
+    if k < 1:
+        raise ValueError(f"downscale must be >= 1, got {downscale}")
+    if k > 1:
+        if height % k or width % k:
+            raise ValueError(
+                f"downscale {k} must divide the input geometry "
+                f"{height}x{width} (crop the stream or pick a divisor)")
+        height, width = height // k, width // k
+        if input_layout == "planar":
+            input_layout = "hwc"
+    return int(height), int(width), k, input_layout
+
+
+def check_packed_wire(props: DiPsProperties, packed_wire: bool) -> bool:
+    """``packed_wire`` needs THRESHOLD masks (the JAX engines' rule)."""
+    if packed_wire and (props.output != OutputMode.THRESHOLD
+                        or props.out_channels == 0):
+        raise ValueError("packed_wire requires THRESHOLD output with "
+                         "emit_maps=True (there must be masks to pack)")
+    return bool(packed_wire)
+
+
 class DiPsEngine:
     """Stateful streaming engine: feed uint8 (H, W, 3) frames, get diff maps
     and per-frame statistics.
 
     Args:
       props: pipeline configuration.
-      height, width: true frame geometry.
+      height, width: true input frame geometry.  With ``downscale = k > 1``
+        the analysis geometry (maps, stats, heatmap, roi, checkpoints) is
+        ``height/k x width/k`` (``.height`` / ``.width``; the input dims
+        stay on ``.in_height`` / ``.in_width``).
       batch: frames per kernel launch (B).
       device: "cuda" (the default; None means the same), "cuda:N" or
         "cpu".  Without a card "cuda" raises :class:`DeviceError`; on the
         CPU the kernels' plain PyTorch twins run.
-      input_layout: "hwc" (RGB frames) or "hwc_bgr" (cv2's BGR order,
-        swapped on the device in the same copy).
+      input_layout: "hwc" (RGB frames), "hwc_bgr" (cv2's BGR order,
+        swapped on the device in the same copy) or "planar" (padded planar
+        (3, Hp, Wp) frames from the host: :meth:`process_planar`, or
+        :meth:`new_batch_buffer` rows ``[tail_rows:]``).
       ring_carry: True for the ring-carry protocol, False for the tail
         protocol; both give the same outputs.
-      packed_wire, downscale: accepted for signature parity with the JAX
-        engine; only the defaults are ported.
+      packed_wire: THRESHOLD only: bit-pack the masks on the device before
+        the download (1/8 of the bytes, ``ops/wire.py``) and unpack them on
+        the host; ``collect(packed=True)`` returns the packed bytes.
+      downscale: k >= 1, the k x k box mean of each input frame on the
+        device (a hwc layout; "planar" becomes "hwc").
+
+    ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
+    None by default) splits the time into ``h2d`` (the upload), ``dispatch``
+    (layout prep, launch and packing) and ``d2h`` (collect).  Kernels run
+    asynchronously on the card, so ``dispatch`` holds only the enqueue and
+    ``d2h`` holds the wait for the device as well as the download.
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
@@ -91,21 +137,22 @@ class DiPsEngine:
             raise ValueError(f"bad geometry {height}x{width}")
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if packed_wire:
-            raise NotImplementedError("packed_wire is not ported yet")
-        if int(downscale) != 1:
-            raise NotImplementedError("downscale is not ported yet")
         self.props = props
-        self.height, self.width = int(height), int(width)
+        self.in_height, self.in_width = int(height), int(width)
+        self.height, self.width, self.downscale, input_layout = \
+            analysis_geometry(height, width, downscale, input_layout)
         props.roi_bounds(self.height, self.width)  # fail early on a bad roi
         self.hp, self.wp = pad_geometry(self.height, self.width)
         self.batch = int(batch)
+        self.packed_wire = check_packed_wire(props, packed_wire)
         self.device = resolve_device(device)
         self.input_layout = input_layout
         self._swap_rb, self._prep = reference.make_layout_prep(
-            input_layout, self.height, self.width, self.hp, self.wp)
+            input_layout, self.height, self.width, self.hp, self.wp,
+            downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
         self.ring_carry = bool(ring_carry)
+        self.timers = None
         # planar device batch, the tail rows first in the tail protocol:
         # the padding stays zero, only the true region is rewritten
         self._planar = torch.zeros(
@@ -115,8 +162,8 @@ class DiPsEngine:
         self._pinned_next = 0
         if self.device.type == "cuda":
             for _ in range(_PINNED_BUFFERS):
-                t = torch.empty((self.batch, self.height, self.width, 3),
-                                dtype=torch.uint8, pin_memory=True)
+                t = torch.empty(self._buffer_shape, dtype=torch.uint8,
+                                pin_memory=True)
                 self._pinned.append((t, t.numpy(), [None]))
         self.reset()
 
@@ -128,9 +175,19 @@ class DiPsEngine:
 
     @property
     def tail_rows(self) -> int:
-        """Leading tail rows in a :meth:`new_batch_buffer` buffer: 0, since
-        the port takes hwc frames (new frames go at ``buf[i]``)."""
-        return 0
+        """Leading tail rows in a :meth:`new_batch_buffer` buffer: T in the
+        planar layout's tail protocol (the JAX engine's layout; the port
+        keeps its tail on the device and never reads those rows), else 0.
+        New frames go at ``buf[tail_rows + i]``."""
+        return self._tail_len if self.input_layout == "planar" else 0
+
+    @property
+    def _buffer_shape(self) -> tuple:
+        """Shape of a :meth:`new_batch_buffer` buffer."""
+        if self.input_layout == "planar":
+            return (self.tail_rows + self.batch, 3, self.hp, self.wp)
+        return (self.batch, self.in_height, self.in_width, 3)
+
 
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -171,11 +228,9 @@ class DiPsEngine:
     def _planar_tail(self) -> Optional[np.ndarray]:
         if not self._tail:
             return None
-        frames = [f if f.shape == (3, self.hp, self.wp)
-                  else reference.planarize_host(f, self.hp, self.wp,
-                                                swap_rb=self._swap_rb)
-                  for f in self._tail]
-        return np.stack(frames)
+        return np.stack([reference.tail_frame_planar(
+            f, self.hp, self.wp, self.downscale, self._swap_rb)
+            for f in self._tail])
 
     # -- core ---------------------------------------------------------------
     def _empty_result(self):
@@ -183,13 +238,19 @@ class DiPsEngine:
                           self.props.out_channels), np.uint8),
                 np.zeros((0, NUM_STATS), np.float32))
 
+    def _stage(self, name: str):
+        return (self.timers.stage(name) if self.timers
+                else contextlib.nullcontext())
+
     def new_batch_buffer(self) -> np.ndarray:
-        """A (B, H, W, 3) uint8 host buffer to fill with frames [0:n].  On a
-        card it is pinned memory the upload reads directly; it may be
-        handed out again once the batch dispatched from it was uploaded."""
+        """A host buffer for one batch: (B, H_in, W_in, 3) uint8 in a hwc
+        layout, fill rows [0:n]; (tail_rows + B, 3, Hp, Wp) in the planar
+        layout, fill rows [tail_rows : tail_rows + n] with padded planar
+        frames.  On a card it is pinned memory the upload reads directly;
+        it may be handed out again once the batch dispatched from it was
+        uploaded."""
         if not self._pinned:
-            return np.empty((self.batch, self.height, self.width, 3),
-                            np.uint8)
+            return np.empty(self._buffer_shape, np.uint8)
         _, arr, ev = self._pinned[self._pinned_next]
         self._pinned_next = (self._pinned_next + 1) % len(self._pinned)
         if ev[0] is not None:
@@ -197,39 +258,71 @@ class DiPsEngine:
             ev[0] = None
         return arr
 
-    def process_batch(self, frames: Sequence[np.ndarray]
-                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """Process up to ``batch`` (H, W, 3) uint8 frames; returns (outputs
-        uint8 (n, H, W, C), stats float32 (n, 4))."""
+    def process_batch(self, frames: Sequence[np.ndarray],
+                      packed: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """Process up to ``batch`` (H_in, W_in, 3) uint8 frames; returns
+        (outputs uint8 (n, H, W, C), stats float32 (n, 4)), or the packed
+        masks with ``packed`` (see :meth:`collect`).  In the planar layout
+        the frames are planarized on the host first."""
         n = len(frames)
         if n == 0:
             return self._empty_result()
         if n > self.batch:
             raise ValueError(f"got {n} frames > batch {self.batch}")
+        shape = (self.in_height, self.in_width, 3)
+        for f in frames:
+            if f.shape != shape:
+                raise ValueError(f"frame shape {f.shape} != {shape}")
+        if self.input_layout == "planar":
+            return self.process_planar(
+                [reference.planarize_host(f, self.hp, self.wp)
+                 for f in frames], packed=packed)
         buf = self.new_batch_buffer()
         for i, f in enumerate(frames):
-            if f.shape != (self.height, self.width, 3):
-                raise ValueError(f"frame shape {f.shape} != "
-                                 f"{(self.height, self.width, 3)}")
             buf[i] = f
-        return self.collect(self.dispatch_async(buf, n))
+        return self.collect(self.dispatch_async(buf, n), packed=packed)
+
+    def process_planar(self, planar: Sequence[np.ndarray],
+                       packed: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """Process up to ``batch`` frames already in padded planar
+        (3, Hp, Wp) uint8 layout (``input_layout="planar"`` only)."""
+        if self.input_layout != "planar":
+            raise ValueError(
+                f"process_planar on an input_layout={self.input_layout!r} "
+                f"engine: feed (H, W, 3) frames via process_batch instead")
+        n = len(planar)
+        if n == 0:
+            return self._empty_result()
+        if n > self.batch:
+            raise ValueError(f"got {n} frames > batch {self.batch}")
+        buf = self.new_batch_buffer()
+        tr = self.tail_rows
+        for i, f in enumerate(planar):
+            if f.shape != (3, self.hp, self.wp):
+                raise ValueError(f"planar frame shape {f.shape} != "
+                                 f"{(3, self.hp, self.wp)}")
+            buf[tr + i] = f
+        return self.collect(self.dispatch_async(buf, n), packed=packed)
 
     def dispatch_async(self, buf: np.ndarray, n: int):
         """Upload and launch one batch without waiting for its results;
-        returns a handle for :meth:`collect`.  State (cursor, tail, ring)
-        advances at dispatch, so calls must stay ordered."""
+        returns a handle for :meth:`collect`.  ``buf`` is a
+        :meth:`new_batch_buffer` buffer with the n frames written.  State
+        (cursor, tail, ring) advances at dispatch, so calls must stay
+        ordered."""
         t = self.props.temporal_size
         b = self.batch
         if n < 1 or n > b:
             raise ValueError(f"n={n} outside 1..{b}")
-        if buf.shape != (b, self.height, self.width, 3) or \
-                buf.dtype != np.uint8:
+        if buf.shape != self._buffer_shape or buf.dtype != np.uint8:
             raise ValueError(f"batch buffer {buf.shape} {buf.dtype} != "
-                             f"{(b, self.height, self.width, 3)} uint8")
+                             f"{self._buffer_shape} uint8")
+        tr_host = self.tail_rows
+        new = buf[tr_host:tr_host + n]
         first = not self._tail
         if first:  # first batch: the tail starts as T x frame 0
-            self._tail.extend([buf[0].copy()] * t)
-        self._tail.extend(buf[i].copy() for i in range(max(0, n - t), n))
+            self._tail.extend([new[0].copy()] * t)
+        self._tail.extend(new[i].copy() for i in range(max(0, n - t), n))
 
         flags = np.zeros((b,), np.bool_)
         valid = np.zeros((b,), np.bool_)
@@ -240,34 +333,43 @@ class DiPsEngine:
             flags[0] = True
             self._force_snapshot = False
 
-        src = torch.from_numpy(buf)[:n]
-        if self.device.type == "cuda":
-            src = src.to(self.device, non_blocking=True)
-            for _, arr, ev in self._pinned:
-                if arr.ctypes.data == buf.ctypes.data:
-                    ev[0] = torch.cuda.Event()
-                    ev[0].record()
         raw = self._planar
         tr = self._tail_len
-        self._prep(src, out=raw[tr:tr + n])
-        if n < b:  # padding replicas of the last frame
-            raw[tr + n:] = raw[tr + n - 1]
-        if not self.ring_carry:
-            if first:
-                raw[:t] = raw[t]
-            out, stats = self._launch_tail(raw, flags, valid)
-            # the next batch's tail: the last T of (tail + n new frames),
-            # through a temporary (the two row ranges overlap when n < T)
-            raw[:t] = raw[n:n + t].clone()
-        else:
-            out, stats = self._launch_ring(raw, flags, valid)
-            self._ring_off = (self._ring_off + n) % t
-            self._seeded = True
+        with self._stage("h2d"):
+            src = torch.from_numpy(new)
+            if self.device.type == "cuda":
+                src = src.to(self.device, non_blocking=True)
+                for _, arr, ev in self._pinned:
+                    if arr.ctypes.data == buf.ctypes.data:
+                        ev[0] = torch.cuda.Event()
+                        ev[0].record()
+        with self._stage("dispatch"):
+            if self._prep is None:
+                raw[tr:tr + n] = src
+            else:
+                self._prep(src, out=raw[tr:tr + n])
+            if n < b:  # padding replicas of the last frame
+                raw[tr + n:] = raw[tr + n - 1]
+            if not self.ring_carry:
+                if first:
+                    raw[:t] = raw[t]
+                out, stats = self._launch_tail(raw, flags, valid)
+                # the next batch's tail: the last T of (tail + n new
+                # frames), through a temporary (the two row ranges overlap
+                # when n < T)
+                raw[:t] = raw[n:n + t].clone()
+            else:
+                out, stats = self._launch_ring(raw, flags, valid)
+                self._ring_off = (self._ring_off + n) % t
+                self._seeded = True
+            if self.packed_wire:
+                # padded (n, 1, Hp/8, Wp): cropped after the host unpack
+                out = wire.pack_mask(out[:n])
+            elif out.shape[1]:
+                # crop + interleave on the device: one download per batch
+                out = out[:n, :, :self.height, :self.width].permute(
+                    0, 2, 3, 1).contiguous()
         self.frame_index += n
-        # crop + interleave on the device: one download per batch
-        if out.shape[1]:
-            out = out[:n, :, :self.height, :self.width].permute(0, 2, 3, 1)
-            out = out.contiguous()
         return out, stats[:n], n
 
     def _launch_tail(self, raw: torch.Tensor, flags, valid):
@@ -293,24 +395,38 @@ class DiPsEngine:
                 self._ring_off, seed)
         return out, stats
 
-    def collect(self, handle) -> Tuple[np.ndarray, np.ndarray]:
+    def collect(self, handle, packed: bool = False
+                ) -> Tuple[np.ndarray, np.ndarray]:
         """Download a :meth:`dispatch_async` handle: (outputs uint8
-        (n, H, W, C), stats float32 (n, 4))."""
+        (n, H, W, C), stats float32 (n, 4)).  ``packed=True``
+        (``packed_wire`` engines only) returns the device-packed padded
+        masks (n, 1, Hp/8, Wp) as they came down, without the host
+        unpack."""
         out, stats, n = handle
-        stats_np = stats.cpu().numpy()
-        if out.dim() == 4 and out.shape[1] == 0:  # no maps: stats only
-            return np.empty((n, self.height, self.width, 0), np.uint8), \
-                stats_np
-        return out.cpu().numpy(), stats_np
+        if packed and not self.packed_wire:
+            raise ValueError("packed collect requires packed_wire=True")
+        with self._stage("d2h"):
+            stats_np = stats.cpu().numpy()
+            if out.shape[1] == 0:  # no maps: stats only
+                return np.empty((n, self.height, self.width, 0),
+                                np.uint8), stats_np
+            out_np = out.cpu().numpy()
+            if packed:
+                return out_np, stats_np
+            if self.packed_wire:
+                out_np = np.moveaxis(wire.unpack_mask(out_np)[
+                    :, :, :self.height, :self.width], 1, -1)
+        return out_np, stats_np
 
-    def process_frames(self, frames: Sequence[np.ndarray]
+    def process_frames(self, frames: Sequence[np.ndarray],
+                       packed: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """Process any number of frames, batching internally."""
         if len(frames) == 0:
             return self._empty_result()
         outs, stats = [], []
         for i in range(0, len(frames), self.batch):
-            o, s = self.process_batch(frames[i:i + self.batch])
+            o, s = self.process_batch(frames[i:i + self.batch], packed=packed)
             outs.append(o)
             stats.append(s)
         return np.concatenate(outs), np.concatenate(stats)

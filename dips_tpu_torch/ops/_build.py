@@ -12,8 +12,9 @@ flags: a changed source builds anew, an unchanged one loads the cached
 library.
 
 The median kernels' selection networks are generated here from
-``ops/networks.py`` (the same column-factored window plans and temporal
-median networks the plain version applies with ``torch.minimum`` /
+``ops/networks.py`` (the same column-factored window plans, separable
+medians, the quirk window's rank selection and the temporal median
+networks the plain version applies with ``torch.minimum`` /
 ``torch.maximum``) into ``median_networks.cuh`` beside the library.
 
 ``-fmad=false`` and no fast math: the emphasis path must round like the
@@ -55,17 +56,17 @@ SIGNATURES = {
     # heat_scale, stream
     "dips_raw_ring": [_P] * 9 + [_I] * 11 + [_F, _P],
     # raw, ring, prev, base, heat, out, parts, flags, valid, offs, seeds,
-    # S, B, Hp, Wp, T, W, overall, out_mode, chroma, filter,
+    # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_ring": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_I] * 4 + [_P],
+    "dips_median_ring": [_P] * 11 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
     # raw, base, heat, out, parts, flags, valid,
     # S, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
     "dips_raw_tail": [_P] * 7 + [_I] * 12 + [_F, _P],
     # raw, base, heat, out, parts, flags, valid,
-    # S, B, Hp, Wp, T, W, overall, out_mode, chroma, filter,
+    # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_tail": [_P] * 7 + [_I] * 10 + [_F] * 6 + [_I] * 4 + [_P],
+    "dips_median_tail": [_P] * 7 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -103,6 +104,47 @@ def _window_median_fn(w: int) -> str:
     return "\n".join(lines)
 
 
+def _separable_median_fn(w: int) -> str:
+    """``int smed<w>(const int* s, int step)``: the median of the w taps
+    ``s[0], s[step], ..., s[(w-1) * step]`` through
+    ``networks.median_network(w)`` -- the building block of
+    ``networks.separable_median``: down a column (step = the row stride),
+    then across the w column medians (step 1)."""
+    lines = [f"__device__ __forceinline__ int smed{w}(const int* s, "
+             "int step) {"]
+    for j in range(w):
+        lines.append(f"  int v{j} = s[{j} * step];")
+    for i, j, nmin, nmax in networks.median_network(w):
+        lines.append(_cmpx(i, j, nmin, nmax, "v"))
+    lines.append(f"  return v{w // 2};")
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def _quirk_select_fn(w: int) -> str:
+    """``int qsel<w>(const int* s, int ld)``: ``networks.
+    quirk_window_select`` -- the tap of rank ``w*w//2 + 1 - 2w`` of the
+    off-center (w-1) x (w-1) window whose top-left is ``s`` (offsets
+    [-p, p) in both axes), through ``networks.selection_network``; wire
+    ``dx * (w-1) + dy`` is tap (dy, dx), as the plain version orders them.
+    At w = 3 the rank is negative and the result is 0."""
+    wm1 = w - 1
+    rank = (w * w) // 2 + 1 - 2 * w
+    lines = [f"__device__ __forceinline__ int qsel{w}(const int* s, "
+             "int ld) {"]
+    if rank < 0:
+        lines += ["  return 0;", "}"]
+        return "\n".join(lines)
+    for dx in range(wm1):
+        for dy in range(wm1):
+            lines.append(f"  int v{dx * wm1 + dy} = s[{dy} * ld + {dx}];")
+    for i, j, nmin, nmax in networks.selection_network(wm1 * wm1, (rank,)):
+        lines.append(_cmpx(i, j, nmin, nmax, "v"))
+    lines.append(f"  return v{rank};")
+    lines.append("}")
+    return "\n".join(lines)
+
+
 def _temporal_median_fn() -> str:
     """``float tmed(const float (&r)[MAX_T], int t)``: the exact median
     (index t // 2) of ``r[0..t)``, through ``networks.median_network(t)``
@@ -127,7 +169,10 @@ def network_header() -> str:
              "ops/_build.py; do not edit.",
              "#pragma once",
              f"#define DIPS_MAX_T {MAX_T}"]
-    parts += [_window_median_fn(w) for w in WINDOWS if w > 1]
+    for w in WINDOWS:
+        if w > 1:
+            parts += [_window_median_fn(w), _separable_median_fn(w),
+                      _quirk_select_fn(w)]
     parts.append(_temporal_median_fn())
     return "\n\n".join(parts) + "\n"
 

@@ -27,7 +27,10 @@ arguments in the same order and returns the same tuple.  A wrapper given
 CUDA tensors launches its kernel (or raises); given CPU tensors it runs the
 plain PyTorch twin (``*_plain``), which mirrors the Pallas body frame by
 frame, stream by stream.  Nothing falls back from the card to the plain
-version.  Each wrapper counts its own launches (``fn.launches``).
+version.  Each wrapper counts its own launches (``fn.launches``); the four
+median wrappers also count them per spatial filter mode
+(``fn.mode_launches``: the exact median, ``approx_median`` or
+``quirk_compat``, each a compile-time instance of the kernel).
 
 Carried state is updated in place: the kernels read it once, keep it in
 registers for the batch, and write it back into the same tensors, which the
@@ -440,10 +443,23 @@ def _check_median_props(name: str, props: DiPsProperties) -> None:
                          f"(absdiff_step_ring)")
 
 
-def _check_exact_median(name: str, props: DiPsProperties) -> None:
-    if props.approx_median or props.quirk_compat:
-        raise NotImplementedError(
-            f"{name}: approx_median and quirk_compat are not ported yet")
+#: spatial filter modes of the median kernels (``median_common.cuh``)
+SPATIAL_MODES = ("exact", "approx_median", "quirk_compat")
+
+
+def spatial_mode(props: DiPsProperties) -> str:
+    """The median kernels' spatial filter for ``props``: "exact",
+    "approx_median" or "quirk_compat" (the two flags exclude each other)."""
+    if props.quirk_compat:
+        return "quirk_compat"
+    return "approx_median" if props.approx_median else "exact"
+
+
+def _count_launch(fn, props: DiPsProperties) -> None:
+    """One launch of median wrapper ``fn``: its total and its spatial
+    mode's count."""
+    fn.launches += 1
+    fn.mode_launches[spatial_mode(props)] += 1
 
 
 def _median_frames(props: DiPsProperties, h: int, w: int,
@@ -521,13 +537,11 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
     slot (and prev, in PER_FRAME) with frame 0."""
     name = "batch_step_ring"
     _check_median_props(name, props)
-    _check_exact_median(name, props)
     t = props.temporal_size
     b = raw.shape[0]
     flags = _host_rows(snap_flags, (b,), name, "snap_flags")
     vals = _host_rows(valid, (b,), name, "valid")
-    phis = ref.spatial_median(ref.intensity_planar(raw, props.chroma),
-                              props.window_size)
+    phis = ref.filtered_planes(raw, props)
     slots = [ring[k].clone() for k in range(t)]
     pv = prev.clone()
     if int(seed):
@@ -584,7 +598,6 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
     or of ``csrc/median_tail.cu`` when ``ring`` is None (raw then starts
     with the T tail frames; there is no ring, prev, offset or seed)."""
     _check_median_props(name, props)
-    _check_exact_median(name, props)
     from . import _build
     tail = ring is None
     t = props.temporal_size
@@ -616,6 +629,7 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = props.roi_bounds(h, w)
     common = (s, b, hp, wp, t, props.window_size,
+              SPATIAL_MODES.index(spatial_mode(props)),
               int(props.method == DiPsMethod.OVERALL), mode,
               _CHROMA_CODE[props.chroma], _FILTER_CODE[props.filter],
               _f32(props.sigmoid_horizontal_scalar), _f32(props.sensitivity),
@@ -657,7 +671,7 @@ def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
                                              valid, offsets, seeds)
     res = _launch_median(name, props, h, w, s, raw, ring, prev, baseline,
                          snap_flags, heatmap, valid, offsets, seeds)
-    batch_step_ring_stacked.launches += 1
+    _count_launch(batch_step_ring_stacked, props)
     return res
 
 
@@ -683,7 +697,7 @@ def batch_step_ring(props: DiPsProperties, h: int, w: int,
         out, stats, *state = batch_step_ring_stacked_plain(*args)
     else:
         out, stats, *state = _launch_median(name, *args)
-        batch_step_ring.launches += 1
+        _count_launch(batch_step_ring, props)
     return (out, stats[0], *state)
 
 
@@ -799,13 +813,11 @@ def batch_step_plain(props: DiPsProperties, h: int, w: int,
     k); PER_FRAME's first reference is their median."""
     name = "batch_step"
     _check_median_props(name, props)
-    _check_exact_median(name, props)
     t = props.temporal_size
     b = _new_frames(name, props, raw)
     flags = _host_rows(snap_flags, (b,), name, "snap_flags")
     vals = _host_rows(valid, (b,), name, "valid")
-    phis = ref.spatial_median(ref.intensity_planar(raw, props.chroma),
-                              props.window_size)
+    phis = ref.filtered_planes(raw, props)
     slots = [phis[k] for k in range(t)]
     out, parts, _, base, heat = _median_frames(
         props, h, w, phis[t:], slots, 0, ref.temporal_median(slots),
@@ -854,7 +866,7 @@ def batch_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
                                         snap_flags, heatmap, valid)
     res = _launch_median(name, props, h, w, s, raw, None, None, baseline,
                          snap_flags, heatmap, valid, None, None)
-    batch_step_stacked.launches += 1
+    _count_launch(batch_step_stacked, props)
     return res
 
 
@@ -880,7 +892,7 @@ def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
         out, stats, *state = _launch_median(name, props, h, w, 1, raw, None,
                                             None, baseline, flags, heatmap,
                                             vals, None, None)
-        batch_step.launches += 1
+        _count_launch(batch_step, props)
     return (out, stats[0], *state)
 
 
@@ -889,13 +901,28 @@ batch_step.launches = 0
 _KERNELS = (absdiff_step_ring, batch_step_ring, absdiff_step_ring_stacked,
             batch_step_ring_stacked, absdiff_step, batch_step,
             absdiff_step_stacked, batch_step_stacked)
+_MEDIAN_KERNELS = (batch_step_ring, batch_step_ring_stacked, batch_step,
+                   batch_step_stacked)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, per spatial mode
+    too."""
     for fn in _KERNELS:
         fn.launches = 0
+    for fn in _MEDIAN_KERNELS:
+        fn.mode_launches = dict.fromkeys(SPATIAL_MODES, 0)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _KERNELS}
+    """Launches per wrapper (``name``: all its launches) and, for the
+    median wrappers, per non-exact spatial mode (``name:approx_median``,
+    ``name:quirk_compat``)."""
+    counts = {fn.__name__: fn.launches for fn in _KERNELS}
+    for fn in _MEDIAN_KERNELS:
+        for mode in SPATIAL_MODES[1:]:
+            counts[f"{fn.__name__}:{mode}"] = fn.mode_launches[mode]
+    return counts
+
+
+reset_launch_counts()

@@ -60,19 +60,66 @@ def planarize_host(frame: np.ndarray, hp: int, wp: int,
     return out
 
 
-def make_layout_prep(layout: str, height: int, width: int, hp: int, wp: int):
+def tail_frame_planar(frame: np.ndarray, hp: int, wp: int, downscale: int,
+                      swap_rb: bool) -> np.ndarray:
+    """A checkpoint-tail entry as a planar RGB (3, Hp, Wp) frame at the
+    analysis geometry: a planar frame as it is, an input-layout (H, W, 3)
+    frame pooled (``downscale`` > 1, bit-equal to the device prep) and
+    planarized on the host."""
+    if frame.shape == (3, hp, wp):
+        return frame
+    if downscale > 1:
+        frame = pool_frame_host(frame, downscale)
+    return planarize_host(frame, hp, wp, swap_rb=swap_rb)
+
+
+def pool_frame_host(frame_u8: np.ndarray, k: int) -> np.ndarray:
+    """Host twin of the device decimation in :func:`make_layout_prep`:
+    uint8 (H, W, C) -> (H//k, W//k, C) by k x k box mean, rounded
+    half-to-even.  Bit-identical to the device path (exact integer sums,
+    the same f32 ``* 1/k**2`` multiply, the same ``rint``) — the engines
+    use it only for the <= T checkpoint-tail frames per batch."""
+    h, w, c = frame_u8.shape
+    s = frame_u8.astype(np.int32).reshape(h // k, k, w // k, k, c)
+    s = s.sum(axis=(1, 3), dtype=np.int32)
+    v = np.rint(s.astype(np.float32) * np.float32(1.0 / (k * k)))
+    return v.astype(np.int32).astype(np.uint8)
+
+
+def make_layout_prep(layout: str, height: int, width: int, hp: int, wp: int,
+                     downscale: int = 1):
     """Input-layout contract: returns ``(swap_rb, prep)`` where ``prep``
     maps uint8 (..., H, W, 3) frames to padded planar (..., 3, Hp, Wp) on
     the frames' device (permute + optional BGR flip + zero pad).  Layouts:
-    "hwc" (RGB) and "hwc_bgr" (cv2's BGR order, swapped in the same copy).
-    """
-    if layout not in ("hwc", "hwc_bgr"):
-        raise NotImplementedError(
-            f"input_layout {layout!r}: the port takes 'hwc' or 'hwc_bgr'")
+    "hwc" (RGB), "hwc_bgr" (cv2's BGR order, swapped in the same copy) and
+    "planar" (frames arrive padded planar: no prep, ``prep`` is None).
+
+    ``downscale = k > 1`` (hwc layouts only): ``prep`` takes the full input
+    frames (..., height*k, width*k, 3) and first takes their k x k box mean
+    on the integer scale, times float32(1/k**2), rounded half to even
+    (:func:`pool_frame_host` is its bit-identical host twin).
+    ``height`` / ``width`` are the analysis dims."""
+    if layout not in ("planar", "hwc", "hwc_bgr"):
+        raise ValueError(f"unknown input_layout {layout!r}")
+    k = int(downscale)
+    if k < 1:
+        raise ValueError(f"downscale must be >= 1, got {downscale}")
     swap = layout == "hwc_bgr"
+    if layout == "planar":
+        if k > 1:
+            raise ValueError(
+                "downscale runs on the device and needs the hwc upload "
+                "path (input_layout='hwc'/'hwc_bgr')")
+        return swap, None
+    inv_k2 = _f32(1.0 / (k * k))
 
     def prep(x: torch.Tensor, out: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
+        if k > 1:
+            lead = x.shape[:-3]
+            s = x.reshape(lead + (height, k, width, k, 3)).sum(
+                dim=(-4, -2), dtype=torch.int32)
+            x = torch.round(s.to(torch.float32) * inv_k2).to(torch.uint8)
         planar = x.movedim(-1, -3)
         if swap:
             planar = planar.flip(-3)
@@ -103,9 +150,14 @@ def intensity_planar(rgb_u8: torch.Tensor, chroma: ChromaFilter
     return v.to(torch.float32)
 
 
-def spatial_median(planes: torch.Tensor, window: int) -> torch.Tensor:
-    """(..., H, W) exact centered window median with zero out-of-bounds
-    taps, through the column-factored plan of ``networks.window_median``."""
+def spatial_median(planes: torch.Tensor, window: int, approx: bool = False,
+                   quirk: bool = False) -> torch.Tensor:
+    """(..., H, W) centered window filter with zero out-of-bounds taps: the
+    exact median through the column-factored plan of
+    ``networks.window_median``; ``approx`` the separable approximation
+    (``networks.separable_median``, DiPsProperties.approx_median);
+    ``quirk`` the reference's off-center rank pick
+    (``networks.quirk_window_select``, DiPsProperties.quirk_compat)."""
     if window <= 1:
         return planes
     p = window // 2
@@ -115,8 +167,28 @@ def spatial_median(planes: torch.Tensor, window: int) -> torch.Tensor:
     def shift(x, dx):
         return x[..., p + dx:p + dx + w]
 
+    if quirk:
+        vtaps = [padded[..., dy:dy + h, :] for dy in range(window - 1)]
+        return networks.quirk_window_select(vtaps, shift, torch.minimum,
+                                            torch.maximum)
     vtaps = [padded[..., dy:dy + h, :] for dy in range(window)]
-    return networks.window_median(vtaps, shift, torch.minimum, torch.maximum)
+    fn = networks.separable_median if approx else networks.window_median
+    return fn(vtaps, shift, torch.minimum, torch.maximum)
+
+
+def filtered_planes(raw_u8: torch.Tensor, props: DiPsProperties
+                    ) -> torch.Tensor:
+    """uint8 planar (..., 3, H, W) -> the spatially filtered (..., H, W)
+    planes that enter the temporal ring: intensity, then the window filter
+    of ``props``; with ``quirk_compat`` rounded back to the u8 grid (even
+    integers on the [0, 510] scale, half to even), as the reference's
+    rgba8unorm store does before its temporal median."""
+    phi = spatial_median(intensity_planar(raw_u8, props.chroma),
+                         props.window_size, props.approx_median,
+                         props.quirk_compat)
+    if props.quirk_compat:
+        phi = 2.0 * torch.round(phi * 0.5)
+    return phi
 
 
 def temporal_median(slots) -> torch.Tensor:
@@ -231,17 +303,12 @@ def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
     raw u8 (T+B, 3, Hp, Wp), tail first; baseline / heatmap f32 (Hp, Wp);
     snap_flags / valid bool (B,) -> (out u8 (B, C, Hp, Wp), stats f32
     (B, 4), new baseline, new heatmap).  Padding frames (valid False) add
-    nothing to the heatmap.  ``approx_median`` and ``quirk_compat`` are not
-    ported yet and raise."""
-    if props.approx_median or props.quirk_compat:
-        raise NotImplementedError(
-            "batch_step: approx_median and quirk_compat are not ported yet")
+    nothing to the heatmap."""
     t = props.temporal_size
     hp, wp = raw.shape[-2], raw.shape[-1]
     dev = raw.device
     mask = valid_mask(hp, wp, h, w, device=dev)
-    filtered = spatial_median(intensity_planar(raw, props.chroma),
-                              props.window_size)
+    filtered = filtered_planes(raw, props)
     cur_all = temporal_median_windows(filtered, t)        # (B+1, Hp, Wp)
     prev, cur = cur_all[:-1], cur_all[1:]
     if props.method == DiPsMethod.OVERALL:

@@ -25,8 +25,13 @@ goes back up when it is staged again.
 
 Per batch: the frames go into one persistent (S, B, H, W, 3) host buffer
 (pinned on a card), up in one copy, through the layout prep on the device
-(permute, optional BGR flip, zero pad), one kernel launch, then crop and
-interleave on the device to (S, n, H, W, C) before one download.
+(optional k x k box mean, permute, optional BGR flip, zero pad), one kernel
+launch, then crop and interleave on the device to (S, n, H, W, C) before
+one download.  With ``input_layout="planar"`` the host planarizes each
+frame into a persistent (S, T_rows + B, 3, Hp, Wp) buffer, tail rows
+included (T_rows = T in the tail protocol, else 0), and the upload lands in
+the row-stacked input.  With ``packed_wire`` (THRESHOLD) the masks come
+down bit-packed and are unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's in both directions
 and in both protocols: the fleet's ``save`` / ``load`` and one slot's
@@ -35,9 +40,7 @@ to and from a single-stream engine of either package).  They hold raw
 planar u8 tails; after a load the ring engine rebuilds its ring from them
 with one stacked launch.
 
-Not in this slice: ``packed_wire``, ``downscale``, the planar upload
-layout, and meshes (the port runs on one device); each raises
-``NotImplementedError``.
+Not in this slice: meshes (the port runs on one device).
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ import numpy as np
 import torch
 
 from ..errors import StreamError
-from ..models.pipeline import resolve_device
-from ..ops import cuda_fused, reference
+from ..models.pipeline import (analysis_geometry, check_packed_wire,
+                               resolve_device)
+from ..ops import cuda_fused, reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
 
@@ -68,18 +72,23 @@ class MultiStreamEngine:
 
     Args:
       props: pipeline configuration, shared by every stream.
-      height, width: true frame geometry, shared by every stream.
+      height, width: true input frame geometry, shared by every stream
+        (``.in_height`` / ``.in_width``; ``.height`` / ``.width`` are the
+        analysis geometry, 1/k of it under ``downscale`` = k).
       n_streams: S.
       batch: frames per stream per launch (B).
       device: "cuda" (the default; None means the same), "cuda:N" or
         "cpu".  Without a card "cuda" raises :class:`DeviceError`; on the
         CPU the kernels' plain PyTorch twins run.
-      input_layout: "hwc" (RGB frames) or "hwc_bgr" (cv2's BGR order,
-        swapped on the device in the same copy).
+      input_layout: "hwc" (RGB frames), "hwc_bgr" (cv2's BGR order,
+        swapped on the device in the same copy) or "planar" (RGB frames
+        planarized on the host, the JAX engine's default).
       ring_carry: True for the ring-carry protocol, False for the tail
         protocol; both give the same outputs for every staged stream.
-      packed_wire, downscale: accepted for signature parity with the JAX
-        engine; only the defaults are ported.
+      packed_wire: THRESHOLD only: the masks are bit-packed on the device
+        before the download and unpacked on the host.
+      downscale: k >= 1, each stream's k x k box mean on the device (a hwc
+        layout; "planar" becomes "hwc").
       slab_impl: "bands" or "extended", validated for parity and ignored
         (it shapes 2-D meshes, which the port does not have).
     """
@@ -97,32 +106,35 @@ class MultiStreamEngine:
             raise ValueError("n_streams must be >= 1")
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        if packed_wire:
-            raise NotImplementedError("packed_wire is not ported yet")
-        if int(downscale) != 1:
-            raise NotImplementedError("downscale is not ported yet")
         self.props = props
-        self.height, self.width = int(height), int(width)
+        self.in_height, self.in_width = int(height), int(width)
+        self.height, self.width, self.downscale, input_layout = \
+            analysis_geometry(height, width, downscale, input_layout)
         props.roi_bounds(self.height, self.width)  # fail early on a bad roi
         self.hp, self.wp = pad_geometry(self.height, self.width)
         self.n_streams, self.batch = int(n_streams), int(batch)
+        self.packed_wire = check_packed_wire(props, packed_wire)
         self.device = resolve_device(device)
         self.input_layout = input_layout
         self._swap_rb, self._prep = reference.make_layout_prep(
-            input_layout, self.height, self.width, self.hp, self.wp)
+            input_layout, self.height, self.width, self.hp, self.wp,
+            downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
         self.ring_carry = bool(ring_carry)
         s, b = self.n_streams, self.batch
-        frames = (s, b, self.height, self.width, 3)
+        if self._prep is None:  # planar: tail rows staged on the host too
+            frames = (s, self._tail_len + b, 3, self.hp, self.wp)
+        else:
+            frames = (s, b, self.in_height, self.in_width, 3)
         # persistent staging: host rows a batch does not write are re-zeroed
         # (``_stage_written``), so the staged bytes equal fresh zeros
         on_card = self.device.type == "cuda"
         self._host = torch.zeros(frames, dtype=torch.uint8,
                                  pin_memory=on_card)
         self._host_np = self._host.numpy()
-        self._hwc = (torch.empty(frames, dtype=torch.uint8,
-                                 device=self.device) if on_card
-                     else self._host)
+        self._dev_stage = (torch.empty(frames, dtype=torch.uint8,
+                                       device=self.device) if on_card
+                           else self._host)
         self._stage_written: set = set()
         # row-stacked planar input, the tail rows first in the tail
         # protocol: the padding stays zero, only the true region of each
@@ -229,15 +241,14 @@ class MultiStreamEngine:
         return _to_host(hm[:, :self.height, :self.width])
 
     def _planar_tail(self, stream: int) -> Optional[np.ndarray]:
-        """Stream ``stream``'s tail as planar RGB (T, 3, Hp, Wp) u8."""
+        """Stream ``stream``'s tail as planar RGB (T, 3, Hp, Wp) u8 at the
+        analysis geometry (input frames pooled on the host under
+        ``downscale``, bit-equal to the device prep)."""
         tl = self._tails[stream]
         if tl is None:
             return None
-        return np.stack([
-            f if f.shape == (3, self.hp, self.wp)
-            else reference.planarize_host(f, self.hp, self.wp,
-                                          swap_rb=self._swap_rb)
-            for f in tl])
+        return np.stack([reference.tail_frame_planar(
+            f, self.hp, self.wp, self.downscale, self._swap_rb) for f in tl])
 
     def _tail_from_checkpoint(self, tail) -> list:
         """Checkpoint tail frames -> the last T planar frames; a short tail
@@ -454,6 +465,9 @@ class MultiStreamEngine:
         if n > b:
             raise ValueError(f"{n} frames > batch {b}")
         buf = self._host_np
+        planar = self._prep is None
+        tr = self._tail_len
+        shape = (self.in_height, self.in_width, 3)
         flags = np.zeros((s, b), np.bool_)
         valid = np.zeros((s, b), np.bool_)
         seeds = np.zeros((s,), np.int32)
@@ -465,27 +479,36 @@ class MultiStreamEngine:
         for si, frames in enumerate(frames_per_stream):
             if si in self.failed:
                 continue  # dead stream: nothing to stage
-            bad = [np.shape(f) for f in frames if np.shape(f) != (h, w, 3)]
+            bad = [np.shape(f) for f in frames if np.shape(f) != shape]
             if bad:  # isolate the stream; its siblings run on
                 self.failed[si] = StreamError(si, ValueError(
-                    f"frame shape {bad[0]} != {(h, w, 3)}"))
+                    f"frame shape {bad[0]} != {shape}"))
                 continue
             n_si = len(frames)
             if not n_si:
                 continue
-            for i, f in enumerate(frames):
-                buf[si, i] = f
+            if planar:  # the host lays out each frame, RGB planes
+                new = buf[si, tr:]
+                for i, f in enumerate(frames):
+                    new[i] = reference.planarize_host(f, self.hp, self.wp)
+            else:
+                new = buf[si]
+                for i, f in enumerate(frames):
+                    new[i] = f
             # slots past n_si hold replicas of the last frame; the kernel
             # reads them as invalid and leaves the carried state alone
-            buf[si, n_si:] = buf[si, n_si - 1]
+            new[n_si:] = new[n_si - 1]
             if self._tails[si] is None:
                 fresh.append(si)
-                self._tails[si] = [buf[si, 0].copy()] * t
+                self._tails[si] = [new[0].copy()] * t
                 seeds[si] = 1
-            elif not self.ring_carry and si not in self._tail_live:
+            elif not (self.ring_carry or planar
+                      or si in self._tail_live):
                 resumed[si] = self._planar_tail(si)
+            if planar and tr:  # the tail rows go up with the frames
+                buf[si, :t] = self._planar_tail(si)
             self._tails[si] = (self._tails[si] + [
-                buf[si, i].copy() for i in range(max(0, n_si - t), n_si)
+                new[i].copy() for i in range(max(0, n_si - t), n_si)
             ])[-t:]
             valid[si, :n_si] = True
             # markers fire on each stream's own cursor
@@ -503,21 +526,30 @@ class MultiStreamEngine:
             buf[si] = 0  # stale frames of a stream that went quiet or died
         self._stage_written = set(written)
 
-        if self._hwc is not self._host:
-            self._hwc.copy_(self._host, non_blocking=True)
+        if self._dev_stage is not self._host:
+            self._dev_stage.copy_(self._host, non_blocking=True)
         raw = self._planar
-        tr = self._tail_len
-        # (B, 3, S*Hp, Wp) seen as (S, B, 3, Hp, Wp): the prep writes each
-        # stream's true region in place
-        self._prep(self._hwc, out=raw[tr:].view(b, 3, s, self.hp, self.wp)
-                   .permute(2, 0, 1, 3, 4))
+        # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
+        # stream's rows are written in place, no transpose per batch
+        if planar:
+            raw.view(tr + b, 3, s, self.hp, self.wp).permute(
+                2, 0, 1, 3, 4).copy_(self._dev_stage)
+            fresh = []  # their tail rows came up from the host
+        else:
+            self._prep(self._dev_stage, out=raw[tr:].view(
+                b, 3, s, self.hp, self.wp).permute(2, 0, 1, 3, 4))
         if self.ring_carry:
             out, stats = self._launch_ring(raw, flags, valid, offsets, seeds)
         else:
             out, stats = self._launch_tail(raw, flags, valid, written,
                                            fresh, resumed)
-        # crop + interleave on the device: one download of the maps
-        if c:
+        if self.packed_wire:
+            # bit-pack on the device, unpack and crop on the host
+            packed = wire.pack_mask(out[:n]).cpu().numpy()
+            maps = wire.unpack_mask(packed).reshape(
+                n, 1, s, self.hp, self.wp)[..., :h, :w]
+            maps = np.ascontiguousarray(maps.transpose(2, 0, 3, 4, 1))
+        elif c:  # crop + interleave on the device: one download of the maps
             maps = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
             maps = maps.permute(2, 0, 3, 4, 1).contiguous().cpu().numpy()
         else:

@@ -19,6 +19,12 @@ Prints one JSON line per run, and writes them all to ``--out``:
 Each run also prints the card's name and power limit.  Without a card it
 exits non-zero.
 
+``--threshold`` instead profiles the THRESHOLD pipeline, ring-carry, with
+and without ``packed_wire`` (the masks bit-packed on the card before the
+download), single stream and fleet, in turns (unpacked, packed, packed,
+unpacked); each row also gives ``d2h_mb``, the map bytes downloaded per
+batch.
+
 ``--ring-paths`` instead times what every version of the package has:
 the single-stream ring wrappers (``absdiff_step_ring`` with device flags
 and a host seed, then with host flags; ``batch_step_ring``) at 1080p,
@@ -158,11 +164,45 @@ def time_ring_paths(card: str) -> dict:
     return res | {"card": card}
 
 
+def profile_threshold(card, one, fleet_feeds, n_batches) -> list:
+    """THRESHOLD rows, ring-carry, unpacked and packed_wire in turns."""
+    from dips_tpu_torch import (DiPsEngine, DiPsProperties,
+                                MultiStreamEngine, OutputMode)
+    from dips_tpu_torch.ops.reference import pad_geometry
+    props = DiPsProperties(output=OutputMode.THRESHOLD)
+    hp, wp = pad_geometry(H, W)
+    rows = []
+    for packed in (False, True, True, False):
+        for fleet in (False, True):
+            s = S if fleet else 1
+            if fleet:
+                eng = MultiStreamEngine(props, H, W, S, batch=B,
+                                        device="cuda", packed_wire=packed)
+                row = profile(lambda i: eng.process_batch(
+                    fleet_feeds[i % 2]), n_batches)
+            else:
+                eng = DiPsEngine(props, H, W, batch=B, device="cuda",
+                                 packed_wire=packed)
+                row = profile(lambda i: eng.process_batch(one[i % 2]),
+                              n_batches)
+            row.update(
+                engine=(f"MultiStreamEngine 1080p x {S} B=16" if fleet
+                        else "DiPsEngine 1080p B=16"),
+                pipeline="THRESHOLD" + (" packed_wire" if packed else ""),
+                protocol="ring", card=card,
+                d2h_mb=s * B * (hp // 8 * wp if packed else H * W) / 1e6)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del eng
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--ring-paths", action="store_true")
+    ap.add_argument("--threshold", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -180,9 +220,12 @@ def main():
     fleet_feeds = [[list(frames_of(10 * j + si, B)) for si in range(S)]
                    for j in range(2)]
     rows = []
-    for label, props in (("COLORIZE w3/T4", DiPsProperties()),
-                         ("ABSDIFF", DiPsProperties(
-                             output=OutputMode.ABSDIFF))):
+    if args.threshold:
+        rows = profile_threshold(card, one, fleet_feeds, args.batches)
+    pipelines = [] if args.threshold else [
+        ("COLORIZE w3/T4", DiPsProperties()),
+        ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF))]
+    for label, props in pipelines:
         for ring in (True, False):
             eng = DiPsEngine(props, H, W, batch=B, device="cuda",
                              ring_carry=ring)

@@ -172,14 +172,18 @@ def test_engine_cuda_matches_cpu(cuda):
 
 
 def test_unsupported_modes_raise_on_cuda(cuda):
+    """The spatial modes launch their kernel instance on the card (no
+    plain fallback); a float frame still raises."""
     hp, wp = pad_geometry(H, W)
     raw = torch.zeros((2, 3, hp, wp), dtype=torch.uint8, device=cuda)
     props = DiPsProperties(approx_median=True)
     ring, prev, base, heat = _state(props, hp, wp, False, cuda)
     flags = torch.zeros(2, dtype=torch.bool, device=cuda)
-    with pytest.raises(NotImplementedError):
-        cuda_fused.batch_step_ring(props, H, W, raw, ring, prev, base, flags,
-                                   heat, flags, 0, 1)
+    cuda_fused.reset_launch_counts()
+    cuda_fused.batch_step_ring(props, H, W, raw, ring, prev, base, flags,
+                               heat, flags, 0, 1)
+    torch.cuda.synchronize()
+    assert cuda_fused.launch_counts()["batch_step_ring:approx_median"] == 1
     with pytest.raises(TypeError):  # a float frame is not a u8 frame
         cuda_fused.batch_step_ring(DiPsProperties(), H, W, raw.float(), ring,
                                    prev, base, flags, heat, flags, 0, 1)
@@ -449,3 +453,38 @@ def test_tail_engines_equal_ring_engines_on_the_card(cuda):
                 np.testing.assert_array_equal(a, b)
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the spatial-filter variants of both median kernels
+# ---------------------------------------------------------------------------
+
+VARIANT_CASES = [
+    DiPsProperties(approx_median=True, window_size=3),
+    DiPsProperties(approx_median=True, window_size=7, temporal_size=3,
+                   method=DiPsMethod.PER_FRAME, output=OutputMode.GRAYSCALE),
+    DiPsProperties(quirk_compat=True, window_size=1),
+    DiPsProperties(quirk_compat=True, window_size=3,
+                   filter=DiPsFilter.INVERSE_SIGMOID),
+    DiPsProperties(quirk_compat=True, window_size=5, refresh_markers=(4,)),
+    DiPsProperties(quirk_compat=True, window_size=7, temporal_size=5,
+                   method=DiPsMethod.PER_FRAME, roi=(2, 5, 60, 190)),
+]
+
+
+@pytest.mark.parametrize("props", VARIANT_CASES)
+def test_variant_kernels_match_plain(cuda, props):
+    """Each variant through the four median wrappers (ring and tail, one
+    stream and stacked) against the plain twins, with the checks and
+    tolerances of the exact-median tests above; every launch counts under
+    its spatial mode."""
+    mode = cuda_fused.spatial_mode(props)
+    cuda_fused.reset_launch_counts()
+    test_median_kernel_matches_plain(cuda, props)
+    test_stacked_kernels_match_plain(cuda, props)
+    test_tail_kernel_matches_plain(cuda, props)
+    test_stacked_tail_kernels_match_plain(cuda, props)
+    counts = cuda_fused.launch_counts()
+    for name in ("batch_step_ring", "batch_step_ring_stacked", "batch_step",
+                 "batch_step_stacked"):
+        assert counts[f"{name}:{mode}"] == counts[name] >= 2, name

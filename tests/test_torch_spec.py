@@ -191,43 +191,148 @@ def test_cli_without_a_card_fails(tmp_path, capsys):
         assert "no CUDA device" in capsys.readouterr().err
 
 
+#: the engine options ported in the options slice, each with a use the
+#: JAX engines refuse (ValueError in both packages)
+OPTION_MISUSE = {"packed_wire": dict(packed_wire=True),
+                 "downscale": dict(downscale=3),
+                 "input_layout": dict(input_layout="bogus")}
+
+
 @pytest.mark.parametrize("kwargs", [dict(packed_wire=True),
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_engine_options_raise(kwargs):
-    from dips_tpu_torch import DiPsEngine, DiPsProperties
-    with pytest.raises(NotImplementedError):
-        DiPsEngine(DiPsProperties(), 12, 140, device="cpu", **kwargs)
+    """Once unported (NotImplementedError), these options now build an
+    engine and raise only where the JAX engine raises: packed_wire off
+    THRESHOLD, a downscale that does not divide the geometry, an unknown
+    layout."""
+    from dips_tpu.models import DiPsEngine as JaxEngine
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, OutputMode
+    props = DiPsProperties(output=OutputMode.THRESHOLD)
+    eng = DiPsEngine(props, 12, 140, device="cpu", **kwargs)
+    assert (eng.in_height, eng.in_width) == (12, 140)
+    assert (eng.height, eng.width) == (
+        (6, 70) if kwargs.get("downscale") else (12, 140))
+    bad = OPTION_MISUSE[next(iter(kwargs))]
+    with pytest.raises(ValueError):
+        JaxEngine(jax_props.DiPsProperties(), 12, 140, backend="xla", **bad)
+    with pytest.raises(ValueError):
+        DiPsEngine(DiPsProperties(), 12, 140, device="cpu", **bad)
 
 
 @pytest.mark.parametrize("kwargs", [dict(packed_wire=True),
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_fleet_options_raise(kwargs):
-    from dips_tpu_torch import DiPsProperties, MultiStreamEngine
-    with pytest.raises(NotImplementedError):
+    """As the engine's: the fleet takes the options and refuses their
+    misuse with ValueError, as the JAX fleet does."""
+    from dips_tpu_torch import DiPsProperties, MultiStreamEngine, OutputMode
+    props = DiPsProperties(output=OutputMode.THRESHOLD)
+    fleet = MultiStreamEngine(props, 12, 140, 3, device="cpu", **kwargs)
+    assert fleet.height == (6 if kwargs.get("downscale") else 12)
+    with pytest.raises(ValueError):
         MultiStreamEngine(DiPsProperties(), 12, 140, 3, device="cpu",
-                          **kwargs)
+                          **OPTION_MISUSE[next(iter(kwargs))])
 
 
 @pytest.mark.parametrize("kwargs", [dict(flicker=dict(freq_hz=5.0)),
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_fleet_run_options_raise(kwargs):
-    from dips_tpu_torch import run_dips_on_files
-    with pytest.raises(NotImplementedError):
+    """Fleet flicker is still unported and raises NotImplementedError
+    before any file is opened; ``downscale`` and the planar layout are
+    ported, so the run gets as far as opening the (missing) input."""
+    from dips_tpu_torch import VideoPathError, run_dips_on_files
+    exc = NotImplementedError if "flicker" in kwargs else VideoPathError
+    with pytest.raises(exc):
         run_dips_on_files(["a.avi"], "out", device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("name", ["approx_median", "quirk_compat"])
 def test_unported_median_modes_raise(name):
+    """Both spatial modes are ported: the step runs (the plain twin on the
+    CPU) and counts nothing, and the two modes together raise, as the
+    properties do in both packages."""
     from dips_tpu_torch.ops import cuda_fused
     props = port_props.DiPsProperties(**{name: True})
     raw = torch.zeros((2, 3, 16, 256), dtype=torch.uint8)
     plane = torch.zeros((16, 256))
-    with pytest.raises(NotImplementedError):
-        cuda_fused.batch_step_ring(props, 12, 140, raw,
-                                   torch.zeros((4, 16, 256)), plane.clone(),
-                                   plane.clone(), torch.zeros(2, dtype=bool),
-                                   plane.clone(), torch.ones(2, dtype=bool),
-                                   0, 1)
+    before = cuda_fused.launch_counts()
+    out = cuda_fused.batch_step_ring(props, 12, 140, raw,
+                                     torch.zeros((4, 16, 256)), plane.clone(),
+                                     plane.clone(), torch.zeros(2, dtype=bool),
+                                     plane.clone(), torch.ones(2, dtype=bool),
+                                     0, 1)
+    assert out[0].shape == (2, 3, 16, 256)
+    assert cuda_fused.launch_counts() == before
+    assert cuda_fused.spatial_mode(props) == name
+    with pytest.raises(ValueError):
+        port_props.DiPsProperties(approx_median=True, quirk_compat=True)
+    with pytest.raises(ValueError):
+        jax_props.DiPsProperties(approx_median=True, quirk_compat=True)
+
+
+@pytest.mark.parametrize("name", ["unpack_mask", "pack_mask_host",
+                                  "unpack_mask_host"])
+def test_wire_host_twins_are_verbatim(name):
+    """The port's numpy twins of ``ops/wire.py`` behave as the originals:
+    ``pack_mask_host`` and ``unpack_mask_host`` are their source, line for
+    line; ``unpack_mask`` (a faster broadcast) gives the same bytes."""
+    import inspect
+
+    import numpy as np
+
+    import dips_tpu.ops.wire as jax_wire
+    import dips_tpu_torch.ops.wire as port_wire
+    if name == "unpack_mask":
+        p = np.random.default_rng(1).integers(0, 256, (3, 1, 5, 40),
+                                              np.uint8)
+        np.testing.assert_array_equal(port_wire.unpack_mask(p),
+                                      jax_wire.unpack_mask(p))
+    else:
+        assert inspect.getsource(getattr(port_wire, name)) == \
+            inspect.getsource(getattr(jax_wire, name))
+    m = np.random.default_rng(0).integers(0, 3, (2, 13, 40)).astype(np.uint8)
+    packed = port_wire.pack_mask_host(m)
+    np.testing.assert_array_equal(packed, jax_wire.pack_mask_host(m))
+    np.testing.assert_array_equal(port_wire.unpack_mask_host(packed, 13),
+                                  jax_wire.unpack_mask_host(packed, 13))
+
+
+def test_stage_timers_copy_is_verbatim():
+    """``utils/profiling.StageTimers`` is the original class's source, and
+    it reports the same stages."""
+    import inspect
+
+    import dips_tpu.utils.profiling as jax_prof
+    import dips_tpu_torch.utils.profiling as port_prof
+    assert inspect.getsource(port_prof.StageTimers) == \
+        inspect.getsource(jax_prof.StageTimers)
+    timers = port_prof.StageTimers()
+    with timers.stage("d2h"):
+        pass
+    timers.add_frames(3)
+    summary = timers.summary()
+    assert summary["d2h"]["calls"] == 1
+    assert summary["_overall"]["frames"] == 3
+    assert str(timers).startswith("StageTimers:")
+
+
+def test_pool_frame_host_matches_original():
+    """``reference.pool_frame_host`` against the JAX package's, on random
+    frames for k = 1..4 and on a hand-computed case (round half to
+    even)."""
+    import numpy as np
+
+    from dips_tpu.ops import reference as jref
+    from dips_tpu_torch.ops import reference as tref
+    rng = np.random.default_rng(1)
+    for k in (1, 2, 3, 4):
+        f = rng.integers(0, 256, (6 * k, 10 * k, 3), np.uint8)
+        np.testing.assert_array_equal(tref.pool_frame_host(f, k),
+                                      jref.pool_frame_host(f, k))
+    f = np.zeros((2, 2, 3), np.uint8)
+    f[..., 0] = [[10, 20], [30, 40]]          # mean 25
+    f[..., 1] = [[1, 0], [0, 0]]              # mean 0.25 -> 0
+    f[..., 2] = [[1, 1], [0, 0]]              # mean 0.5 -> 0 (half to even)
+    assert list(tref.pool_frame_host(f, 2)[0, 0]) == [25, 0, 0]

@@ -210,12 +210,16 @@ def test_tail_step_checks_its_arguments():
     raw = torch.zeros((4 + B, 3, hp, wp), dtype=torch.uint8)
     with pytest.raises(ValueError):  # flags of the wrong length
         cuda_fused.batch_step(pp, H, W, raw, base, ok[:3], heat, ok)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # a raw mode is not a median step
         cuda_fused.batch_step(props_from_jax(DiPsProperties(
-            approx_median=True)), H, W, raw, base, ok, heat, ok)
-    with pytest.raises(NotImplementedError):
-        tref.batch_step(props_from_jax(DiPsProperties(quirk_compat=True)),
-                        H, W, raw, base, ok, heat, ok)
+            output=OutputMode.ABSDIFF)), H, W, raw, base, ok, heat, ok)
+    # the spatial modes run (held against Pallas in
+    # tests/test_torch_filters.py)
+    for props in (DiPsProperties(approx_median=True),
+                  DiPsProperties(quirk_compat=True)):
+        out = tref.batch_step(props_from_jax(props), H, W, raw, base, ok,
+                              heat, ok)
+        assert out[0].shape == (B, 3, hp, wp)
 
 
 # ---------------------------------------------------------------------------
