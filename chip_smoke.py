@@ -19,7 +19,9 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   (refresh marker, per-stream snapshot, a stream isolated by a wrong-shape
   frame and revived, checkpoint resume) held stream by stream against
   single-stream engines (``[fleet]``), and ``run_dips_on_files`` on three
-  1080p clips when cv2 is present (``[fleet-file]``);
+  1080p clips when cv2 is present, then the same clips over a (3, 3) grid
+  of cells on the card, through ``mesh=`` and through the CLI's ``--mesh
+  3x3`` (``[fleet-file]``);
 * the tail protocol (``ring_carry=False``): each of the four tail kernels
   against its plain twin at 1080p s = 1, 1080p x 8 and 480p x 3, with a
   flagged invalid slot (``[kernels-tail]``); the tail ``DiPsEngine`` at
@@ -39,10 +41,25 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   ``packed_wire``, and 1080p x 8 fleets with ``downscale=2`` in both
   variants, against single-stream engines;
 
+* the row-slab path (``parallel/grid2d.py``, ``rowsharded.py``): the
+  ``dyn_rows`` / ``slab_bands`` forms of the three kernels against their
+  plain twins at 1080p in 3 row slabs -- at s = 1 and 2, at the 4 x 360
+  rows a cell of the (2, 3) grid launches (bands, the extended
+  construction's 376-row sections, raw with an roi) and on the slabs of
+  the 8K stream -- and slab compositions against the
+  full-height kernels bit for bit -- an 8K stream (4320 x 7680) in 4 slabs
+  over two carried ring batches, w5 / w7 / approx w7 / quirk w5, the tail
+  protocol, the extended construction, raw ABSDIFF with an roi that one
+  slab misses, two streams stacked per cell (``[kernels-slabs]``); then
+  ``MultiStreamEngine(mesh=grid_mesh(2, 3, devices=["cuda:0"] * 6))`` at
+  1080p x 8 streams held against the fleet without a mesh (maps and
+  carried state bit for bit), with exact launch counts per cell, in both
+  protocols and both slab constructions (``[grid]``);
+
 then times kernels (wrapper, and alone for the variants), plain twins and
-every engine with CUDA events (``[time]``), the variants and the options
-included.  Each path's launch counts are set to 0 just before it runs and
-read just after.
+every engine with CUDA events (``[time]``), the variants, the slab forms
+and the options included.  Each path's launch counts are set to 0 just
+before it runs and read just after.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
@@ -474,22 +491,24 @@ def stacked_frames(n, h, w, s, seed, dev):
     return raw
 
 
-def _stacked_batches(s, t):
-    """Per-stream arguments of two consecutive batches: captures on
-    different frames per stream, mixed seeds and ring offsets, the last
-    stream all-invalid in the first batch, a partial second batch."""
-    f1, f2 = np.zeros((s, B), bool), np.zeros((s, B), bool)
-    v1, v2 = np.ones((s, B), bool), np.zeros((s, B), bool)
+def _stacked_batches(s, t, b=None):
+    """Per-stream arguments of two consecutive batches of ``b`` (default B)
+    frames: captures on different frames per stream, mixed seeds and ring
+    offsets, the last stream all-invalid in the first batch, a partial
+    second batch."""
+    b = B if b is None else b
+    f1, f2 = np.zeros((s, b), bool), np.zeros((s, b), bool)
+    v1, v2 = np.ones((s, b), bool), np.zeros((s, b), bool)
     for si in range(s):
-        f1[si, (3 * si) % B] = True
-        f2[si, (si + 5) % B] = True
+        f1[si, (3 * si) % b] = True
+        f2[si, (si + 5) % b] = True
     v1[s - 1] = False
-    v2[:, :11] = True
+    v2[:, :11 * b // 16] = True
     v2[0] = True
     seeds1 = [0 if si % 3 == 2 else 1 for si in range(s)]
     seeds2 = [1 if si == s - 1 else 0 for si in range(s)]
     return [(f1, v1, [si % t for si in range(s)], seeds1),
-            (f2, v2, [(si + B) % t for si in range(s)], seeds2)]
+            (f2, v2, [(si + b) % t for si in range(s)], seeds2)]
 
 
 def check_stacked(props, h, w, s, seed):
@@ -821,12 +840,12 @@ def phase_fleet_tail(card):
                                        refresh_markers=(24,)))):
         name = ("absdiff_step_stacked" if props.output == OutputMode.ABSDIFF
                 else "batch_step_stacked")
-        # the checkpoint resume runs once, in the COLORIZE tail fleet: the
-        # ring fleet's is held in [fleet]
-        colorize = props.output != OutputMode.ABSDIFF
+        # no checkpoint here (a fleet save compresses 0.35 GB): the fleet's
+        # resume is held in [fleet] and, on a grid, in [grid]; a tail
+        # engine's, across the protocols, in [tail]
         cuda_fused.reset_launch_counts()
         tail = run_fleet(props, frame, work, ring_carry=False, idle=idle,
-                         checkpoint=colorize)
+                         checkpoint=False)
         torch.cuda.synchronize()
         counts = cuda_fused.launch_counts()
         if counts[name] <= 0:
@@ -849,9 +868,7 @@ def phase_fleet_tail(card):
             f"batches: the tail fleet equals the ring fleet stream by stream "
             f"({n_px} map bytes equal, stats within 1e-5), through the "
             f"lagging stream 7, idle stream {idle}, the snapshot of stream "
-            f"3, stream 5 isolated and revived"
-            + (", and the tail fleet's checkpoint resume" if colorize
-               else ""))
+            f"3, stream 5 isolated and revived")
         del tail, ring
     return launches
 
@@ -880,17 +897,23 @@ class FleetFrames:
 
 
 def run_fleet(props, frame, work, ring_carry=True, idle=None,
-              checkpoint=True):
+              checkpoint=True, mesh=None, slab_impl="bands", keep=None):
     """Three batches of the 8-stream fleet: stream 7 lags by 6 frames,
     stream 3 takes a snapshot before batch 1, stream 5 sends a wrong-shape
     frame in batch 1 (isolated), the fleet is saved after batch 1 and
     resumed in a fresh engine (unless ``checkpoint`` is False: the save
-    compresses 0.35 GB) and stream 5 revived; stream ``idle``, when given,
-    sends nothing in batch 1.  Returns, per batch, each stream's frame
-    indices (None where rejected or idle) and the outputs."""
+    compresses 0.35 GB; "load": the fresh engine resumes from the file an
+    earlier run of the same props and frames saved) and stream 5 revived;
+    stream ``idle``, when given, sends nothing in batch 1.  ``mesh`` /
+    ``slab_impl`` split the fleet over a mesh's cells.  Returns, per batch,
+    each stream's frame indices (None where rejected or idle) and the
+    outputs; ``keep``, a dict, receives the final fleet's carried
+    "baseline" and "heatmaps"."""
     from dips_tpu_torch import MultiStreamEngine
-    fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
-                              device="cuda", ring_carry=ring_carry)
+    mk = lambda: MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                                   device="cuda", ring_carry=ring_carry,
+                                   mesh=mesh, slab_impl=slab_impl)
+    fleet = mk()
     nxt = [0] * FLEET
     batches = []
     for bi in range(3):
@@ -899,10 +922,9 @@ def run_fleet(props, frame, work, ring_carry=True, idle=None,
         if bi == 2:
             if checkpoint:
                 ck = os.path.join(work, "fleet.npz")
-                fleet.save(ck)
-                fleet = MultiStreamEngine(props, H1080, W1080, FLEET,
-                                          batch=B, device="cuda",
-                                          ring_carry=ring_carry)
+                if checkpoint != "load":
+                    fleet.save(ck)
+                fleet = mk()
                 fleet.load(ck)
                 if set(fleet.failed) != {5}:
                     raise AssertionError(f"restored failures "
@@ -939,7 +961,14 @@ def run_fleet(props, frame, work, ring_carry=True, idle=None,
         cursors[idle] -= B
     if fleet.frame_cursors != cursors:
         raise AssertionError(f"cursors {fleet.frame_cursors}")
+    if keep is not None:
+        keep.update(baseline=fleet.state_dict()["baseline"],
+                    heatmaps=fleet.heatmaps())
     return batches
+
+
+#: the COLORIZE ring fleet's run without a mesh, kept for [grid]
+FLEET_REF = {}
 
 
 def phase_fleet(card):
@@ -956,7 +985,11 @@ def phase_fleet(card):
                                        refresh_markers=(24,)))):
         exact = props.output == OutputMode.ABSDIFF
         cuda_fused.reset_launch_counts()
-        batches = run_fleet(props, frame, work)
+        # the ring fleet's checkpoint resume runs once, in the COLORIZE
+        # fleet (the save compresses 0.35 GB); [grid] holds its own
+        state = {}
+        batches = run_fleet(props, frame, work, checkpoint=not exact,
+                            keep=state)
         torch.cuda.synchronize()
         counts = cuda_fused.launch_counts()
         name = ("absdiff_step_ring_stacked" if exact
@@ -999,7 +1032,11 @@ def phase_fleet(card):
             f"every stream equals a single-stream DiPsEngine on its frames "
             f"(max diff {worst}, {flips} of {n_px} pixels differ), "
             f"including the snapshot of stream 3, stream 5 isolated by a "
-            f"wrong-shape frame and revived, and the checkpoint resume")
+            f"wrong-shape frame and revived"
+            + ("" if exact else ", and the checkpoint resume"))
+        if not exact:  # [grid] holds the grid fleet against this run
+            FLEET_REF.update(props=props, frame=frame, batches=batches,
+                             state=state)
         del batches, out, stats
     return launches
 
@@ -1060,6 +1097,48 @@ def phase_fleet_file(card):
     log(f"[fleet-file] run_dips_on_files on 3 1080p MJPG clips "
         f"({sum(lens)} frames) in {dt:.2f} s (decode + HFYU encode "
         f"included; {card}); each diff video equals run_dips_on_file's")
+
+    # the same files through a (3, 3) grid of cells on this card: the
+    # library entry point with bands, the CLI with --slab-impl extended
+    from dips_tpu_torch import cli
+    from dips_tpu_torch.ops import cuda_fused
+    name = "batch_step_ring_stacked"
+    before = cuda_fused.launch_counts()
+    gcounts, gstats = run_dips_on_files(
+        paths, os.path.join(work, "grid"), encoding="HFYU", properties=props,
+        batch=B, device="cuda", collect_stats=True, mesh=one_card_mesh(3, 3))
+    mid = cuda_fused.launch_counts()
+    rc = cli.main(["--inputs", *paths, "--output-dir",
+                   os.path.join(work, "cli"), "--encoding", "HFYU",
+                   "--batch", str(B), "--mesh", "3x3", "--device", "cuda:0",
+                   "--slab-impl", "extended", "12"])
+    after = cuda_fused.launch_counts()
+    if rc != 0 or list(gcounts) != list(lens):
+        raise AssertionError(f"[fleet-file] grid: counts {list(gcounts)}, "
+                             f"--mesh 3x3 exit code {rc}")
+    n_b = -(-max(lens) // B) * 9  # one launch per cell and batch
+    n_bands = mid[f"{name}:slab_bands"] - before[f"{name}:slab_bands"]
+    n_ext = after[f"{name}:dyn_rows"] - mid[f"{name}:dyn_rows"]
+    if n_bands < n_b or n_ext < n_b \
+            or after[name] - before[name] != n_bands + n_ext:
+        raise AssertionError(f"[fleet-file] grid: {n_bands} band and "
+                             f"{n_ext} extended launches of "
+                             f"{after[name] - before[name]}, expected at "
+                             f"least {n_b} each and no other")
+    for si in range(len(paths)):
+        a = read(os.path.join(work, "out", f"cam{si}.dips.avi"))
+        for run in ("grid", "cli"):
+            g = read(os.path.join(work, run, f"cam{si}.dips.avi"))
+            if g.shape != a.shape or not np.array_equal(g, a):
+                raise AssertionError(f"[fleet-file] cam{si}: the {run} run's "
+                                     f"video differs from the run without "
+                                     f"a mesh")
+        _check_stats(f"[fleet-file] grid cam{si}", gstats[si], stats[si],
+                     1e-5)
+    log(f"[fleet-file] run_dips_on_files(mesh=(3, 3) cells on this card) "
+        f"and the CLI's --mesh 3x3 --device cuda:0 --slab-impl extended: "
+        f"{n_bands} and {n_ext} slab launches, the videos equal the run's "
+        f"without a mesh byte for byte, stats within 1e-5")
 
 
 # ---------------------------------------------------------------------------
@@ -1393,6 +1472,426 @@ def phase_options(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the row-slab forms of the kernels
+# ---------------------------------------------------------------------------
+
+H8K, W8K = 4320, 7680
+#: the row-slab forms in the kernels' record
+SLAB_NAMES = ("absdiff_step_ring_stacked:dyn_rows",
+              "absdiff_step_stacked:dyn_rows",
+              "batch_step_ring_stacked:slab_bands",
+              "batch_step_stacked:slab_bands",
+              "batch_step_ring_stacked:dyn_rows",
+              "batch_step_stacked:dyn_rows")
+
+
+def one_card_mesh(s_ax, r_ax):
+    """A (stream, rows) grid whose cells all name this one card."""
+    from dips_tpu_torch.parallel import grid_mesh
+    return grid_mesh(s_ax, r_ax, devices=["cuda:0"] * (s_ax * r_ax))
+
+
+def noise_frames(n, h, w, s, seed, dev):
+    """(n, 3, s*Hp, Wp) u8 on the card: fresh seeded noise in every frame
+    of every stream's true region, so every tap matters."""
+    import torch
+    from dips_tpu_torch.ops.reference import pad_geometry
+    hp, wp = pad_geometry(h, w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.zeros((n, 3, s, hp, wp), dtype=torch.uint8, device=dev)
+    raw[..., :h, :w] = torch.randint(0, 256, (n, 3, s, h, w), generator=g,
+                                     dtype=torch.uint8, device=dev)
+    return raw.view(n, 3, s * hp, wp)
+
+
+def _raw_mode(props):
+    from dips_tpu_torch.properties import OutputMode
+    return props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
+                            OutputMode.STATS_ONLY)
+
+
+def _slab_state(props, rows, ring, dev):
+    """Zero carried state of row-stacked ``rows``: [ring, prev,] baseline,
+    heatmap (raw modes: [prev,] baseline, heatmap)."""
+    import torch
+    t = props.temporal_size
+    if _raw_mode(props):
+        st = [torch.zeros((3,) + rows, dtype=torch.uint8, device=dev)
+              for _ in range(2 if ring else 1)]
+    else:
+        st = ([torch.zeros((t,) + rows, device=dev),
+               torch.zeros(rows, device=dev)] if ring else []) + [
+            torch.zeros(rows, device=dev)]
+    return st + [torch.zeros(rows, device=dev)]
+
+
+def _slab_call(fn, props, h, w, s, x, st, flags, valid, offs, seeds, ring,
+               **kw):
+    """One stacked step in either protocol and mode, state ``st`` as
+    :func:`_slab_state` lays it out."""
+    if ring and _raw_mode(props):
+        return fn(props, h, w, s, x, st[0], st[1], flags, st[2], valid, seeds,
+                  **kw)
+    if ring:
+        return fn(props, h, w, s, x, *st[:3], flags, st[3], valid, offs,
+                  seeds, **kw)
+    return fn(props, h, w, s, x, st[0], flags, st[1], valid, **kw)
+
+
+def _step_fns(props, ring):
+    from dips_tpu_torch.ops import cuda_fused as cf
+    name = ("absdiff_step" if _raw_mode(props) else "batch_step") + (
+        "_ring" if ring else "") + "_stacked"
+    return name, getattr(cf, name), getattr(cf, name + "_plain")
+
+
+def check_slab_twin(props, h, w, r_ax, s, ring, seed, bands=True,
+                    extended=False, b=None):
+    """Each of the r_ax row slabs of s stacked streams through the slab
+    form of its kernel and through the plain twin, two carried batches of
+    ``b`` (default B) frames: maps byte-equal or within 1 LSB, state exact
+    on the true columns, stats within 1e-5.  ``extended``: the halo-extended
+    construction as ``grid2d._slab_body`` / ``_slab_body_ring`` launch it --
+    the bands concatenated around every section (Hs + 16 rows), the state
+    zero-padded in and its owned rows sliced out, the row window shifted by
+    8, no band inputs.  Returns (record name, max error)."""
+    import torch
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.parallel import grid2d
+    from dips_tpu_torch.parallel.mesh import Layout
+    b = B if b is None else b
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(h, w)
+    hs = hp // r_ax
+    t = props.temporal_size
+    raw_mode = _raw_mode(props)
+    name, kernel, plain = _step_fns(props, ring)
+    lay = Layout(one_card_mesh(1, r_ax), s, hp, wp)
+    states = [[_slab_state(props, (s * hs, wp), ring, dev)
+               for _ in range(r_ax)] for _ in range(2)]
+    tol = RAW_TOL if raw_mode else MEDIAN_TOL
+    bands = bands and not raw_mode and not extended
+    form = "slab_bands" if bands else "dyn_rows"
+    tag = (f"{name}:{form} {props.output.name} {props.method.name} "
+           f"{ptag(props)} {h}x{w} R={r_ax} s={s}"
+           + (f" extended ({hs + 2 * grid2d._EXT}-row sections)"
+              if extended else ""))
+    err, flips, n_px = 0.0, 0, 0
+    frames = noise_frames((0 if ring else t) + 2 * b, h, w, s, seed, dev)
+    for bi, (flags, valid, offs, seeds) in enumerate(
+            _stacked_batches(s, t, b)):
+        if s == 1 and bi == 0:  # the all-invalid stream needs a neighbour
+            valid = np.ones_like(valid)
+        x = frames[bi * b:bi * b + (0 if ring else t) + b]
+        cells = lay.scatter(x)[0]
+        exch = grid2d._band_exchange_u8(cells, s)
+        for j in range(r_ax):
+            if raw_mode:
+                kw = dict(row_bounds=grid2d._raw_grid_bounds(props, h, w, hs,
+                                                             j))
+            else:
+                kw = dict(row_bounds=grid2d._slab_row_bounds(
+                    props, h, w, hs, j, ext=grid2d._EXT if extended else 0))
+                if bands:
+                    kw["bands"] = exch[j]
+            xj = (grid2d._extend(cells[j], s, *exch[j]) if extended
+                  else cells[j])
+            res = []
+            for fn, st in zip((kernel, plain), states):
+                if not extended:
+                    res.append(_slab_call(fn, props, h, w, s, xj, st[j],
+                                          flags, valid, offs, seeds, ring,
+                                          **kw))
+                    continue
+                ext = [grid2d._extend(v, s) for v in st[j]]
+                out, stats, *_ = _slab_call(fn, props, h, w, s, xj, ext,
+                                            flags, valid, offs, seeds, ring,
+                                            **kw)
+                for dst, src in zip(st[j], ext):
+                    grid2d._sections(dst, s).copy_(grid2d._owned(src, s))
+                res.append((grid2d._stacked(grid2d._owned(out, s)), stats))
+            got, exp = res
+            torch.cuda.synchronize()
+            d = (got[0][..., :w].to(torch.int16)
+                 - exp[0][..., :w].to(torch.int16)).abs()
+            if d.numel():
+                flips += int((d > 0).sum())
+                n_px += d.numel()
+                lsb = 0 if raw_mode else tol["lsb"]
+                if int(d.max()) > lsb or \
+                        flips > MEDIAN_TOL["flip_frac"] * n_px:
+                    raise AssertionError(f"{tag}: maps differ (max "
+                                         f"{int(d.max())}, {flips} pixels)")
+                err = max(err, float(d.max()))
+            for g, e in zip(states[0][j][:-1], states[1][j][:-1]):
+                if not torch.equal(g[..., :w], e[..., :w]):
+                    raise AssertionError(f"{tag}: carried state differs")
+            herr = _max_err(states[0][j][-1], states[1][j][-1])
+            if herr > tol["heat_atol"]:
+                raise AssertionError(f"{tag}: heatmap err {herr}")
+            for si in range(s):
+                _check_stats(f"{tag} slab {j} stream {si}", got[1][si],
+                             exp[1][si], tol["stats_rtol"])
+            err = max(err, herr, _max_err(got[1], exp[1]))
+    log(f"[kernels-slabs] {tag} B={b}: every slab's maps, state and stats "
+        f"match the plain twin over two batches; tie flips {flips}/{n_px}, "
+        f"max err {err}")
+    return f"{name}:{form}", err
+
+
+def check_slab_grid(props, h, w, r_ax, s, ring, impl, seed, b=B):
+    """s streams split into r_ax row slabs (one cell each, the streams
+    stacked in the cell) through ``grid2d``'s step against the full-height
+    stacked kernel, two carried batches: maps and carried state bit for
+    bit, stats within 1e-5."""
+    import torch
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.parallel import grid2d
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(h, w)
+    t = props.temporal_size
+    raw_mode = _raw_mode(props)
+    mesh = one_card_mesh(1, r_ax)
+    step = (grid2d.make_grid_ring_step(props, h, w, mesh, slab_impl=impl)
+            if ring else grid2d.make_grid_step(props, h, w, mesh,
+                                               backend="kernel",
+                                               slab_impl=impl))
+    _, kernel, _ = _step_fns(props, ring)
+    full = _slab_state(props, (s * hp, wp), ring, dev)
+    # the grid step's arguments lead with the stream axis
+    lead = [1 if x.dim() == 3 else 0 for x in full]
+    grid = [x.view(x.shape[:d] + (s, hp, wp)).movedim(d, 0).clone()
+            for x, d in zip(full, lead)]
+    tag = (f"{props.output.name} {props.method.name} {ptag(props)} {h}x{w} "
+           f"R={r_ax} s={s} {'ring' if ring else 'tail'} {impl}")
+    frames = noise_frames((0 if ring else t) + 2 * b, h, w, s, seed, dev)
+    offs, seeds = np.arange(s) % t, np.ones(s, np.int64)
+    for bi in range(2):
+        x = frames[bi * b:bi * b + (0 if ring else t) + b]
+        flags = np.zeros((s, b), bool)
+        flags[:, (bi + 1) % b] = True
+        valid = np.ones((s, b), bool)
+        valid[s - 1, b - 1] = bi == 0
+        exp = _slab_call(kernel, props, h, w, s, x, full, flags, valid, offs,
+                         seeds, ring)
+        xs = x.view(x.shape[:2] + (s, hp, wp)).movedim(2, 0)
+        if ring and raw_mode:
+            got = step(xs, grid[0], grid[1], flags, grid[2], valid, seeds)
+        elif ring:
+            got = step(xs, *grid[:3], flags, grid[3], valid, offs, seeds)
+        else:
+            got = step(xs, grid[0], flags, grid[1], valid)
+        torch.cuda.synchronize()
+        out = got[0].movedim(0, 2).reshape(exp[0].shape)
+        if not torch.equal(out, exp[0]):
+            raise AssertionError(f"[kernels-slabs] {tag} batch {bi}: the "
+                                 f"slabs' maps differ from the full-height "
+                                 f"kernel's")
+        for g, f, d in zip(grid, full, lead):
+            if not torch.equal(g.movedim(0, d).reshape(f.shape), f):
+                raise AssertionError(f"[kernels-slabs] {tag} batch {bi}: "
+                                     f"carried state differs")
+        for si in range(s):
+            _check_stats(f"[kernels-slabs] {tag} stream {si}", got[1][si],
+                         exp[1][si], 1e-5)
+        offs, seeds = (offs + b) % t, np.zeros(s, np.int64)
+    log(f"[kernels-slabs] {tag} B={b}: {r_ax} slabs equal the full-height "
+        f"kernel bit for bit (maps, carried state; stats within 1e-5) over "
+        f"two carried batches")
+
+
+def phase_kernels_slabs():
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.properties import (DiPsFilter, DiPsMethod,
+                                           DiPsProperties, OutputMode)
+    errs = dict.fromkeys(SLAB_NAMES, 0.0)
+    roi = (400, 100, 1000, 1700)  # misses the first of three 360-row slabs
+    raw = DiPsProperties(output=OutputMode.ABSDIFF, roi=roi)
+    w5 = DiPsProperties(window_size=5, temporal_size=3,
+                        method=DiPsMethod.PER_FRAME,
+                        output=OutputMode.GRAYSCALE,
+                        filter=DiPsFilter.INVERSE_SIGMOID)
+    # rows 5, 9 and 13 of the kernel table against their plain twins
+    for props, s, ring, bands in (
+            (DiPsProperties(roi=roi), 2, True, True),
+            (w5, 1, True, True),
+            (DiPsProperties(window_size=7, temporal_size=2), 1, False, True),
+            (variant_props("approx_median", 7), 2, False, True),
+            (variant_props("quirk_compat", 5), 1, True, True),
+            (DiPsProperties(roi=roi), 2, True, False),
+            (w5, 1, False, False),
+            (raw, 2, True, True), (raw, 2, False, True),
+            (DiPsProperties(output=OutputMode.THRESHOLD,
+                            method=DiPsMethod.PER_FRAME, roi=roi), 1, True,
+             True)):
+        name, e = check_slab_twin(props, H1080, W1080, 3, s, ring, 81, bands)
+        errs[name] = max(errs[name], e)
+    # the same at the shapes the main path ([grid]) launches: a cell of the
+    # (2, 3) grid stacks FLEET / 2 = 4 streams' 360-row slabs -- COLORIZE
+    # w3/T4 with bands and in the extended construction (376-row sections,
+    # the row window shifted by 8), ABSDIFF with the roi, both protocols --
+    # and the slabs of the 8K stream below (R = 4, B = 4)
+    s_l = FLEET // GRID[0]
+    for props, ring, kw in (
+            (DiPsProperties(), True, {}), (DiPsProperties(), False, {}),
+            (DiPsProperties(), True, dict(extended=True)),
+            (DiPsProperties(), False, dict(extended=True)),
+            (raw, True, {}), (raw, False, {})):
+        name, e = check_slab_twin(props, H1080, W1080, GRID[1], s_l, ring,
+                                  84, **kw)
+        errs[name] = max(errs[name], e)
+    name, e = check_slab_twin(DiPsProperties(), H8K, W8K, 4, 1, True, 85,
+                              b=4)
+    errs[name] = max(errs[name], e)
+    # the slab compositions against the full-height kernels, bit for bit
+    before = cuda_fused.launch_counts()
+    check_slab_grid(DiPsProperties(), H8K, W8K, 4, 1, True, "bands", 82, b=4)
+    for props, s, ring, impl in (
+            (w5, 1, True, "bands"),
+            (DiPsProperties(window_size=7, temporal_size=2), 1, True,
+             "bands"),
+            (variant_props("approx_median", 7), 1, True, "bands"),
+            (variant_props("quirk_compat", 5), 1, True, "bands"),
+            (DiPsProperties(roi=roi), 2, False, "bands"),
+            (w5, 1, True, "extended"),
+            (DiPsProperties(window_size=7, temporal_size=2), 2, False,
+             "extended"),
+            (raw, 1, True, "bands"), (raw, 2, False, "bands")):
+        check_slab_grid(props, H1080, W1080, 3, s, ring, impl, 83)
+    after = cuda_fused.launch_counts()
+    for name in SLAB_NAMES:
+        if after[name] <= before[name]:
+            raise AssertionError(f"{name} was not launched by the slab "
+                                 f"compositions")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: the fleet on a (stream, rows) grid
+# ---------------------------------------------------------------------------
+
+GRID = (2, 3)  # stream shards x row slabs: 4 streams x 360 rows per cell
+
+
+def _same_fleet_runs(tag, got, exp):
+    """Two fleet runs batch by batch: the same streams accepted, maps byte
+    for byte, stats within 1e-5."""
+    for bi, ((idx, go, gs), (eidx, eo, es)) in enumerate(zip(got, exp)):
+        if idx != eidx:
+            raise AssertionError(f"{tag} batch {bi}: accepted frames differ")
+        for si, ids in enumerate(idx):
+            if ids is not None:
+                k = len(ids)
+                _same_run(f"{tag} stream {si} batch {bi}",
+                          (go[si, :k], gs[si, :k]), (eo[si, :k], es[si, :k]))
+
+
+def _same_fleet_state(tag, got, exp):
+    for key in ("baseline", "heatmaps"):
+        if not np.array_equal(got[key], exp[key]):
+            raise AssertionError(f"{tag}: carried {key} differs")
+
+
+def run_grid_batches(props, frame, n_batches, ring_carry, mesh,
+                     slab_impl="bands"):
+    """``n_batches`` full batches of the 8-stream fleet -> ([(indices,
+    out, stats)], carried state)."""
+    from dips_tpu_torch import MultiStreamEngine
+    fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                              device="cuda", ring_carry=ring_carry,
+                              mesh=mesh, slab_impl=slab_impl)
+    batches = []
+    for bi in range(n_batches):
+        idx = [list(range(bi * B, (bi + 1) * B))] * FLEET
+        out, stats, _ = fleet.process_batch(
+            [[frame(si, k) for k in ids] for si, ids in enumerate(idx)])
+        if not np.isfinite(stats).all():
+            raise AssertionError("non-finite stats")
+        batches.append((idx, out, stats))
+    return batches, dict(baseline=fleet.state_dict()["baseline"],
+                         heatmaps=fleet.heatmaps())
+
+
+def phase_grid(card):
+    """The row-slab path at full width through the fleet engine: 1080p x 8
+    streams on a (2, 3) grid of cells that all name this card."""
+    import torch
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    from dips_tpu_torch.ops import cuda_fused
+    work = os.path.join("build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    cells = GRID[0] * GRID[1]
+    mesh = one_card_mesh(*GRID)
+    launches = dict.fromkeys(SLAB_NAMES, 0)
+
+    def counted(name, expect, fn, *args, **kw):
+        """Run one grid path with the counts at 0; it must launch slab form
+        ``name`` exactly ``expect`` times and no full-height kernel."""
+        cuda_fused.reset_launch_counts()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts = cuda_fused.launch_counts()
+        base = name.split(":")[0]
+        if counts[name] != expect or counts[base] != expect:
+            raise AssertionError(f"[grid] {name}: {counts[name]} launches "
+                                 f"of {counts[base]}, expected {expect}")
+        launches[name] += counts[name]
+        return res
+
+    # COLORIZE w3/T4, ring-carry, bands: the three batches of [fleet] (a
+    # lagging stream, a snapshot, an isolated and revived stream).  Before
+    # the third batch a fresh grid fleet resumes from the checkpoint that
+    # the fleet without a mesh saved at that point in [fleet] (the state is
+    # scattered over the cells and each cell rebuilds its ring: one more
+    # launch per cell); the grid's own state comes back through its gather
+    # in the comparison of the carried state below.
+    ref = FLEET_REF
+    state = {}
+    got = counted("batch_step_ring_stacked:slab_bands", cells * 4, run_fleet,
+                  ref["props"], ref["frame"], work, mesh=mesh, keep=state,
+                  checkpoint="load")
+    _same_fleet_runs("[grid] COLORIZE w3/T4", got, ref["batches"])
+    _same_fleet_state("[grid] COLORIZE w3/T4", state, ref["state"])
+    log(f"[grid] COLORIZE w3/T4 1080p x {FLEET} streams on a {GRID} grid "
+        f"(Hs = {H1080 // GRID[1]}), ring-carry, bands, B={B}, 3 batches: "
+        f"every stream equals the fleet without a mesh (maps, baseline and "
+        f"heatmap bit for bit, stats within 1e-5), through the lagging "
+        f"stream 7, the snapshot of stream 3, stream 5 isolated and revived "
+        f"and a resume from the checkpoint of the fleet without a mesh; "
+        f"{cells} launches per batch")
+    del got
+    FLEET_REF.clear()
+
+    frame = FleetFrames(75)
+    roi = (400, 100, 1000, 1700)
+    absdiff = DiPsProperties(output=OutputMode.ABSDIFF, roi=roi,
+                             refresh_markers=(24,))
+    colorize = DiPsProperties()
+    for label, props, ring, impl, name, n_b in (
+            ("ABSDIFF roi ring", absdiff, True, "bands",
+             "absdiff_step_ring_stacked:dyn_rows", 2),
+            ("ABSDIFF roi tail", absdiff, False, "bands",
+             "absdiff_step_stacked:dyn_rows", 1),
+            ("COLORIZE w3/T4 tail bands", colorize, False, "bands",
+             "batch_step_stacked:slab_bands", 1),
+            ("COLORIZE w3/T4 tail extended", colorize, False, "extended",
+             "batch_step_stacked:dyn_rows", 1),
+            ("COLORIZE w3/T4 ring extended", colorize, True, "extended",
+             "batch_step_ring_stacked:dyn_rows", 2)):
+        got, gstate = counted(name, cells * n_b, run_grid_batches, props,
+                              frame, n_b, ring, mesh, impl)
+        exp, estate = run_grid_batches(props, frame, n_b, ring, None)
+        _same_fleet_runs(f"[grid] {label}", got, exp)
+        _same_fleet_state(f"[grid] {label}", gstate, estate)
+        log(f"[grid] {label} 1080p x {FLEET} streams on a {GRID} grid, "
+            f"B={B}, {n_b} batch(es): equal to the fleet without a mesh "
+            f"(maps and carried state bit for bit, stats within 1e-5); "
+            f"{cells} launches of {name} per batch")
+        del got, exp
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -1459,20 +1958,24 @@ def kernel_alone(fn, reps=20):
 
 
 def time_wrapper(key, kernel, plain, frames, props, name, hp, wp, card,
-                 plain_reps=3):
+                 plain_reps=3, slabs=0, shape=None, b=B):
     """Wrapper (plain / kernel / kernel / plain, CUDA events), the kernel
-    alone (:func:`kernel_alone`) and the bound, in ms per stream-frame."""
+    alone (:func:`kernel_alone`) and the bound, in ms per stream-frame.
+    One call covers ``frames`` stream-frames in batches of ``b``; ``hp`` are
+    the rows of one stream and ``slabs`` its band-fed row slabs
+    (:func:`bound`); ``shape`` words the log line."""
     got = {"plain": [], "kernel": []}
     for which, fn in (("plain", plain), ("kernel", kernel),
                       ("kernel", kernel), ("plain", plain)):
         got[which].append(_time(fn, 20 if which == "kernel" else plain_reps)
                           / frames)
-    bound_ms, bound_by = bound(name, props, frames // B, B, hp, wp)
+    bound_ms, bound_by = bound(name, props, frames // b, b, hp, wp, slabs)
     res = {w: float(np.mean(v)) for w, v in got.items()}
     res.update(bound_ms=bound_ms, bound_by=bound_by)
     alone = kernel_alone(kernel)
     res["alone"] = None if alone is None else alone / frames
-    shape = f"1080p B={B}" + (f" s={frames // B}" if frames > B else "")
+    if shape is None:
+        shape = f"1080p B={B}" + (f" s={frames // B}" if frames > B else "")
     log(f"[time] {key} {shape}: kernel {res['kernel']:.4f} ms/frame "
         f"({got['kernel']}), alone "
         + ("not measured (no kernel in the profiler trace)"
@@ -1531,6 +2034,88 @@ def times_of_variants(card):
                 s * B, props, key, hp, wp, card, plain_reps=1)
             if MAIN_VARIANTS.get(mode) == w:
                 times[key] = times[label]
+    return times
+
+
+def times_of_slabs(card):
+    """The six slab forms at the [grid] path's cell shape: the 1080p x 8
+    fleet on the (2, 3) grid, so one call is the grid's six launches of 4
+    streams x 360 rows (128 stream-frames at B = 16; the dyn_rows forms of
+    the median kernels on sections extended to 376 rows, as the extended
+    construction gives them).  And the ring bands form for one stream: 1080p
+    in 3 slabs, and 8K (4320 x 7680) in 4 slabs at B = 4."""
+    import torch
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.parallel import grid2d
+    from dips_tpu_torch.parallel.mesh import Layout
+    from dips_tpu_torch.properties import DiPsProperties, OutputMode
+    dev = torch.device("cuda")
+    mp = DiPsProperties()
+    rp = DiPsProperties(output=OutputMode.ABSDIFF, roi=(400, 100, 1000, 1700))
+    t = mp.temporal_size
+    times = {}
+
+    def cell_calls(name, props, h, w, s_ax, r_ax, s, b, raw):
+        """(kernel call, plain call, rows of one stream's sections) of slab
+        form ``name`` over every cell of an (s_ax, r_ax) grid."""
+        base, form = name.split(":")
+        ring = "ring" in base
+        hp, wp = pad_geometry(h, w)
+        lay = Layout(one_card_mesh(s_ax, r_ax), s, hp, wp)
+        cells = lay.scatter(raw if not ring else raw[-b:])
+        ext = 0 if form == "slab_bands" or _raw_mode(props) else grid2d._EXT
+        _, kernel, plain = _step_fns(props, ring)
+        flags = torch.zeros((lay.s_l, b), dtype=torch.bool, device=dev)
+        flags[:, 0] = True
+        valid = torch.ones((lay.s_l, b), dtype=torch.bool, device=dev)
+        zs = [0] * lay.s_l
+        args = []
+        for i in range(s_ax):
+            exch = grid2d._band_exchange_u8(cells[i], lay.s_l)
+            for j in range(r_ax):
+                x, kw = cells[i][j], {}
+                if _raw_mode(props):
+                    kw["row_bounds"] = grid2d._raw_grid_bounds(
+                        props, h, w, lay.hs, j)
+                else:
+                    kw["row_bounds"] = grid2d._slab_row_bounds(
+                        props, h, w, lay.hs, j, ext=ext)
+                    if ext:
+                        x = grid2d._extend(x, lay.s_l, *exch[j])
+                    else:
+                        kw["bands"] = exch[j]
+                st = _slab_state(props, (x.shape[-2], wp), ring, dev)
+                args.append((x, st, kw))
+        run = lambda fn: [_slab_call(fn, props, h, w, lay.s_l, x, st, flags,
+                                     valid, zs, zs, ring, **kw)
+                          for x, st, kw in args]
+        return (lambda: run(kernel)), (lambda: run(plain)), \
+            r_ax * (lay.hs + 2 * ext)
+
+    sraw = stacked_frames(t + B, H1080, W1080, FLEET, 35, dev)
+    hp, wp = pad_geometry(H1080, W1080)
+    for name in SLAB_NAMES:
+        props = rp if name.startswith("absdiff") else mp
+        k, p, rows = cell_calls(name, props, H1080, W1080, *GRID, FLEET, B,
+                                sraw)
+        times[name] = time_wrapper(
+            name, k, p, FLEET * B, props, name, rows, wp, card, plain_reps=1,
+            slabs=GRID[1] if name.endswith("slab_bands") else 0,
+            shape=f"1080p x {FLEET} on a {GRID} grid, B={B}")
+    name = "batch_step_ring_stacked:slab_bands"
+    k, p, rows = cell_calls(name, mp, H1080, W1080, 1, 3, 1, B,
+                            sraw[:, :, :hp])
+    times[name + " 1080p R=3 s=1"] = time_wrapper(
+        name, k, p, B, mp, name, rows, wp, card, plain_reps=1, slabs=3,
+        shape=f"1080p, one stream in 3 slabs, B={B}")
+    del sraw, k, p
+    b8 = 4
+    hp8, wp8 = pad_geometry(H8K, W8K)
+    k, p, rows = cell_calls(name, mp, H8K, W8K, 1, 4, 1, b8,
+                            noise_frames(b8, H8K, W8K, 1, 36, dev))
+    times[name + " 8K R=4 s=1"] = time_wrapper(
+        name, k, p, b8, mp, name, rows, wp8, card, plain_reps=1, slabs=4,
+        shape=f"8K {H8K}x{W8K}, one stream in 4 slabs, B={b8}", b=b8)
     return times
 
 
@@ -1665,25 +2250,32 @@ def phase_times(card):
     frame = FleetFrames(91)
     feeds = [[[frame(si, k) for k in range(j * B, (j + 1) * B)]
               for si in range(FLEET)] for j in range(2)]
-    for label, props in (("COLORIZE w3/T4", mp), ("ABSDIFF", rp)):
-        for ring in (True, False):
-            fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
-                                      device="cuda", ring_carry=ring)
-            fleet.process_batch(feeds[0])  # warm-up
-            torch.cuda.synchronize()
-            n_b = 4
-            t0 = time.perf_counter()
-            for i in range(n_b):
-                fleet.process_batch(feeds[i % 2])
-            wall = time.perf_counter() - t0
-            fps = n_b * B * FLEET / wall
-            key = ("fleet " if ring else "tail fleet ") + label
-            times[key] = fps
-            log(f"[time] {key} 1080p x {FLEET} streams B={B}: {fps:.1f} "
-                f"frames/s aggregate end to end over {n_b * B * FLEET} "
-                f"frames ({fps / FLEET:.1f} per stream); {card}")
-            del fleet
+    # ... and the ring fleets once more on the [grid] phase's (2, 3) grid
+    runs = [(label, props, ring, None)
+            for label, props in (("COLORIZE w3/T4", mp), ("ABSDIFF", rp))
+            for ring in (True, False)]
+    runs.append(("COLORIZE w3/T4", mp, True, one_card_mesh(*GRID)))
+    for label, props, ring, mesh in runs:
+        fleet = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                                  device="cuda", ring_carry=ring,
+                                  mesh=mesh)
+        fleet.process_batch(feeds[0])  # warm-up
+        torch.cuda.synchronize()
+        n_b = 4
+        t0 = time.perf_counter()
+        for i in range(n_b):
+            fleet.process_batch(feeds[i % 2])
+        wall = time.perf_counter() - t0
+        fps = n_b * B * FLEET / wall
+        key = ("fleet " if ring else "tail fleet ") + label + (
+            f" on a {GRID} grid" if mesh is not None else "")
+        times[key] = fps
+        log(f"[time] {key} 1080p x {FLEET} streams B={B}: {fps:.1f} "
+            f"frames/s aggregate end to end over {n_b * B * FLEET} "
+            f"frames ({fps / FLEET:.1f} per stream); {card}")
+        del fleet
     times.update(times_of_variants(card))
+    times.update(times_of_slabs(card))
     times.update(times_of_options(card))
     return times
 
@@ -1723,9 +2315,12 @@ def spatial_ops(props):
     return w * 2 * len(col) + units(merge)
 
 
-def bound(name, props, s, b, hp, wp):
+def bound(name, props, s, b, hp, wp, slabs=0):
     """(least ms per stream-frame, "bytes" or "operations") of one launch of
-    kernel ``name`` over s streams of B frames: the larger of the bytes it
+    kernel ``name`` over s streams of B frames (or of the launches that
+    cover them: ``hp`` rows per stream in all, cut into ``slabs`` row slabs
+    that each read two 8-row bands per filtered frame; 0: no bands): the
+    larger of the bytes it
     must move (each input read once, each output written once) over the
     memory rate, and the integer operations it must do over the INT32 peak.
     Operations counted: raw -- 3 subtractions, 3 abs, 2 max and 1 compare
@@ -1761,6 +2356,7 @@ def bound(name, props, s, b, hp, wp):
         if tail and not overall:
             state -= 4 * px  # the baseline passes through unread
         nbytes = 3 * px * filtered + state + c * b * px
+        nbytes += 3 * filtered * s * slabs * 2 * 8 * wp  # the slab bands
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     least = max(by_bytes, by_ops)
     return least * 1e3 / (s * b), ("bytes" if by_bytes >= by_ops
@@ -1788,6 +2384,13 @@ KERNELS = {
 }
 # the spatial-filter variants: instances of the same two kernels, replacing
 # the approx / quirk branch of _filtered_plane
+# the row-slab forms: the same kernels given a row window and, the median
+# ones, band pointers; they replace the dyn_rows / slab_bands forms
+for _name in SLAB_NAMES:
+    _base = _name.split(":")[0]
+    KERNELS[_name] = (KERNELS[_base][0], "dips_tpu/ops/pallas_fused.py:" + (
+        "1073" if _base.startswith("absdiff") else
+        "801" if "ring" in _base else "364"))
 for _name in ("batch_step_ring", "batch_step_ring_stacked", "batch_step",
               "batch_step_stacked"):
     for _mode in ("approx_median", "quirk_compat"):
@@ -1816,6 +2419,8 @@ def main():
     launches.update(timed(phase_fleet_tail, card))
     errs.update(timed(phase_kernels_variants))
     launches.update(timed(phase_options, card))
+    errs.update(timed(phase_kernels_slabs))
+    launches.update(timed(phase_grid, card))
     times = timed(phase_times, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null

@@ -301,10 +301,11 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                       downscale: int = 1,
                       auto_refresh: Optional[dict] = None,
                       flicker: Optional[dict] = None,
-                      slab_impl: str = "bands"):
+                      slab_impl: str = "bands", mesh=None):
     """Batched multi-stream differencing over many videos: decode the S
     files in lockstep, run them through one :class:`MultiStreamEngine`
-    (one stacked launch per batch), write one diff video per input.
+    (one stacked launch per batch, or one per cell of ``mesh``), write one
+    diff video per input.
 
     All inputs must share geometry and fps.  Streams shorter than the
     longest are fed empty lists once exhausted and their outputs truncated.
@@ -323,8 +324,10 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
     them in RGB order.  ``downscale`` = k decimates every stream on the
     device and writes the videos at the analysis geometry.  ``flicker``
     and the "gstreamer" video backend are not ported yet and raise
-    ``NotImplementedError``; ``slab_impl`` is validated and ignored (it
-    shapes 2-D meshes).
+    ``NotImplementedError``.  ``mesh`` (``parallel.stream_mesh`` /
+    ``parallel.grid_mesh``) splits the fleet over devices, ``slab_impl``
+    ("bands" / "extended") picks a 2-D grid's slab construction; the files
+    written do not depend on either.
     """
     from .io.video import VideoReader, VideoWriter
     from .parallel import MultiStreamEngine
@@ -366,7 +369,8 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                                 device=device,
                                 input_layout="planar" if planar
                                 else "hwc_bgr",
-                                downscale=downscale, slab_impl=slab_impl)
+                                downscale=downscale, slab_impl=slab_impl,
+                                mesh=mesh)
         # outputs, stats and events live at the analysis geometry
         h, w = eng.height, eng.width
         stats_only = props.out_channels == 0

@@ -10,12 +10,15 @@ defaults, messages and exit codes (2 for usage errors, 1 for a failed run):
   integers as refresh markers, plus --device;
 * the fleet: --inputs FILE... --output-dir DIR with the same pipeline and
   engine options (--packed-wire is accepted and, as in the JAX CLI, not
-  used: the fleet writes unpacked maps), and --stats-json, --events-json (and the --event-*
-  options) and --auto-refresh; exit code 1 when a stream failed and was
+  used: the fleet writes unpacked maps), and --stats-json, --events-json
+  (and the --event-* options), --auto-refresh, and --mesh SxR /
+  --slab-impl (the fleet over a stream x rows grid of cells:
+  ``parallel/grid2d.py``); exit code 1 when a stream failed and was
   isolated.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
+    python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/ --mesh 2x3
 """
 
 from __future__ import annotations
@@ -119,6 +122,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda | cuda:N | cpu (default: cuda; without a card "
                         "the run fails unless --device cpu is given)")
+    p.add_argument("--mesh", metavar="SxR",
+                   help="--inputs mode: run the fleet over a 2-D "
+                        "(stream x rows) grid of S*R cells, each one "
+                        "launch per batch on a horizontal slab of a "
+                        "subset of the streams.  With --device cuda the "
+                        "cells are the visible cards (S*R of them are "
+                        "needed); with --device cuda:N or cpu every cell "
+                        "runs on that one device")
+    p.add_argument("--slab-impl", choices=("bands", "extended"),
+                   default="bands",
+                   help="--mesh: how a slab kernel gets its neighbours' "
+                        "rows: 'bands' (default) = two thin 8-row band "
+                        "inputs, slabs stay in owned coordinates; "
+                        "'extended' = bands concatenated around each slab")
     p.add_argument("--stats-json", metavar="PATH",
                    help="--inputs mode: write per-frame statistics to a "
                         "JSON file, one row list per stream keyed by input "
@@ -227,6 +244,25 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
               f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
         return 2
     from .app import run_dips_on_files
+    mesh = None
+    if args.mesh:
+        from .models.pipeline import resolve_device
+        from .parallel import grid_mesh
+        try:
+            s_ax, r_ax = (int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            print(f"bad --mesh {args.mesh!r} (want SxR, e.g. 2x4)",
+                  file=sys.stderr)
+            return 2
+        try:
+            # "cuda": the visible cards; a named device: every cell on it
+            dev = resolve_device(args.device)
+            one = args.device != "cuda"
+            mesh = grid_mesh(s_ax, r_ax,
+                             devices=[dev] * (s_ax * r_ax) if one else None)
+        except (DiPsError, ValueError) as e:  # e.g. too few cards
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     ev_cfg = _detector_cfg(args) if args.events_json else None
     want_stats = bool(args.stats_json)
     try:
@@ -237,7 +273,8 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
                                    events=ev_cfg,
                                    collect_stats=want_stats,
                                    downscale=args.downscale,
-                                   auto_refresh=auto_refresh)
+                                   auto_refresh=auto_refresh,
+                                   slab_impl=args.slab_impl, mesh=mesh)
     except (DiPsError, NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -327,7 +364,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if args.inputs:
         return _run_inputs(args, props, auto_refresh)
-    for flag, val in (("--stats-json", args.stats_json),
+    for flag, val in (("--mesh", args.mesh),
+                      ("--stats-json", args.stats_json),
                       ("--events-json", args.events_json),
                       ("--auto-refresh", args.auto_refresh),
                       ("--output-dir", args.output_dir)):

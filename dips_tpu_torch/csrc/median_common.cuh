@@ -22,11 +22,20 @@ namespace dips_median {
 
 constexpr int kTx = 32, kTy = 8;
 constexpr int kWarps = kTx * kTy / 32;
+constexpr int kBand = 8;  // rows of a slab band (>= the widest halo, 3)
 
 // One launch's arguments.  The tail kernel leaves ring, prev, offs and
 // seeds null; raw then holds the T tail frames ahead of the B new ones.
+// Hp is one stacked section's height: a stream's padded height, or, for a
+// row slab (parallel/grid2d.py), the slab's; [y0, y1) is then the slab's
+// own row window.  btop / bbot are the slab bands, (frames, 3, S*kBand, Wp)
+// u8 with the frames of raw: section si's rows above its first row are
+// rows si*kBand .. of btop, the rows below its last row those of bbot.
+// Both null: taps outside the section read zero.
 struct MedianArgs {
   const uint8_t* raw;
+  const uint8_t* btop;
+  const uint8_t* bbot;
   float* ring;
   float* prev;
   float* base;
@@ -133,12 +142,19 @@ constexpr int kCmRows = M == kApprox ? kTy : 1;
 // * kQuirk (networks.quirk_window_select): the rank pick over the taps at
 //   offsets [-P, P) in both axes, then the u8 store-back 2 * rint(phi / 2)
 //   (also at W = 1, where there is no window).
-// Taps outside the stream's own rows [0, Hp) or the columns [0, Wp) read
-// zero, so a halo never reaches the neighbouring stream, and an
+// Taps outside the section's own rows [0, Hp) or the columns [0, Wp) read
+// zero, so a halo never reaches the neighbouring section, and an
 // out-of-range column's median is 0, as the TPU's wrapped zero lanes give.
+// With slab bands (kBands; the counterpart of _filtered_plane's
+// bandtop_ref / bandbot_ref) a tap in the P rows above the section reads
+// the last P rows of the section's own top band, a tap in the P rows below
+// it the first P rows of its bottom band; columns outside [0, Wp) stay
+// zero.  kBands is a compile-time flag: tested at run time (a null band
+// pointer), the branch cost the zero-fill instances registers and up to a
+// quarter of their speed, so they compile without it, as before.
 // The caller must have passed a barrier since the strip's and cm's
 // previous readers read them.
-template <int W, int M, int CR>
+template <int W, int M, bool kBands, int CR>
 __device__ __forceinline__ float filtered(
     int (&strip)[kTy + 2 * (W / 2)][kTx + 2 * (W / 2)],
     int (&cm)[CR][kTx + 2 * (W / 2)], const MedianArgs& a, const Pixel& p,
@@ -150,8 +166,19 @@ __device__ __forceinline__ float filtered(
     const int r = i / SW, c = i % SW;
     const int gy = p.by + r - P, gx = p.bx + c - P;
     int v = 0;
-    if (gy >= 0 && gy < a.Hp && gx >= 0 && gx < a.Wp)
+    if (gy >= 0 && gy < a.Hp && gx >= 0 && gx < a.Wp) {
       v = intensity(fr, p.plane, (long long)gy * a.Wp + gx, a.chroma);
+    } else if constexpr (kBands) {
+      if (gx >= 0 && gx < a.Wp) {
+        // band row kBand + gy of the top band, gy - Hp of the bottom one
+        const long long bplane = (long long)p.S * kBand * a.Wp;
+        const uint8_t* band = (gy < 0 ? a.btop : a.bbot) +
+                              (long long)f * 3 * bplane +
+                              (long long)p.si * kBand * a.Wp;
+        const int br = gy < 0 ? kBand + gy : gy - a.Hp;
+        v = intensity(band, bplane, (long long)br * a.Wp + gx, a.chroma);
+      }
+    }
     strip[r][c] = v;
   }
   __syncthreads();
@@ -242,29 +269,42 @@ __device__ __forceinline__ void emit(const MedianArgs& a, const Pixel& p,
   }
 }
 
-// Launch K::go<W, M> for the runtime window W and spatial mode M (every
-// instance is compiled; the mode is a template parameter, not a branch in
-// the kernel), then report the launch's error code.
-template <class K, int W>
+// Launch K::go<W, M, kBands> for the runtime window W, spatial mode M and
+// the band form (a.btop non-null; window 1 has no taps to feed and no band
+// instance).  Every instance is compiled; mode and band form are template
+// parameters, not branches in the kernel.  Reports the launch's error code.
+template <class K, int W, bool kBands>
 __host__ inline int launch_mode(int mode, dim3 grid, dim3 block,
                                 cudaStream_t s, const MedianArgs& a) {
   switch (mode) {
-    case kExact: K::template go<W, kExact>(grid, block, s, a); break;
-    case kApprox: K::template go<W, kApprox>(grid, block, s, a); break;
-    case kQuirk: K::template go<W, kQuirk>(grid, block, s, a); break;
+    case kExact: K::template go<W, kExact, kBands>(grid, block, s, a); break;
+    case kApprox:
+      K::template go<W, kApprox, kBands>(grid, block, s, a);
+      break;
+    case kQuirk: K::template go<W, kQuirk, kBands>(grid, block, s, a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <class K, int W>
+__host__ inline int launch_bands(int mode, dim3 grid, dim3 block,
+                                 cudaStream_t s, const MedianArgs& a) {
+  if (a.btop == nullptr)
+    return launch_mode<K, W, false>(mode, grid, block, s, a);
+  if constexpr (W > 1)
+    return launch_mode<K, W, true>(mode, grid, block, s, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <class K>
 __host__ inline int launch(int W, int mode, dim3 grid, dim3 block,
                            cudaStream_t s, const MedianArgs& a) {
   switch (W) {
-    case 1: return launch_mode<K, 1>(mode, grid, block, s, a);
-    case 3: return launch_mode<K, 3>(mode, grid, block, s, a);
-    case 5: return launch_mode<K, 5>(mode, grid, block, s, a);
-    case 7: return launch_mode<K, 7>(mode, grid, block, s, a);
+    case 1: return launch_bands<K, 1>(mode, grid, block, s, a);
+    case 3: return launch_bands<K, 3>(mode, grid, block, s, a);
+    case 5: return launch_bands<K, 5>(mode, grid, block, s, a);
+    case 7: return launch_bands<K, 7>(mode, grid, block, s, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

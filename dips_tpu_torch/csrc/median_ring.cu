@@ -18,6 +18,14 @@
 // masked statistic partials and heatmap -> emphasis -> COLORIZE/GRAYSCALE
 // u8 maps; capture frames render the new baseline gray.
 //
+// Row slabs (the dyn_rows and slab_bands forms of _make_ring_kernel, for
+// parallel/grid2d.py): a section may be a horizontal slab of a stream
+// instead of a whole one.  Hp is then the slab's height, [y0, y1) its own
+// row window of the statistics mask (launch arguments, as the TPU kernel
+// prefetches them), and with bands the stencil's taps above and below the
+// slab read the neighbouring slabs' rows from two thin band inputs
+// (median_common.cuh) instead of zeros.
+//
 // Streams: S streams are stacked along the rows (JAX's row-stacked layout:
 // raw (B, 3, S*Hp, Wp), ring (T, S*Hp, Wp), planes (S*Hp, Wp)).  The grid's
 // z dimension is the stream; flags / valid are (S, B), the ring offsets and
@@ -58,7 +66,7 @@ namespace {
 
 using namespace dips_median;
 
-template <int W, int M>
+template <int W, int M, bool kBands>
 __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   constexpr int P = W / 2;
   __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
@@ -83,7 +91,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
   for (int f = 0; f < a.B; ++f) {
     // the previous frame's readers of the strip are done: they passed that
     // frame's reduction barrier
-    const float phi = filtered<W, M>(strip, cm, a, p, f);
+    const float phi = filtered<W, M, kBands>(strip, cm, a, p, f);
 
     const int v = valid[f];
     const int slot = (off + f) % a.T;
@@ -116,26 +124,30 @@ __global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
 }
 
 struct RingKernel {
-  template <int W, int M>
+  template <int W, int M, bool kBands>
   static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
-    median_ring_kernel<W, M><<<grid, block, 0, s>>>(a);
+    median_ring_kernel<W, M, kBands><<<grid, block, 0, s>>>(a);
   }
 };
 
 }  // namespace
 
-// Hp is one stream's padded height; parts is float (B, S, n_tiles, 4); the
-// caller keeps every offset in [0, T).
+// Hp is one section's height (a stream's padded height, or a row slab's);
+// [y0, y1) x [x0, x1) is the statistics / heatmap window in section-local
+// rows; btop / bbot are the slab bands (B, 3, S*8, Wp), or both null; parts
+// is float (B, S, n_tiles, 4); the caller keeps every offset in [0, T).
 extern "C" int dips_median_ring(
-    const void* raw, void* ring, void* prev, void* base, void* heat,
+    const void* raw, const void* btop, const void* bbot, void* ring, void* prev, void* base, void* heat,
     void* out, void* parts, const void* flags, const void* valid,
     const void* offs, const void* seeds, int S, int B, int Hp, int Wp, int T,
     int W, int mode, int overall, int out_mode, int chroma, int filter,
     float k, float sens, float lo_clip, float hi_clip, float scale, float thr,
     int y0, int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma))
+  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
+      (btop == nullptr) != (bbot == nullptr) || (btop != nullptr && W == 1))
     return (int)cudaErrorInvalidValue;
-  MedianArgs a{(const uint8_t*)raw, (float*)ring, (float*)prev,
+  MedianArgs a{(const uint8_t*)raw, (const uint8_t*)btop,
+               (const uint8_t*)bbot, (float*)ring, (float*)prev,
                (float*)base, (float*)heat, (uint8_t*)out, (float*)parts,
                (const int*)flags, (const int*)valid, (const int*)offs,
                (const int*)seeds, B, Hp, Wp, T, overall, out_mode, chroma,

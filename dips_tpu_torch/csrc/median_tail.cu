@@ -22,7 +22,9 @@
 //
 // Streams: as in median_ring.cu -- grid z is the stream, halos stop at the
 // stream's own rows, the roi mask tests the stream-local row; flags / valid
-// are (S, B) int32 on the device.
+// are (S, B) int32 on the device.  Row slabs too (the dyn_rows and
+// slab_bands forms of _make_kernel): the bands hold the T tail frames'
+// neighbour rows ahead of the new frames', indexed by the same frame.
 //
 // Design: the ring-carry kernel's tile and frame loop (median_ring.cu),
 // with a warm-up loop over the T tail frames in front that only fills the
@@ -40,7 +42,7 @@ namespace {
 
 using namespace dips_median;
 
-template <int W, int M>
+template <int W, int M, bool kBands>
 __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
   constexpr int P = W / 2;
   __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
 #pragma unroll
   for (int k = 0; k < DIPS_MAX_T; ++k) ring[k] = 0.f;
   for (int g = 0; g < a.T; ++g) {
-    const float phi = filtered<W, M>(strip, cm, a, p, g);
+    const float phi = filtered<W, M, kBands>(strip, cm, a, p, g);
 #pragma unroll
     for (int k = 0; k < DIPS_MAX_T; ++k)
       if (k == g) ring[k] = phi;
@@ -67,7 +69,7 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
   float heat = a.heat[p.pix];
 
   for (int f = 0; f < a.B; ++f) {
-    const float phi = filtered<W, M>(strip, cm, a, p, a.T + f);
+    const float phi = filtered<W, M, kBands>(strip, cm, a, p, a.T + f);
     const int slot = f % a.T;  // global frame T+f
 #pragma unroll
     for (int k = 0; k < DIPS_MAX_T; ++k)
@@ -92,25 +94,29 @@ __global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
 }
 
 struct TailKernel {
-  template <int W, int M>
+  template <int W, int M, bool kBands>
   static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
-    median_tail_kernel<W, M><<<grid, block, 0, s>>>(a);
+    median_tail_kernel<W, M, kBands><<<grid, block, 0, s>>>(a);
   }
 };
 
 }  // namespace
 
-// raw is (T+B, 3, S*Hp, Wp); Hp is one stream's padded height; parts is
-// float (B, S, n_tiles, 4).
+// raw is (T+B, 3, S*Hp, Wp); Hp is one section's height (a stream's padded
+// height, or a row slab's); the slab bands btop / bbot are (T+B, 3, S*8,
+// Wp), frame for frame with raw, or both null; parts is float
+// (B, S, n_tiles, 4).
 extern "C" int dips_median_tail(
-    const void* raw, void* base, void* heat, void* out, void* parts,
+    const void* raw, const void* btop, const void* bbot, void* base, void* heat, void* out, void* parts,
     const void* flags, const void* valid, int S, int B, int Hp, int Wp,
     int T, int W, int mode, int overall, int out_mode, int chroma,
     int filter, float k, float sens, float lo_clip, float hi_clip,
     float scale, float thr, int y0, int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma))
+  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
+      (btop == nullptr) != (bbot == nullptr) || (btop != nullptr && W == 1))
     return (int)cudaErrorInvalidValue;
-  MedianArgs a{(const uint8_t*)raw, nullptr, nullptr, (float*)base,
+  MedianArgs a{(const uint8_t*)raw, (const uint8_t*)btop,
+               (const uint8_t*)bbot, nullptr, nullptr, (float*)base,
                (float*)heat, (uint8_t*)out, (float*)parts,
                (const int*)flags, (const int*)valid, nullptr, nullptr, B, Hp,
                Wp, T, overall, out_mode, chroma, filter, k, sens, lo_clip,

@@ -32,6 +32,12 @@
 // stream index comes from the grid; flags / valid are (S, B) and seed is
 // (S,), all int32 on the device.  The roi mask tests the stream-local row.
 //
+// Row slabs (the dyn_rows form of _make_raw_kernel, for
+// parallel/grid2d.py and rowsharded.py): a section may be a horizontal
+// slab of a stream.  There is no stencil, so the only difference is the
+// mask: Hp is the slab's height and [y0, y1) the roi's rows inside the slab
+// (empty when the slab misses the roi), launch arguments like the columns.
+//
 // Design: one thread owns 16 consecutive bytes of one row (uint4 loads and
 // stores, a warp touches 512 contiguous bytes per plane) and loops over the
 // batch's frames in order, so the carried state (ref and the heatmap) is

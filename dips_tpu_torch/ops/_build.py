@@ -55,18 +55,19 @@ SIGNATURES = {
     # S, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
     "dips_raw_ring": [_P] * 9 + [_I] * 11 + [_F, _P],
-    # raw, ring, prev, base, heat, out, parts, flags, valid, offs, seeds,
+    # raw, btop, bbot, ring, prev, base, heat, out, parts, flags, valid,
+    # offs, seeds,
     # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_ring": [_P] * 11 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
+    "dips_median_ring": [_P] * 13 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
     # raw, base, heat, out, parts, flags, valid,
     # S, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
     "dips_raw_tail": [_P] * 7 + [_I] * 12 + [_F, _P],
-    # raw, base, heat, out, parts, flags, valid,
+    # raw, btop, bbot, base, heat, out, parts, flags, valid,
     # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_tail": [_P] * 7 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
+    "dips_median_tail": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

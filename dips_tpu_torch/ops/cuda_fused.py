@@ -32,6 +32,18 @@ median wrappers also count them per spatial filter mode
 (``fn.mode_launches``: the exact median, ``approx_median`` or
 ``quirk_compat``, each a compile-time instance of the kernel).
 
+Row slabs (``parallel/grid2d.py``, ``parallel/rowsharded.py``): the stacked
+steps also take ``row_bounds`` and, the median ones, ``bands`` -- the
+``dyn_rows`` and ``slab_bands`` forms of the Pallas kernels.  A stacked
+section is then a horizontal slab of a stream: ``row_bounds`` = (lo, hi) is
+the statistics / heatmap mask's row window in slab-local rows, shared by
+every section (host integers: they are launch arguments); the statistics
+stay normalised by the FULL image's analysis pixels, so that the slabs'
+partials add up.  ``bands`` = (top, bottom) u8 (frames, 3, s*8, Wp) hold,
+for each section, the 8 rows above and the 8 rows below it: the spatial
+window's taps outside the section read them instead of zeros.  The wrappers
+count these launches per form too (``fn.form_launches``).
+
 Carried state is updated in place: the kernels read it once, keep it in
 registers for the batch, and write it back into the same tensors, which the
 functions also return (the JAX functions donate the same buffers).  The
@@ -46,7 +58,7 @@ in int64 before the one float conversion.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +171,51 @@ def _stream_rows(name: str, raw: torch.Tensor, s: int) -> int:
     return raw.shape[-2] // s
 
 
+#: the row-slab forms of a launch (``fn.form_launches``)
+SLAB_FORMS = ("dyn_rows", "slab_bands")
+
+
+def _row_window(name: str, row_bounds) -> Optional[Tuple[int, int]]:
+    """``row_bounds`` as host integers (lo, hi), or None."""
+    if row_bounds is None:
+        return None
+    if isinstance(row_bounds, torch.Tensor):
+        row_bounds = row_bounds.tolist()
+    lo, hi = (int(v) for v in row_bounds)
+    if lo < 0 or hi < 0:
+        raise ValueError(f"{name}: row_bounds {(lo, hi)} must not be "
+                         f"negative")
+    return lo, hi
+
+
+def _check_bands(name: str, props: DiPsProperties, bands, frames: int,
+                 s: int, wp: int, views: bool = False):
+    """``bands`` as a (top, bottom) pair of contiguous u8 (frames, 3, s*8,
+    Wp) tensors, or None; ``views``: one section's rows of stacked bands,
+    which need not be contiguous."""
+    if bands is None:
+        return None
+    if props.window_size <= 1:
+        raise ValueError("slab bands apply only to stencil windows (> 1)")
+    top, bottom = bands
+    shape = (frames, 3, s * ref.BAND_ROWS, wp)
+    for key, t in (("top band", top), ("bottom band", bottom)):
+        if t.dtype != torch.uint8 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} {t.dtype} {tuple(t.shape)} "
+                             f"is not uint8 {shape}")
+        if not (views or t.is_contiguous()):  # the kernel needs it
+            raise ValueError(f"{name}: {key} must be contiguous")
+    return top, bottom
+
+
+def _section_bands(bands, si: int):
+    """Section ``si``'s own 8 rows of each stacked band."""
+    if bands is None:
+        return None
+    r = slice(si * ref.BAND_ROWS, (si + 1) * ref.BAND_ROWS)
+    return bands[0][:, :, r], bands[1][:, :, r]
+
+
 def _route(name: str, raw: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensors); False: the plain twin (CPU
     tensors).  Any other device raises."""
@@ -212,13 +269,14 @@ def _raw_out_mode(props: DiPsProperties) -> Tuple[int, int]:
 
 def _raw_frames(props: DiPsProperties, h: int, w: int,
                 frames: torch.Tensor, refi: torch.Tensor, flags, vals,
-                heat: torch.Tensor, gated: bool):
+                heat: torch.Tensor, gated: bool, rows=None):
     """Frame loop of the raw plain twins, frame by frame as the body of
     ``_make_raw_kernel`` runs it: frames u8 (B, 3, Hp, Wp), refi int32
     (3, Hp, Wp) the reference of the first frame, heat a private heatmap
     -> (out, int64 partials (B, 1, 1, 4), the final reference, heat).
     ``gated`` (ring protocol): capture and the PER_FRAME advance skip
-    invalid frames; the tail protocol's are ungated."""
+    invalid frames; the tail protocol's are ungated.  ``rows`` = (lo, hi):
+    the frames are a row slab and the roi mask's rows are [lo, hi) of it."""
     overall = props.method == DiPsMethod.OVERALL
     b = frames.shape[0]
     hp, wp = frames.shape[-2], frames.shape[-1]
@@ -226,7 +284,10 @@ def _raw_frames(props: DiPsProperties, h: int, w: int,
     thr = props.change_threshold
     rm = None
     if props.roi is not None:
-        rm = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
+        y0, x0, y1, x1 = props.roi_bounds(h, w)
+        if rows is not None:
+            y0, y1 = rows
+        rm = ref.valid_mask(hp, wp, h, w, (y0, x0, y1, x1),
                             device=frames.device).to(torch.int32)
     out = torch.empty((b, c, hp, wp), dtype=torch.uint8,
                       device=frames.device)
@@ -260,14 +321,25 @@ def _raw_frames(props: DiPsProperties, h: int, w: int,
     return out, parts, refi, heat
 
 
+def _raw_row_window(name: str, props: DiPsProperties, row_bounds):
+    """The raw steps' ``row_bounds`` as host integers; they need an roi."""
+    rows = _row_window(name, row_bounds)
+    if rows is not None and props.roi is None:
+        raise ValueError("row_bounds applies only with an roi (the raw "
+                         "kernel is maskless otherwise)")
+    return rows
+
+
 def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
                             raw: torch.Tensor, prev: torch.Tensor,
                             baseline_raw: torch.Tensor, snap_flags,
-                            heatmap: torch.Tensor, valid, seed):
+                            heatmap: torch.Tensor, valid, seed,
+                            row_bounds=None):
     """Plain twin of one stream of the raw ring step: raw (B, 3, Hp, Wp),
     flags / valid (B,), seed int -> (out, stats (B, 4), prev, baseline,
     heatmap), state in place."""
     overall = props.method == DiPsMethod.OVERALL
+    rows = _raw_row_window("absdiff_step_ring", props, row_bounds)
     b = raw.shape[0]
     flags = _host_rows(snap_flags, (b,), "absdiff_step_ring", "snap_flags")
     vals = _host_rows(valid, (b,), "absdiff_step_ring", "valid")
@@ -275,7 +347,8 @@ def absdiff_step_ring_plain(props: DiPsProperties, h: int, w: int,
     if not overall and int(seed):
         refi = raw[0].to(torch.int32)
     out, parts, refi, heat = _raw_frames(props, h, w, raw, refi, flags,
-                                         vals, heatmap.clone(), gated=True)
+                                         vals, heatmap.clone(), gated=True,
+                                         rows=rows)
     if overall:
         baseline_raw.copy_(refi.to(torch.uint8))
     else:
@@ -289,7 +362,8 @@ def absdiff_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
                                     s: int, raw: torch.Tensor,
                                     prev: torch.Tensor,
                                     baseline_raw: torch.Tensor, snap_flags,
-                                    heatmap: torch.Tensor, valid, seeds):
+                                    heatmap: torch.Tensor, valid, seeds,
+                                    row_bounds=None):
     """Plain twin of :func:`absdiff_step_ring_stacked`: the streams are
     independent, so each stream's row section (a view) runs through
     :func:`absdiff_step_ring_plain`, and its state is written back in
@@ -305,7 +379,7 @@ def absdiff_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
         r = slice(si * hp, (si + 1) * hp)
         o, st, *_ = absdiff_step_ring_plain(
             props, h, w, raw[:, :, r], prev[:, r], baseline_raw[:, r],
-            flags[si], heatmap[r], vals[si], sd[si])
+            flags[si], heatmap[r], vals[si], sd[si], row_bounds)
         outs.append(o)
         stats.append(st)
     return (torch.cat(outs, dim=2), torch.stack(stats), prev, baseline_raw,
@@ -324,11 +398,15 @@ def _new_frames(name: str, props: DiPsProperties, raw: torch.Tensor) -> int:
 
 def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
                 raw: torch.Tensor, prev, baseline_raw: torch.Tensor,
-                snap_flags, heatmap: torch.Tensor, valid, seeds):
+                snap_flags, heatmap: torch.Tensor, valid, seeds,
+                row_bounds=None):
     """One launch of ``csrc/raw_ring.cu`` over s row-stacked streams: the
     ring step, or the tail step when ``prev`` is None (raw then starts with
-    the T tail frames, and there are no seeds)."""
+    the T tail frames, and there are no seeds).  ``row_bounds``: the
+    sections are row slabs and the roi mask's rows are that window of each
+    (the ``dyn_rows`` form); the statistics keep the full image's scale."""
     from . import _build
+    rows = _raw_row_window(name, props, row_bounds)
     tail = prev is None
     t_in = props.temporal_size if tail else 0
     b = _new_frames(name, props, raw) if tail else raw.shape[0]
@@ -353,19 +431,25 @@ def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.int32, device=dev)
     y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
                       else props.roi_bounds(h, w))
+    if rows is not None:
+        y0, y1 = rows
     common = (int(props.method == DiPsMethod.OVERALL), mode,
               props.change_threshold, y0, x0, y1, x1,
               _f32(1.0 / (3 * 255.0)), _stream_ptr(dev))
-    if tail:
-        rc = _build.lib().dips_raw_tail(
-            _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
-            _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp, *common)
-    else:
-        rc = _build.lib().dips_raw_ring(
-            _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
-            _ptr(out), _ptr(parts), *map(_ptr, scalars), s, b, hp, wp,
-            *common)
-    _build.check(rc, name)
+    # the launch goes to the CURRENT device: make it the tensors' own (a
+    # mesh cell on another card than the process's current one)
+    with torch.cuda.device(dev):
+        if tail:
+            rc = _build.lib().dips_raw_tail(
+                _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
+                _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp,
+                *common)
+        else:
+            rc = _build.lib().dips_raw_ring(
+                _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
+                _ptr(out), _ptr(parts), *map(_ptr, scalars), s, b, hp, wp,
+                *common)
+        _build.check(rc, name)
     stats = reduce_raw_stats(parts, props, h, w)
     if tail:
         return out, stats, baseline_raw, heatmap
@@ -375,22 +459,26 @@ def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
 def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
                               raw: torch.Tensor, prev: torch.Tensor,
                               baseline_raw: torch.Tensor, snap_flags,
-                              heatmap: torch.Tensor, valid, seeds):
+                              heatmap: torch.Tensor, valid, seeds,
+                              row_bounds=None):
     """Raw ring-carry step over ``s`` streams stacked along the rows.
 
     raw u8 (B, 3, s*Hp, Wp), prev / baseline_raw u8 (3, s*Hp, Wp), heatmap
     f32 (s*Hp, Wp), snap_flags / valid (s, B), seeds (s,) ->
     (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), prev, baseline, heatmap),
     C = 3 (ABSDIFF), 1 (THRESHOLD) or 0 (no map).  State is updated in
-    place and returned."""
+    place and returned.  ``row_bounds`` (lo, hi), only with an roi: the
+    sections are row slabs of Hp rows, the roi's rows are [lo, hi) of each,
+    and the stats are the slab's partials on the full image's scale."""
     name = "absdiff_step_ring_stacked"
     if not _route(name, raw):
         return absdiff_step_ring_stacked_plain(props, h, w, s, raw, prev,
                                                baseline_raw, snap_flags,
-                                               heatmap, valid, seeds)
+                                               heatmap, valid, seeds,
+                                               row_bounds)
     res = _launch_raw(name, props, h, w, s, raw, prev, baseline_raw,
-                      snap_flags, heatmap, valid, seeds)
-    absdiff_step_ring_stacked.launches += 1
+                      snap_flags, heatmap, valid, seeds, row_bounds)
+    _count_launch(absdiff_step_ring_stacked, row_bounds=row_bounds)
     return res
 
 
@@ -416,7 +504,7 @@ def absdiff_step_ring(props: DiPsProperties, h: int, w: int,
         out, stats, *state = absdiff_step_ring_stacked_plain(*args)
     else:
         out, stats, *state = _launch_raw(name, *args)
-        absdiff_step_ring.launches += 1
+        _count_launch(absdiff_step_ring)
     return (out, stats[0], *state)
 
 
@@ -455,30 +543,41 @@ def spatial_mode(props: DiPsProperties) -> str:
     return "approx_median" if props.approx_median else "exact"
 
 
-def _count_launch(fn, props: DiPsProperties) -> None:
-    """One launch of median wrapper ``fn``: its total and its spatial
-    mode's count."""
+def _count_launch(fn, props: Optional[DiPsProperties] = None,
+                  row_bounds=None, bands=None) -> None:
+    """One launch of wrapper ``fn``: its total, its spatial mode's count
+    (the median wrappers pass ``props``) and its row-slab form's."""
     fn.launches += 1
-    fn.mode_launches[spatial_mode(props)] += 1
+    if props is not None:
+        fn.mode_launches[spatial_mode(props)] += 1
+    if bands is not None:
+        fn.form_launches["slab_bands"] += 1
+    elif row_bounds is not None:
+        fn.form_launches["dyn_rows"] += 1
 
 
 def _median_frames(props: DiPsProperties, h: int, w: int,
                    phis: torch.Tensor, slots: list, off: int,
                    pv: torch.Tensor, base: torch.Tensor, heat: torch.Tensor,
-                   flags, vals, gated: bool):
+                   flags, vals, gated: bool, rows=None):
     """Frame loop of the median plain twins, frame by frame as the kernel
     bodies run it (the counterpart of ``_emit_median_frame``): phis f32
     (B, Hp, Wp) the frames' spatial medians, ``slots`` the T ring planes
     (a list, rewritten here), frame m writing slot (off + m) mod T; pv /
     base / heat private planes -> (out, partials (B, 1, 1, 4), pv, base,
     heat).  ``gated`` (ring protocol): invalid frames write no slot, no
-    capture and no PER_FRAME advance; the tail protocol's are ungated."""
+    capture and no PER_FRAME advance; the tail protocol's are ungated.
+    ``rows`` = (lo, hi): the planes are a row slab and the statistics /
+    heatmap mask's rows are [lo, hi) of it."""
     overall = props.method == DiPsMethod.OVERALL
     t = props.temporal_size
     b = phis.shape[0]
     hp, wp = phis.shape[-2], phis.shape[-1]
     mode, c = _median_out_mode(props)
-    mask = ref.valid_mask(hp, wp, h, w, props.roi_bounds(h, w),
+    y0, x0, y1, x1 = props.roi_bounds(h, w)
+    if rows is not None:
+        y0, y1 = rows
+    mask = ref.valid_mask(hp, wp, h, w, (y0, x0, y1, x1),
                           device=phis.device)
     thr = _change_thr(props)
     out = torch.empty((b, c, hp, wp), dtype=torch.uint8, device=phis.device)
@@ -530,18 +629,22 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
                           raw: torch.Tensor, ring: torch.Tensor,
                           prev: torch.Tensor, baseline: torch.Tensor,
                           snap_flags, heatmap: torch.Tensor, valid, offset,
-                          seed):
+                          seed, row_bounds=None, bands=None):
     """Plain twin of one stream of the median ring step: raw (B, 3, Hp,
     Wp), flags / valid (B,), offset / seed int -> (out, stats (B, 4), ring,
     prev, baseline, heatmap), state in place.  ``seed`` fills every ring
-    slot (and prev, in PER_FRAME) with frame 0."""
+    slot (and prev, in PER_FRAME) with frame 0.  ``row_bounds`` / ``bands``
+    (u8 (B, 3, 8, Wp) each): the row-slab forms."""
     name = "batch_step_ring"
     _check_median_props(name, props)
     t = props.temporal_size
     b = raw.shape[0]
     flags = _host_rows(snap_flags, (b,), name, "snap_flags")
     vals = _host_rows(valid, (b,), name, "valid")
-    phis = ref.filtered_planes(raw, props)
+    rows = _row_window(name, row_bounds)
+    phis = ref.filtered_planes(
+        raw, props,
+        _check_bands(name, props, bands, b, 1, raw.shape[-1], views=True))
     slots = [ring[k].clone() for k in range(t)]
     pv = prev.clone()
     if int(seed):
@@ -550,7 +653,7 @@ def batch_step_ring_plain(props: DiPsProperties, h: int, w: int,
             pv = phis[0]
     out, parts, pv, base, heat = _median_frames(
         props, h, w, phis, slots, int(offset) % t, pv, baseline.clone(),
-        heatmap.clone(), flags, vals, gated=True)
+        heatmap.clone(), flags, vals, gated=True, rows=rows)
     for k in range(t):
         ring[k].copy_(slots[k])
     if props.method == DiPsMethod.OVERALL:
@@ -567,14 +670,16 @@ def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
                                   ring: torch.Tensor, prev: torch.Tensor,
                                   baseline: torch.Tensor, snap_flags,
                                   heatmap: torch.Tensor, valid, offsets,
-                                  seeds):
+                                  seeds, row_bounds=None, bands=None):
     """Plain twin of :func:`batch_step_ring_stacked`: the streams are
     independent and the halo stops at each stream's rows, so each stream's
     row section (a view) runs through :func:`batch_step_ring_plain`, and
-    its state is written back in place."""
+    its state is written back in place.  With ``bands`` each section reads
+    its own 8 band rows, never a neighbouring section's."""
     name = "batch_step_ring_stacked"
     b = raw.shape[0]
     hp = _stream_rows(name, raw, s)
+    bands = _check_bands(name, props, bands, b, s, raw.shape[-1])
     flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
     vals = _host_rows(valid, (s, b), name, "valid")
     offs = _host_rows(offsets, (s,), name, "offsets")
@@ -584,7 +689,8 @@ def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
         r = slice(si * hp, (si + 1) * hp)
         o, st, *_ = batch_step_ring_plain(
             props, h, w, raw[:, :, r], ring[:, r], prev[r], baseline[r],
-            flags[si], heatmap[r], vals[si], offs[si], sd[si])
+            flags[si], heatmap[r], vals[si], offs[si], sd[si], row_bounds,
+            _section_bands(bands, si))
         outs.append(o)
         stats.append(st)
     return (torch.cat(outs, dim=2), torch.stack(stats), ring, prev,
@@ -593,12 +699,17 @@ def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
 
 def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
                    raw: torch.Tensor, ring, prev, baseline: torch.Tensor,
-                   snap_flags, heatmap: torch.Tensor, valid, offsets, seeds):
+                   snap_flags, heatmap: torch.Tensor, valid, offsets, seeds,
+                   row_bounds=None, bands=None):
     """One launch over s row-stacked streams of ``csrc/median_ring.cu``,
     or of ``csrc/median_tail.cu`` when ``ring`` is None (raw then starts
-    with the T tail frames; there is no ring, prev, offset or seed)."""
+    with the T tail frames; there is no ring, prev, offset or seed).
+    ``row_bounds`` / ``bands``: the sections are row slabs (the
+    ``dyn_rows`` and ``slab_bands`` forms); the statistics keep the full
+    image's scale."""
     _check_median_props(name, props)
     from . import _build
+    rows = _row_window(name, row_bounds)
     tail = ring is None
     t = props.temporal_size
     b = _new_frames(name, props, raw) if tail else raw.shape[0]
@@ -613,6 +724,11 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
     if not tail:
         tensors.update(ring=(ring, torch.float32, (t,) + plane),
                        prev=(prev, torch.float32, plane))
+    bands = _check_bands(name, props, bands, raw.shape[0], s, wp)
+    if bands is not None:
+        band = (raw.shape[0], 3, s * ref.BAND_ROWS, wp)
+        tensors.update(top_band=(bands[0], torch.uint8, band),
+                       bottom_band=(bands[1], torch.uint8, band))
     _check_cuda(name, dev, **tensors)
     if hp % 8 or wp % 32:
         raise ValueError(f"{name}: padded geometry {hp}x{wp} must be a "
@@ -628,6 +744,10 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
     out = torch.empty((b, c) + plane, dtype=torch.uint8, device=dev)
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = props.roi_bounds(h, w)
+    if rows is not None:
+        y0, y1 = rows
+    band_ptrs = ((ctypes.c_void_p(None),) * 2 if bands is None
+                 else tuple(map(_ptr, bands)))
     common = (s, b, hp, wp, t, props.window_size,
               SPATIAL_MODES.index(spatial_mode(props)),
               int(props.method == DiPsMethod.OVERALL), mode,
@@ -636,15 +756,17 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
               _f32(-0.5 + ref.INV_SIGMOID_EPS),
               _f32(0.5 - ref.INV_SIGMOID_EPS), ref.INTENSITY_SCALE,
               _change_thr(props), y0, x0, y1, x1, _stream_ptr(dev))
-    if tail:
-        rc = _build.lib().dips_median_tail(
-            _ptr(raw), _ptr(baseline), _ptr(heatmap), _ptr(out), _ptr(parts),
-            *map(_ptr, scalars), *common)
-    else:
-        rc = _build.lib().dips_median_ring(
-            _ptr(raw), _ptr(ring), _ptr(prev), _ptr(baseline), _ptr(heatmap),
-            _ptr(out), _ptr(parts), *map(_ptr, scalars), *common)
-    _build.check(rc, name)
+    with torch.cuda.device(dev):  # see _launch_raw
+        if tail:
+            rc = _build.lib().dips_median_tail(
+                _ptr(raw), *band_ptrs, _ptr(baseline), _ptr(heatmap),
+                _ptr(out), _ptr(parts), *map(_ptr, scalars), *common)
+        else:
+            rc = _build.lib().dips_median_ring(
+                _ptr(raw), *band_ptrs, _ptr(ring), _ptr(prev),
+                _ptr(baseline), _ptr(heatmap), _ptr(out), _ptr(parts),
+                *map(_ptr, scalars), *common)
+        _build.check(rc, name)
     stats = reduce_median_stats(parts, props, h, w)
     if tail:
         return out, stats, baseline, heatmap
@@ -655,7 +777,7 @@ def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
                             raw: torch.Tensor, ring: torch.Tensor,
                             prev: torch.Tensor, baseline: torch.Tensor,
                             snap_flags, heatmap: torch.Tensor, valid,
-                            offsets, seeds):
+                            offsets, seeds, row_bounds=None, bands=None):
     """Median ring-carry step over ``s`` streams stacked along the rows.
 
     raw u8 (B, 3, s*Hp, Wp), ring f32 (T, s*Hp, Wp), prev / baseline /
@@ -663,15 +785,25 @@ def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
     -> (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), ring, prev, baseline,
     heatmap), C = 3 (COLORIZE), 1 (GRAYSCALE) or 0 (``emit_maps=False``).
     The spatial halo stops at each stream's rows.  State is updated in place
-    and returned."""
+    and returned.
+
+    Row slabs: with ``row_bounds`` (lo, hi) the sections are slabs of Hp
+    rows, the statistics / heatmap mask's rows are [lo, hi) of each, and the
+    stats are the slab's partials on the full image's scale (sum, sum, max,
+    sum over the slabs of a stream give its stats).  With ``bands`` = (top,
+    bottom) u8 (B, 3, s*8, Wp) the window's taps above / below a section
+    read the last / first rows of its own 8 band rows instead of zeros
+    (window 1 has no taps there and raises)."""
     name = "batch_step_ring_stacked"
     if not _route(name, raw):
         return batch_step_ring_stacked_plain(props, h, w, s, raw, ring, prev,
                                              baseline, snap_flags, heatmap,
-                                             valid, offsets, seeds)
+                                             valid, offsets, seeds,
+                                             row_bounds, bands)
     res = _launch_median(name, props, h, w, s, raw, ring, prev, baseline,
-                         snap_flags, heatmap, valid, offsets, seeds)
-    _count_launch(batch_step_ring_stacked, props)
+                         snap_flags, heatmap, valid, offsets, seeds,
+                         row_bounds, bands)
+    _count_launch(batch_step_ring_stacked, props, row_bounds, bands)
     return res
 
 
@@ -709,7 +841,8 @@ batch_step_ring.launches = 0
 
 def absdiff_step_plain(props: DiPsProperties, h: int, w: int,
                        raw: torch.Tensor, baseline_raw: torch.Tensor,
-                       snap_flags, heatmap: torch.Tensor, valid):
+                       snap_flags, heatmap: torch.Tensor, valid,
+                       row_bounds=None):
     """Plain twin of one stream of the raw tail step: raw (T+B, 3, Hp, Wp),
     flags / valid (B,) -> (out, stats (B, 4), baseline, heatmap), state in
     place.  OVERALL reads only the B new frames; PER_FRAME starts from the
@@ -719,10 +852,12 @@ def absdiff_step_plain(props: DiPsProperties, h: int, w: int,
     b = _new_frames(name, props, raw)
     flags = _host_rows(snap_flags, (b,), name, "snap_flags")
     vals = _host_rows(valid, (b,), name, "valid")
+    rows = _raw_row_window(name, props, row_bounds)
     overall = props.method == DiPsMethod.OVERALL
     refi = (baseline_raw if overall else raw[t - 1]).to(torch.int32)
     out, parts, refi, heat = _raw_frames(props, h, w, raw[t:], refi, flags,
-                                         vals, heatmap.clone(), gated=False)
+                                         vals, heatmap.clone(), gated=False,
+                                         rows=rows)
     if overall:
         baseline_raw.copy_(refi.to(torch.uint8))
     heatmap.copy_(heat)
@@ -732,7 +867,8 @@ def absdiff_step_plain(props: DiPsProperties, h: int, w: int,
 
 def absdiff_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
                                raw: torch.Tensor, baseline_raw: torch.Tensor,
-                               snap_flags, heatmap: torch.Tensor, valid):
+                               snap_flags, heatmap: torch.Tensor, valid,
+                               row_bounds=None):
     """Plain twin of :func:`absdiff_step_stacked`: each stream's row
     section (a view) runs through :func:`absdiff_step_plain`."""
     name = "absdiff_step_stacked"
@@ -745,7 +881,7 @@ def absdiff_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
         r = slice(si * hp, (si + 1) * hp)
         o, st, *_ = absdiff_step_plain(props, h, w, raw[:, :, r],
                                        baseline_raw[:, r], flags[si],
-                                       heatmap[r], vals[si])
+                                       heatmap[r], vals[si], row_bounds)
         outs.append(o)
         stats.append(st)
     return torch.cat(outs, dim=2), torch.stack(stats), baseline_raw, heatmap
@@ -753,21 +889,24 @@ def absdiff_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
 
 def absdiff_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
                          raw: torch.Tensor, baseline_raw: torch.Tensor,
-                         snap_flags, heatmap: torch.Tensor, valid):
+                         snap_flags, heatmap: torch.Tensor, valid,
+                         row_bounds=None):
     """Raw tail step over ``s`` streams stacked along the rows.
 
     raw u8 (T+B, 3, s*Hp, Wp), the T tail frames first; baseline_raw u8
     (3, s*Hp, Wp); heatmap f32 (s*Hp, Wp); snap_flags / valid (s, B) ->
     (out u8 (B, C, s*Hp, Wp), stats f32 (s, B, 4), baseline, heatmap).
     Capture is not gated on ``valid``.  State is updated in place and
-    returned."""
+    returned.  ``row_bounds``: the row-slab form, as in
+    :func:`absdiff_step_ring_stacked`."""
     name = "absdiff_step_stacked"
     if not _route(name, raw):
         return absdiff_step_stacked_plain(props, h, w, s, raw, baseline_raw,
-                                          snap_flags, heatmap, valid)
+                                          snap_flags, heatmap, valid,
+                                          row_bounds)
     res = _launch_raw(name, props, h, w, s, raw, None, baseline_raw,
-                      snap_flags, heatmap, valid, None)
-    absdiff_step_stacked.launches += 1
+                      snap_flags, heatmap, valid, None, row_bounds)
+    _count_launch(absdiff_step_stacked, row_bounds=row_bounds)
     return res
 
 
@@ -793,7 +932,7 @@ def absdiff_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
         out, stats, *state = _launch_raw(name, props, h, w, 1, raw, None,
                                          baseline_raw, flags, heatmap, vals,
                                          None)
-        absdiff_step.launches += 1
+        _count_launch(absdiff_step)
     return (out, stats[0], *state)
 
 
@@ -806,22 +945,30 @@ absdiff_step.launches = 0
 
 def batch_step_plain(props: DiPsProperties, h: int, w: int,
                      raw: torch.Tensor, baseline: torch.Tensor, snap_flags,
-                     heatmap: torch.Tensor, valid):
+                     heatmap: torch.Tensor, valid, row_bounds=None,
+                     bands=None):
     """Plain twin of one stream of the median tail step: raw (T+B, 3, Hp,
     Wp), flags / valid (B,) -> (out, stats (B, 4), baseline, heatmap),
     state in place.  The T tail frames fill the ring (slot k = tail frame
-    k); PER_FRAME's first reference is their median."""
+    k); PER_FRAME's first reference is their median.  ``row_bounds`` /
+    ``bands`` (u8 (T+B, 3, 8, Wp) each, the tail frames' rows included):
+    the row-slab forms."""
     name = "batch_step"
     _check_median_props(name, props)
     t = props.temporal_size
     b = _new_frames(name, props, raw)
     flags = _host_rows(snap_flags, (b,), name, "snap_flags")
     vals = _host_rows(valid, (b,), name, "valid")
-    phis = ref.filtered_planes(raw, props)
+    rows = _row_window(name, row_bounds)
+    phis = ref.filtered_planes(
+        raw, props,
+        _check_bands(name, props, bands, t + b, 1, raw.shape[-1],
+                     views=True))
     slots = [phis[k] for k in range(t)]
     out, parts, _, base, heat = _median_frames(
         props, h, w, phis[t:], slots, 0, ref.temporal_median(slots),
-        baseline.clone(), heatmap.clone(), flags, vals, gated=False)
+        baseline.clone(), heatmap.clone(), flags, vals, gated=False,
+        rows=rows)
     if props.method == DiPsMethod.OVERALL:
         baseline.copy_(base)
     heatmap.copy_(heat)
@@ -831,7 +978,8 @@ def batch_step_plain(props: DiPsProperties, h: int, w: int,
 
 def batch_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
                              raw: torch.Tensor, baseline: torch.Tensor,
-                             snap_flags, heatmap: torch.Tensor, valid):
+                             snap_flags, heatmap: torch.Tensor, valid,
+                             row_bounds=None, bands=None):
     """Plain twin of :func:`batch_step_stacked`: the halo stops at each
     stream's rows, so each stream's row section (a view) runs through
     :func:`batch_step_plain`."""
@@ -840,11 +988,13 @@ def batch_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
     hp = _stream_rows(name, raw, s)
     flags = _host_rows(snap_flags, (s, b), name, "snap_flags")
     vals = _host_rows(valid, (s, b), name, "valid")
+    bands = _check_bands(name, props, bands, raw.shape[0], s, raw.shape[-1])
     outs, stats = [], []
     for si in range(s):
         r = slice(si * hp, (si + 1) * hp)
         o, st, *_ = batch_step_plain(props, h, w, raw[:, :, r], baseline[r],
-                                     flags[si], heatmap[r], vals[si])
+                                     flags[si], heatmap[r], vals[si],
+                                     row_bounds, _section_bands(bands, si))
         outs.append(o)
         stats.append(st)
     return torch.cat(outs, dim=2), torch.stack(stats), baseline, heatmap
@@ -852,21 +1002,26 @@ def batch_step_stacked_plain(props: DiPsProperties, h: int, w: int, s: int,
 
 def batch_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
                        raw: torch.Tensor, baseline: torch.Tensor, snap_flags,
-                       heatmap: torch.Tensor, valid):
+                       heatmap: torch.Tensor, valid, row_bounds=None,
+                       bands=None):
     """Median tail step over ``s`` streams stacked along the rows.
 
     raw u8 (T+B, 3, s*Hp, Wp), the T tail frames first; baseline / heatmap
     f32 (s*Hp, Wp); snap_flags / valid (s, B) -> (out u8 (B, C, s*Hp, Wp),
     stats f32 (s, B, 4), baseline, heatmap).  The ring is rebuilt from the
     tail at every call; capture and the PER_FRAME advance are not gated on
-    ``valid``.  State is updated in place and returned."""
+    ``valid``.  State is updated in place and returned.  ``row_bounds`` /
+    ``bands`` (u8 (T+B, 3, s*8, Wp) each): the row-slab forms, as in
+    :func:`batch_step_ring_stacked`; the bands cover the tail frames too."""
     name = "batch_step_stacked"
     if not _route(name, raw):
         return batch_step_stacked_plain(props, h, w, s, raw, baseline,
-                                        snap_flags, heatmap, valid)
+                                        snap_flags, heatmap, valid,
+                                        row_bounds, bands)
     res = _launch_median(name, props, h, w, s, raw, None, None, baseline,
-                         snap_flags, heatmap, valid, None, None)
-    _count_launch(batch_step_stacked, props)
+                         snap_flags, heatmap, valid, None, None, row_bounds,
+                         bands)
+    _count_launch(batch_step_stacked, props, row_bounds, bands)
     return res
 
 
@@ -903,6 +1058,11 @@ _KERNELS = (absdiff_step_ring, batch_step_ring, absdiff_step_ring_stacked,
             absdiff_step_stacked, batch_step_stacked)
 _MEDIAN_KERNELS = (batch_step_ring, batch_step_ring_stacked, batch_step,
                    batch_step_stacked)
+#: wrapper -> its row-slab forms (the raw steps have no stencil: no bands)
+_SLAB_KERNELS = {absdiff_step_ring_stacked: SLAB_FORMS[:1],
+                 absdiff_step_stacked: SLAB_FORMS[:1],
+                 batch_step_ring_stacked: SLAB_FORMS,
+                 batch_step_stacked: SLAB_FORMS}
 
 
 def reset_launch_counts() -> None:
@@ -910,15 +1070,22 @@ def reset_launch_counts() -> None:
     too."""
     for fn in _KERNELS:
         fn.launches = 0
+    for fn in _SLAB_KERNELS:
+        fn.form_launches = dict.fromkeys(SLAB_FORMS, 0)
     for fn in _MEDIAN_KERNELS:
         fn.mode_launches = dict.fromkeys(SPATIAL_MODES, 0)
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper (``name``: all its launches) and, for the
-    median wrappers, per non-exact spatial mode (``name:approx_median``,
+    """Launches per wrapper (``name``: all its launches), per row-slab
+    form of the stacked wrappers (``name:dyn_rows``: with ``row_bounds``
+    and no bands; ``name:slab_bands``: with bands) and, for the median
+    wrappers, per non-exact spatial mode (``name:approx_median``,
     ``name:quirk_compat``)."""
     counts = {fn.__name__: fn.launches for fn in _KERNELS}
+    for fn, forms in _SLAB_KERNELS.items():
+        for form in forms:
+            counts[f"{fn.__name__}:{form}"] = fn.form_launches[form]
     for fn in _MEDIAN_KERNELS:
         for mode in SPATIAL_MODES[1:]:
             counts[f"{fn.__name__}:{mode}"] = fn.mode_launches[mode]

@@ -151,18 +151,27 @@ def intensity_planar(rgb_u8: torch.Tensor, chroma: ChromaFilter
 
 
 def spatial_median(planes: torch.Tensor, window: int, approx: bool = False,
-                   quirk: bool = False) -> torch.Tensor:
+                   quirk: bool = False, top: Optional[torch.Tensor] = None,
+                   bottom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., H, W) centered window filter with zero out-of-bounds taps: the
     exact median through the column-factored plan of
     ``networks.window_median``; ``approx`` the separable approximation
     (``networks.separable_median``, DiPsProperties.approx_median);
     ``quirk`` the reference's off-center rank pick
-    (``networks.quirk_window_select``, DiPsProperties.quirk_compat)."""
+    (``networks.quirk_window_select``, DiPsProperties.quirk_compat).
+
+    ``top`` / ``bottom`` (..., window // 2, W): the rows just above and
+    just below the planes, read by the taps that would otherwise read the
+    zero fill there (a row slab's neighbour rows); the columns outside
+    [0, W) stay zero."""
     if window <= 1:
         return planes
     p = window // 2
     h, w = planes.shape[-2], planes.shape[-1]
     padded = F.pad(planes, (p, p, p, p))
+    if top is not None:
+        padded[..., :p, p:p + w] = top
+        padded[..., p + h:, p:p + w] = bottom
 
     def shift(x, dx):
         return x[..., p + dx:p + dx + w]
@@ -176,16 +185,32 @@ def spatial_median(planes: torch.Tensor, window: int, approx: bool = False,
     return fn(vtaps, shift, torch.minimum, torch.maximum)
 
 
-def filtered_planes(raw_u8: torch.Tensor, props: DiPsProperties
-                    ) -> torch.Tensor:
+#: rows of a slab band: one 8-row block covers the widest halo (window 7)
+BAND_ROWS = 8
+
+
+def filtered_planes(raw_u8: torch.Tensor, props: DiPsProperties,
+                    bands=None) -> torch.Tensor:
     """uint8 planar (..., 3, H, W) -> the spatially filtered (..., H, W)
     planes that enter the temporal ring: intensity, then the window filter
     of ``props``; with ``quirk_compat`` rounded back to the u8 grid (even
     integers on the [0, 510] scale, half to even), as the reference's
-    rgba8unorm store does before its temporal median."""
+    rgba8unorm store does before its temporal median.
+
+    ``bands`` = (top, bottom) u8 (..., 3, 8, W): the 8 rows above and the
+    8 rows below the planes (a row slab's neighbour bands); the window's
+    taps outside the planes read the last window // 2 rows of ``top`` and
+    the first of ``bottom`` instead of zeros."""
+    p = props.window_size // 2
+    fill = {}
+    if bands is not None and p:
+        top, bottom = bands
+        fill = dict(
+            top=intensity_planar(top[..., BAND_ROWS - p:, :], props.chroma),
+            bottom=intensity_planar(bottom[..., :p, :], props.chroma))
     phi = spatial_median(intensity_planar(raw_u8, props.chroma),
                          props.window_size, props.approx_median,
-                         props.quirk_compat)
+                         props.quirk_compat, **fill)
     if props.quirk_compat:
         phi = 2.0 * torch.round(phi * 0.5)
     return phi

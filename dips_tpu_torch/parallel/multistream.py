@@ -1,8 +1,8 @@
 """MultiStreamEngine: a fleet of video streams through one stacked launch.
 
-Counterpart of ``dips_tpu/parallel/multistream.py`` on one device, on
-either of the JAX engine's protocols.  All S streams fold along the row
-axis of ONE launch of a stacked kernel per batch:
+Counterpart of ``dips_tpu/parallel/multistream.py``, on either of the JAX
+engine's protocols.  Without a mesh all S streams fold along the row axis
+of ONE launch of a stacked kernel per batch:
 
 * ring-carry (``ring_carry=True``, the default; the JAX engine builds
   ``make_sharded_ring_step`` for it): ``ops/cuda_fused.
@@ -12,11 +12,26 @@ axis of ONE launch of a stacked kernel per batch:
   ``ops/cuda_fused.absdiff_step_stacked`` / ``batch_step_stacked`` over
   (T+B, 3, S*Hp, Wp), each stream's raw tail in rows [0, T).
 
-The engine owns its state row-stacked on ``device``, in the kernels' own
-layout: ring (T, S*Hp, Wp), prev / baseline (3 or 1, S*Hp, Wp), heatmap
-(S*Hp, Wp); stream ``si`` owns rows [si*Hp, (si+1)*Hp).  Each batch is
-staged straight into the row-stacked planar input, seen as
-(F, 3, S, Hp, Wp), so the fleet pays no transpose copy per batch.
+With a mesh (``mesh.py``) the fleet is split over its cells and each cell
+is one launch per batch: a 1-D stream mesh (:func:`stream_mesh`) gives
+each cell a subset of the streams at full height; a 2-D (stream, rows) grid
+(``grid2d.grid_mesh``) gives each cell a horizontal slab of a subset of the
+streams and runs the slab kernels of ``grid2d.py`` (``slab_impl``: "bands"
+or "extended").  The kernels need 8-row-aligned slabs: a grid on a card
+whose slabs are not raises, and a grid of CPU cells runs the plain twins at
+that slab height, in the tail protocol.  Outputs, statistics and
+checkpoints do not depend on the mesh.
+
+The engine owns its state row-stacked, in the kernels' own layout: ring
+(T, S*Hp, Wp), prev / baseline (3 or 1, S*Hp, Wp), heatmap (S*Hp, Wp);
+stream ``si`` owns rows [si*Hp, (si+1)*Hp).  The state lives in the mesh's
+cells (``mesh.Layout``: cell (i, j) holds rows [j*Hs, (j+1)*Hs) of its
+S_l streams, row-stacked again, on its own device); without a mesh the one
+cell is the whole state on ``device``.  Each batch is staged straight into
+the row-stacked planar input on ``device``, seen as (F, 3, S, Hp, Wp), so
+the fleet pays no transpose copy per batch; a mesh's cells then take their
+slabs of it (one strided copy each), and their outputs are gathered on
+``device`` before the one download.
 
 A stream that is not staged in a batch (idle, exhausted or failed) is fed
 zeros, in its frame rows and, in the tail protocol, in its tail rows, as
@@ -38,9 +53,7 @@ and in both protocols: the fleet's ``save`` / ``load`` and one slot's
 ``save_stream`` / ``load_stream`` (``DiPsEngine``'s format, so a slot moves
 to and from a single-stream engine of either package).  They hold raw
 planar u8 tails; after a load the ring engine rebuilds its ring from them
-with one stacked launch.
-
-Not in this slice: meshes (the port runs on one device).
+with one stacked launch (one per cell on a mesh).
 """
 
 from __future__ import annotations
@@ -53,12 +66,30 @@ import torch
 from ..errors import StreamError
 from ..models.pipeline import (analysis_geometry, check_packed_wire,
                                resolve_device)
-from ..ops import cuda_fused, reference, wire
+from ..ops import reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
+from .grid2d import run_grid_ring_step, run_grid_step, slab_rows_ok
+from .mesh import Layout, Mesh, visible_devices
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
               OutputMode.STATS_ONLY)
+
+
+def stream_mesh(n_devices: Optional[int] = None,
+                devices: Optional[Sequence] = None) -> Mesh:
+    """A 1-D mesh over the stream axis: the visible cards (the first
+    ``n_devices`` of them), or ``devices`` as given (which may name one
+    device several times)."""
+    if devices is None:
+        devices = visible_devices()
+        if n_devices is not None:
+            if n_devices > len(devices):
+                raise ValueError(
+                    f"stream_mesh: {n_devices} devices requested, only "
+                    f"{len(devices)} available")
+            devices = devices[:n_devices]
+    return Mesh(list(devices), ("stream",))
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -83,21 +114,33 @@ class MultiStreamEngine:
       input_layout: "hwc" (RGB frames), "hwc_bgr" (cv2's BGR order,
         swapped on the device in the same copy) or "planar" (RGB frames
         planarized on the host, the JAX engine's default).
+      mesh: None (one launch over all streams on ``device``), a 1-D
+        stream mesh or a 2-D (stream, rows) grid; ``n_streams`` must be a
+        multiple of its stream axis and its rows axis must divide the
+        padded height.  ``device`` stays the device that takes the upload
+        and gathers the outputs.
       ring_carry: True for the ring-carry protocol, False for the tail
         protocol; both give the same outputs for every staged stream.
+        None (the default) means True, except on a CPU grid whose slabs
+        are not 8-row aligned, which runs only the tail protocol (True
+        raises there).  On a card such a grid raises ``ValueError``: the
+        slab kernels need aligned slabs and nothing there runs the plain
+        version.
       packed_wire: THRESHOLD only: the masks are bit-packed on the device
         before the download and unpacked on the host.
       downscale: k >= 1, each stream's k x k box mean on the device (a hwc
         layout; "planar" becomes "hwc").
-      slab_impl: "bands" or "extended", validated for parity and ignored
-        (it shapes 2-D meshes, which the port does not have).
+      slab_impl: "bands" (default) or "extended": how a 2-D grid's slab
+        kernels get their neighbour rows (``grid2d.make_grid_ring_step``);
+        validated on every mesh, used only by a grid's median modes.
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
                  n_streams: int, batch: int = 8, device="cuda",
-                 input_layout: str = "hwc", ring_carry: bool = True,
+                 input_layout: str = "hwc",
+                 ring_carry: Optional[bool] = None,
                  packed_wire: bool = False, downscale: int = 1,
-                 slab_impl: str = "bands"):
+                 slab_impl: str = "bands", mesh: Optional[Mesh] = None):
         if slab_impl not in ("bands", "extended"):
             raise ValueError(f"unknown slab_impl {slab_impl!r}")
         if height <= 0 or width <= 0:
@@ -120,6 +163,28 @@ class MultiStreamEngine:
             input_layout, self.height, self.width, self.hp, self.wp,
             downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
+        self.mesh, self.slab_impl = mesh, slab_impl
+        self._layout = Layout(mesh, self.n_streams, self.hp, self.wp,
+                              device=self.device)
+        #: the cells' body: the (slab) kernels, or, for CPU cells whose
+        #: slabs are not 8-row aligned, their plain twins at that height
+        self.backend = "kernel"
+        if mesh is not None and "rows" in mesh.axis_names \
+                and not slab_rows_ok(self.hp, mesh.shape["rows"]):
+            if any(d.type != "cpu" for d in mesh.devices.ravel()):
+                raise ValueError(
+                    "a 2-D mesh on a card needs 8-row-aligned slabs (the "
+                    f"slab kernels): padded height {self.hp} / "
+                    f"{mesh.shape['rows']} row shards = "
+                    f"{self.hp / mesh.shape['rows']} rows")
+            self.backend = "plain"
+        if ring_carry is None:
+            ring_carry = self.backend == "kernel"
+        if ring_carry and self.backend != "kernel":
+            raise ValueError(
+                "ring_carry on a 2-D mesh requires the slab kernels "
+                f"(8-row-aligned slabs): padded height {self.hp} / "
+                f"{mesh.shape['rows']} row shards")
         self.ring_carry = bool(ring_carry)
         s, b = self.n_streams, self.batch
         if self._prep is None:  # planar: tail rows staged on the host too
@@ -142,6 +207,8 @@ class MultiStreamEngine:
         self._planar = torch.zeros(
             (self._tail_len + b, 3, s * self.hp, self.wp),
             dtype=torch.uint8, device=self.device)
+        #: the cells' slabs of the input (the input itself without a mesh)
+        self._raw_cells = self._layout.scatter(self._planar)
         #: streams whose tail rows of ``_planar`` hold their tail; every
         #: other stream's tail rows are zero
         self._tail_live: set = set()
@@ -153,40 +220,41 @@ class MultiStreamEngine:
         return 0 if self.ring_carry else self.props.temporal_size
 
     # -- state ------------------------------------------------------------
-    def _zeros(self, shape, dtype) -> torch.Tensor:
-        return torch.zeros(shape, dtype=dtype, device=self.device)
-
     def _rows(self, stream: int) -> slice:
-        """Stream ``stream``'s rows of the row-stacked state."""
+        """Stream ``stream``'s rows of the row-stacked input."""
         return slice(stream * self.hp, (stream + 1) * self.hp)
+
+    def _state(self) -> dict:
+        """The carried state, each entry the cells of a row-stacked
+        tensor (or None)."""
+        return dict(ring=self._ring, prev=self._prev,
+                    baseline=self._baseline, heatmap=self._heatmap)
 
     def _zero_carry(self) -> None:
         """Fresh ring (median modes) and prev of the ring protocol."""
-        rows = (self.n_streams * self.hp, self.wp)
+        zeros = self._layout.zeros
         self._ring = self._prev = None
         if not self.ring_carry:
             return
         if self._raw_mode:
-            self._prev = self._zeros((3,) + rows, torch.uint8)
+            self._prev = zeros((3,), torch.uint8)
         else:
-            self._ring = self._zeros((self.props.temporal_size,) + rows,
-                                     torch.float32)
-            self._prev = self._zeros(rows, torch.float32)
+            self._ring = zeros((self.props.temporal_size,), torch.float32)
+            self._prev = zeros((), torch.float32)
 
     def reset(self) -> None:
         """Clear every stream's state (cursors, tails, ring, baseline,
         heatmap, failures)."""
         s = self.n_streams
-        rows = (s * self.hp, self.wp)
         self.frame_cursors: List[int] = [0] * s
         # entries: (H, W, 3) frames in the input layout, or planar
         # (3, Hp, Wp) frames from a checkpoint; planarized on demand
         self._tails: List[Optional[list]] = [None] * s
         if self._raw_mode:
-            self._baseline = self._zeros((3,) + rows, torch.uint8)
+            self._baseline = self._layout.zeros((3,), torch.uint8)
         else:
-            self._baseline = self._zeros(rows, torch.float32)
-        self._heatmap = self._zeros(rows, torch.float32)
+            self._baseline = self._layout.zeros((), torch.float32)
+        self._heatmap = self._layout.zeros((), torch.float32)
         self._zero_carry()
         self._drop_tails(range(s))
         self._ring_offs = [0] * s
@@ -220,11 +288,10 @@ class MultiStreamEngine:
         self._snap_pending[stream] = False
         self._tails[stream] = None
         self._ring_offs[stream] = 0
-        r = self._rows(stream)
-        for state in (self._baseline, self._heatmap, self._ring,
-                      self._prev):
-            if state is not None:
-                state[..., r, :] = 0
+        for cells in self._state().values():
+            if cells is not None:
+                for slab in self._layout.stream_views(cells, stream):
+                    slab.zero_()
         self._drop_tails([stream])
 
     def _drop_tails(self, streams) -> None:
@@ -237,7 +304,8 @@ class MultiStreamEngine:
 
     def heatmaps(self) -> np.ndarray:
         """(S, H, W) accumulated |diff| heatmaps, cropped."""
-        hm = self._heatmap.view(self.n_streams, self.hp, self.wp)
+        hm = self._layout.gather(self._heatmap, self.device).view(
+            self.n_streams, self.hp, self.wp)
         return _to_host(hm[:, :self.height, :self.width])
 
     def _planar_tail(self, stream: int) -> Optional[np.ndarray]:
@@ -263,24 +331,27 @@ class MultiStreamEngine:
         return [tl[0]] * (t - len(tl)) + tl
 
     # -- checkpoint / resume ----------------------------------------------
-    def _per_stream(self, x: torch.Tensor) -> np.ndarray:
-        """Row-stacked state (3, S*Hp, Wp) or (S*Hp, Wp) -> the JAX
-        engine's per-stream (S, 3, Hp, Wp) or (S, Hp, Wp), on the host."""
+    def _per_stream(self, cells: list) -> np.ndarray:
+        """The cells of row-stacked state (3, S*Hp, Wp) or (S*Hp, Wp) ->
+        the JAX engine's per-stream (S, 3, Hp, Wp) or (S, Hp, Wp), on the
+        host."""
         s, hp, wp = self.n_streams, self.hp, self.wp
+        x = self._layout.gather(cells, self.device)
         if x.dim() == 3:
             x = x.view(3, s, hp, wp).permute(1, 0, 2, 3)
         else:
             x = x.view(s, hp, wp)
         return np.ascontiguousarray(_to_host(x))
 
-    def _from_per_stream(self, a: np.ndarray) -> torch.Tensor:
-        """The inverse of :meth:`_per_stream`: a row-stacked copy on the
-        device."""
+    def _from_per_stream(self, a: np.ndarray) -> list:
+        """The inverse of :meth:`_per_stream`: the cells of a row-stacked
+        copy."""
         t = torch.from_numpy(np.array(a))  # a private copy
         if t.dim() == 4:
             t = t.permute(1, 0, 2, 3)
         rows = (self.n_streams * self.hp, self.wp)
-        return t.reshape(t.shape[:-3] + rows).to(self.device)
+        return self._layout.scatter(
+            t.reshape(t.shape[:-3] + rows).to(self.device))
 
     def state_dict(self) -> dict:
         """Fleet state in the JAX engine's format: per-stream cursors,
@@ -325,11 +396,11 @@ class MultiStreamEngine:
 
     def _rebuild_ring_state(self) -> None:
         """Rebuild the carried ring / prev of every stream from its raw
-        tail: one stacked launch over the T tail frames with inert capture
-        flags, valid and seed 1 for each stream that has a tail, and a
-        scratch heatmap; outputs are discarded.  Streams without a tail
-        keep zero state and seed on their first frame.  The tail protocol
-        has no ring: nothing to do."""
+        tail: one stacked launch (one per cell on a mesh) over the T tail
+        frames with inert capture flags, valid and seed 1 for each stream
+        that has a tail, and a scratch heatmap; outputs are discarded.
+        Streams without a tail keep zero state and seed on their first
+        frame.  The tail protocol has no ring: nothing to do."""
         s, t, hp = self.n_streams, self.props.temporal_size, self.hp
         self._ring_offs = [0] * s
         self._zero_carry()
@@ -341,31 +412,39 @@ class MultiStreamEngine:
         tail = np.zeros((t, 3, s * hp, self.wp), np.uint8)
         for si in np.flatnonzero(has):
             tail[:, :, self._rows(si)] = self._planar_tail(si)
-        raw = torch.from_numpy(tail).to(self.device)
+        raw = self._layout.scatter(torch.from_numpy(tail).to(self.device))
         flags = np.zeros((s, t), np.bool_)
         valid = np.repeat(has[:, None], t, axis=1)
         seeds = has.astype(np.int32)
-        scratch = self._zeros((s * hp, self.wp), torch.float32)
-        if self._raw_mode:
-            cuda_fused.absdiff_step_ring_stacked(
-                self.props, self.height, self.width, s, raw, self._prev,
-                self._baseline, flags, scratch, valid, seeds)
-        else:
-            cuda_fused.batch_step_ring_stacked(
-                self.props, self.height, self.width, s, raw, self._ring,
-                self._prev, self._baseline, flags, scratch, valid,
-                np.zeros((s,), np.int32), seeds)
+        state = dict(self._state(),
+                     heatmap=self._layout.zeros((), torch.float32))
+        run_grid_ring_step(self.props, self.height, self.width,
+                           self._layout, raw, state, flags, valid,
+                           np.zeros((s,), np.int32), seeds, self.slab_impl,
+                           self.device)
 
     # -- per-stream checkpoints (DiPsEngine's format) -----------------------
     def stream_state_dict(self, stream: int) -> dict:
         """One slot's state in ``DiPsEngine.state_dict`` form."""
-        r = self._rows(stream)
         return {
             "frame_index": self.frame_cursors[stream],
-            "baseline": _to_host(self._baseline[..., r, :]),
-            "heatmap": _to_host(self._heatmap[r]),
+            "baseline": _to_host(self._stream_rows(self._baseline, stream)),
+            "heatmap": _to_host(self._stream_rows(self._heatmap, stream)),
             "tail": self._planar_tail(stream),
         }
+
+    def _stream_rows(self, cells: list, stream: int) -> torch.Tensor:
+        """One stream's full-height rows of row-stacked state, on
+        ``device``."""
+        return torch.cat([slab.to(self.device) for slab in
+                          self._layout.stream_views(cells, stream)], dim=-2)
+
+    def _set_stream_rows(self, cells: list, stream: int,
+                         value: np.ndarray) -> None:
+        value = torch.from_numpy(value)
+        hs = self._layout.hs
+        for j, slab in enumerate(self._layout.stream_views(cells, stream)):
+            slab.copy_(value[..., j * hs:(j + 1) * hs, :])
 
     def load_stream_state(self, stream: int, state: dict) -> None:
         """Restore one slot from a ``DiPsEngine``-format state dict; the
@@ -383,12 +462,12 @@ class MultiStreamEngine:
         self.failed.pop(stream, None)
         self._snap_pending[stream] = False
         self.frame_cursors[stream] = int(state["frame_index"])
-        r = self._rows(stream)
-        self._baseline[..., r, :] = torch.from_numpy(np.array(
+        self._set_stream_rows(self._baseline, stream, np.array(
             bl, dtype=np.uint8 if self._raw_mode else np.float32))
         hm = state.get("heatmap")
         if hm is not None:
-            self._heatmap[r] = torch.from_numpy(np.array(hm, np.float32))
+            self._set_stream_rows(self._heatmap, stream,
+                                  np.array(hm, np.float32))
         self._drop_tails([stream])
         self._rebuild_ring_state()
 
@@ -563,22 +642,20 @@ class MultiStreamEngine:
         return maps, stats_t.numpy(), gmean
 
     def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):
-        """One stacked ring-carry launch over the B-row planar input."""
-        s, h, w = self.n_streams, self.height, self.width
-        if self._raw_mode:
-            out, stats, *_ = cuda_fused.absdiff_step_ring_stacked(
-                self.props, h, w, s, raw, self._prev, self._baseline, flags,
-                self._heatmap, valid, seeds)
-        else:
-            out, stats, *_ = cuda_fused.batch_step_ring_stacked(
-                self.props, h, w, s, raw, self._ring, self._prev,
-                self._baseline, flags, self._heatmap, valid, offsets, seeds)
-        return out, stats
+        """One stacked ring-carry launch over the B-row planar input, or
+        one per cell of the mesh."""
+        lay = self._layout
+        outs, stats = run_grid_ring_step(
+            self.props, self.height, self.width, lay,
+            lay.scatter(raw, out=self._raw_cells), self._state(), flags,
+            valid, offsets, seeds, self.slab_impl, self.device)
+        return lay.gather(outs, self.device), stats
 
     def _launch_tail(self, raw: torch.Tensor, flags, valid,
                      written: Dict[int, int], fresh: List[int],
                      resumed: Dict[int, np.ndarray]):
-        """One stacked tail launch over the (T+B)-row planar input.  Before
+        """One stacked tail launch (one per cell of the mesh) over the
+        (T+B)-row planar input.  Before
         it, every staged stream's rows [0, T) hold its tail and every other
         stream's are zero; after it, each staged stream's next tail is its
         rows [n_si, n_si + T)."""
@@ -590,10 +667,12 @@ class MultiStreamEngine:
             raw[:t, :, r] = raw[t, :, r]
         for si, tail in resumed.items():
             raw[:t, :, self._rows(si)] = torch.from_numpy(tail)
-        step = (cuda_fused.absdiff_step_stacked if self._raw_mode
-                else cuda_fused.batch_step_stacked)
-        out, stats, *_ = step(self.props, h, w, s, raw, self._baseline,
-                              flags, self._heatmap, valid)
+        lay = self._layout
+        outs, stats = run_grid_step(
+            self.props, h, w, lay, lay.scatter(raw, out=self._raw_cells),
+            dict(baseline=self._baseline, heatmap=self._heatmap), flags,
+            valid, self.slab_impl, self.backend, self.device)
+        out = lay.gather(outs, self.device)
         # through a temporary: the two row ranges overlap when n_si < T
         if len(written) == s and len(set(written.values())) == 1:
             spans = [(next(iter(written.values())), slice(None))]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card
-(ring-carry and tail protocol, one stream and stacked).
+(ring-carry and tail protocol, one stream and stacked, full height and
+row slabs), and the fleet on a grid against the fleet without a mesh.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for a card and skips
 when there is none (decided inside the fixture, never at import, so every
@@ -488,3 +489,156 @@ def test_variant_kernels_match_plain(cuda, props):
     for name in ("batch_step_ring", "batch_step_ring_stacked", "batch_step",
                  "batch_step_stacked"):
         assert counts[f"{name}:{mode}"] == counts[name] >= 2, name
+
+
+# ---------------------------------------------------------------------------
+# the row-slab forms (row_bounds / bands) and the grid on the card
+# ---------------------------------------------------------------------------
+
+SLAB_CASES = [
+    (DiPsProperties(window_size=3, temporal_size=2, roi=(10, 20, 60, 180)),
+     True, True),
+    (DiPsProperties(window_size=5, temporal_size=3,
+                    method=DiPsMethod.PER_FRAME), True, True),
+    (DiPsProperties(window_size=7, temporal_size=2, approx_median=True),
+     False, True),
+    (DiPsProperties(window_size=5, temporal_size=2, quirk_compat=True),
+     False, True),
+    (DiPsProperties(window_size=7, temporal_size=2), True, False),
+    (DiPsProperties(output=OutputMode.ABSDIFF, roi=(30, 20, 60, 180)), True,
+     False),
+    (DiPsProperties(output=OutputMode.THRESHOLD, method=DiPsMethod.PER_FRAME,
+                    roi=(30, 20, 60, 180)), False, False),
+]
+
+
+@pytest.mark.parametrize("props,ring,bands", SLAB_CASES)
+def test_slab_kernels_match_plain(cuda, props, ring, bands):
+    """Two stacked streams of 64 x 200 cut into 4 slabs of 16 rows: every
+    slab through the kernel with its row window (and its neighbours' bands)
+    equals the plain twin, two carried batches; the raw cases' roi misses
+    slab 0."""
+    from dips_tpu_torch.parallel import grid2d, grid_mesh
+    from dips_tpu_torch.parallel.mesh import Layout
+    h, w, s, r_ax, b = 64, 200, 2, 4, 6
+    hp, wp = pad_geometry(h, w)
+    hs = hp // r_ax
+    t = props.temporal_size
+    raw_mode = props.output in (OutputMode.ABSDIFF, OutputMode.THRESHOLD)
+    name = ("absdiff_step" if raw_mode else "batch_step") + (
+        "_ring" if ring else "") + "_stacked"
+    kernel, plain = getattr(cuda_fused, name), getattr(cuda_fused,
+                                                       name + "_plain")
+    lay = Layout(grid_mesh(1, r_ax, devices=[cuda] * r_ax), s, hp, wp)
+
+    def state():
+        plane = (s * hs, wp)
+        if raw_mode:
+            st = [torch.zeros((3,) + plane, dtype=torch.uint8, device=cuda)
+                  for _ in range(2 if ring else 1)]
+        else:
+            st = ([torch.zeros((t,) + plane, device=cuda),
+                   torch.zeros(plane, device=cuda)] if ring else []) + [
+                torch.zeros(plane, device=cuda)]
+        return st + [torch.zeros(plane, device=cuda)]
+
+    states = [[state() for _ in range(r_ax)] for _ in range(2)]
+    n_in = b + (0 if ring else t)
+    frames = np.concatenate([make_raw(n_in + b, h, w, 3 + si)
+                             for si in range(s)], axis=2)
+    before = cuda_fused.launch_counts()
+    for bi in range(2):
+        x = torch.from_numpy(frames[bi * b:bi * b + n_in]).to(cuda)
+        cells = lay.scatter(x)[0]
+        exch = grid2d._band_exchange_u8(cells, s)
+        flags = np.zeros((s, b), bool)
+        flags[:, bi] = True
+        valid = np.ones((s, b), bool)
+        valid[1, b - 1] = bi == 0
+        offs, seeds = [(bi * b + si) % t for si in range(s)], [1 - bi] * s
+        for j in range(r_ax):
+            if raw_mode:
+                kw = dict(row_bounds=grid2d._raw_grid_bounds(props, h, w, hs,
+                                                             j))
+            else:
+                kw = dict(row_bounds=grid2d._slab_row_bounds(props, h, w, hs,
+                                                             j, ext=0))
+                if bands:
+                    kw["bands"] = exch[j]
+            res = []
+            for fn, st in zip((kernel, plain), states):
+                st = st[j]
+                if ring and raw_mode:
+                    args = (st[0], st[1], flags, st[2], valid, seeds)
+                elif ring:
+                    args = (*st[:3], flags, st[3], valid, offs, seeds)
+                else:
+                    args = (st[0], flags, st[1], valid)
+                res.append(fn(props, h, w, s, cells[j], *args, **kw))
+            torch.cuda.synchronize()
+            got, exp = res
+            _assert_maps(got[0], exp[0], raw_mode, s * hs, w)
+            for si in range(s):
+                _assert_stats(got[1][si], exp[1][si])
+            for g, e in zip(states[0][j][:-1], states[1][j][:-1]):
+                assert torch.equal(g[..., :w], e[..., :w])
+            assert float((states[0][j][-1] - states[1][j][-1]).abs().max()) \
+                <= 1e-6
+            lo, hi = kw["row_bounds"]
+            if lo >= hi:  # the slab misses the roi
+                assert float(got[1].abs().max()) == 0.0
+    after = cuda_fused.launch_counts()
+    form = "slab_bands" if bands and not raw_mode else "dyn_rows"
+    assert after[f"{name}:{form}"] - before[f"{name}:{form}"] == 2 * r_ax
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_grid_fleet_cuda_equals_no_mesh_fleet(cuda, ring):
+    """A (2, 2) grid whose cells all name this card: outputs and carried
+    state equal the fleet's without a mesh, bit for bit."""
+    from dips_tpu_torch import MultiStreamEngine
+    from dips_tpu_torch.parallel import grid_mesh
+    h, w, s, b = 64, 200, 4, 6
+    rng = np.random.default_rng(9)
+    feeds = [[list(rng.integers(0, 256, (b, h, w, 3), np.uint8))
+              for _ in range(s)] for _ in range(2)]
+    for props in (DiPsProperties(window_size=5),
+                  DiPsProperties(output=OutputMode.ABSDIFF,
+                                 roi=(40, 20, 60, 180))):
+        runs = []
+        for mesh in (None, grid_mesh(2, 2, devices=[cuda] * 4)):
+            fleet = MultiStreamEngine(props, h, w, s, batch=b, device=cuda,
+                                      mesh=mesh, ring_carry=ring)
+            outs = [fleet.process_batch(f) for f in feeds]
+            runs.append((outs, fleet.state_dict()["baseline"],
+                         fleet.heatmaps()))
+        for (o, st, _), (eo, es, _) in zip(runs[1][0], runs[0][0]):
+            np.testing.assert_array_equal(o, eo)
+            np.testing.assert_allclose(st, es, rtol=1e-5, atol=1e-7)
+        np.testing.assert_array_equal(runs[1][1], runs[0][1])
+        np.testing.assert_array_equal(runs[1][2], runs[0][2])
+
+
+def test_unaligned_slabs_raise_on_the_card(cuda):
+    """Slabs that are not 8-row aligned have no kernel: on the card the
+    fleet, the default grid step and ``backend="plain"`` all raise instead
+    of running the plain twins there."""
+    from dips_tpu_torch import MultiStreamEngine
+    from dips_tpu_torch.parallel import grid2d, grid_mesh
+    props = DiPsProperties(window_size=3, temporal_size=2)
+    h, w, s, b = 24, 200, 2, 4  # Hp = 24 on 4 row shards: 6-row slabs
+    hp, wp = pad_geometry(h, w)
+    mesh = grid_mesh(1, 4, devices=[cuda] * 4)
+    with pytest.raises(ValueError, match="8-row-aligned"):
+        MultiStreamEngine(props, h, w, s, batch=b, device=cuda, mesh=mesh)
+    before = cuda_fused.launch_counts()
+    for backend, hh in ((None, h), ("plain", h), ("plain", 64)):
+        hp = pad_geometry(hh, w)[0]
+        step = grid2d.make_grid_step(props, hh, w, mesh, backend=backend)
+        raw = torch.zeros((s, 2 + b, 3, hp, wp), dtype=torch.uint8,
+                          device=cuda)
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            step(raw, torch.zeros((s, hp, wp), device=cuda),
+                 np.zeros((s, b), bool), torch.zeros((s, hp, wp), device=cuda),
+                 np.ones((s, b), bool))
+    assert cuda_fused.launch_counts() == before
