@@ -63,7 +63,8 @@ before it runs and read just after.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
-kernels' record as JSON; the last line is
+kernels' record as JSON (with the registers of each timed instance, from
+ptxas); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository around it, it exits non-zero before printing any result.
 """
@@ -150,18 +151,57 @@ def phase_card():
     return card
 
 
+def instance_regs(ptxas):
+    """ptxas's report -> {instance: (registers, spill store bytes)}, an
+    instance being ("raw", tail, 0, 0) or (kernel, W, mode, bands) with
+    kernel "median_ring" / "median_tail" and mode 0 / 1 / 2 (exact,
+    approx, quirk)."""
+    import re
+    regs, key = {}, None
+    for line in str(ptxas).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"(median_ring|median_tail)_kernelILi(\d)ELi(\d)"
+                          r"ELb([01])E", name)
+            r = re.search(r"raw_step_kernelILb([01])E", name)
+            key = ((m[1], int(m[2]), int(m[3]), int(m[4])) if m else
+                   ("raw", int(r[1]), 0, 0) if r else None)
+        elif key and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
+            regs[key] = (None, spill)
+        elif key and "Used" in line and "registers" in line:
+            n = int(re.search(r"Used (\d+) registers", line)[1])
+            regs[key] = (n, regs.get(key, (None, 0))[1])
+    return regs
+
+
+def record_instance(name):
+    """The compiled instance (as :func:`instance_regs` keys it) that the
+    kernels' record entry ``name`` times: the exact w3 median, or the
+    variant the [options] runs use (approx w7, quirk w5); bands for the
+    slab_bands forms."""
+    base, _, form = name.partition(":")
+    if base.startswith("absdiff"):
+        return ("raw", int("ring" not in base), 0, 0)
+    kernel = "median_ring" if "ring" in base else "median_tail"
+    mode = {"approx_median": 1, "quirk_compat": 2}.get(form, 0)
+    w = {1: MAIN_VARIANTS["approx_median"],
+         2: MAIN_VARIANTS["quirk_compat"]}.get(mode, 3)
+    return (kernel, w, mode, int(form == "slab_bands"))
+
+
 def phase_build():
+    """Build the kernels; log each instance's registers and spills."""
     from dips_tpu_torch.ops import _build
     _build.build(force=True)
     info = dict(_build.build_info)
     _build.lib()
     log(f"[build] {info['seconds']:.2f} s into {info['dir']}")
-    kernel = None
-    for line in str(info["ptxas"]).splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        elif kernel and ("registers" in line or "spill" in line):
-            log(f"[build] {kernel}: {line.split(' : ')[-1].strip()}")
+    regs = instance_regs(info["ptxas"])
+    for key in sorted(regs):
+        log(f"[build] {key}: {regs[key][0]} registers, {regs[key][1]} bytes "
+            f"spill stores")
+    return regs
 
 
 # ---------------------------------------------------------------------------
@@ -2298,9 +2338,11 @@ def units(ops):
 
 def spatial_ops(props):
     """min/max per pixel of the spatial filter: the exact median's column
-    sorts and merge plan; the separable median's two median networks of w;
-    the quirk window's rank selection over (w-1)^2 taps (none at w <= 3,
-    where the pick is the constant 0)."""
+    sort (one per pixel: ``networks.column_median_plan`` shares it among
+    the w windows that hold the column) and merge plan; the separable
+    median's two median networks of w; the quirk window's rank selection
+    over (w-1)^2 taps (none at w <= 3, where the pick is the constant
+    0)."""
     from dips_tpu_torch.ops import networks
     w = props.window_size
     if w == 1:
@@ -2312,7 +2354,8 @@ def spatial_ops(props):
     if props.approx_median:
         return 2 * units(networks.median_network(w))
     col, merge, _ = networks.column_median_plan(w)
-    return w * 2 * len(col) + units(merge)
+    # each column sorted once per pixel, shared by the w windows holding it
+    return 2 * len(col) + units(merge)
 
 
 def bound(name, props, s, b, hp, wp, slabs=0):
@@ -2408,7 +2451,7 @@ def timed(fn, *args):
 
 def main():
     card = phase_card()
-    timed(phase_build)
+    regs = timed(phase_build)
     errs = timed(phase_kernels)
     launches = timed(phase_main_path, card)
     errs.update(timed(phase_kernels_stacked))
@@ -2429,7 +2472,8 @@ def main():
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name]["kernel"], "plain_ms": times[name]["plain"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None}
+         "bound_by": times[name]["bound_by"], "library_ms": None,
+         "regs": regs.get(record_instance(name), (None,))[0]}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:
         if k["launches"] <= 0:

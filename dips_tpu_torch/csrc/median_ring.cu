@@ -34,27 +34,23 @@
 // of the stack -- so a tap never reads the neighbouring stream, and the roi
 // mask tests the row within the stream.
 //
-// Design: a 32x8 block owns one pixel tile (x along the width, so a warp
-// reads and writes 32 consecutive bytes per plane) and loops over the
-// batch's frames in order.  The carried state -- the T ring values,
-// baseline or prev, and the heatmap -- is read from HBM once, kept in
-// registers for the whole batch, and written once.  Each frame the block
-// stages its tile plus a p-pixel halo of intensity in shared memory, with
-// explicit zeros outside the padded plane, and each thread runs the
-// selection networks generated from ops/networks.py (median_networks.cuh).
-// Statistic partials leave per (frame, tile), reduced in a fixed order with
-// warp shuffles and shared memory (no atomics); the sum over tiles runs
-// outside, in plain torch.  The staging, spatial median and per-frame
-// emit live in median_common.cuh, shared with the tail kernel
-// (median_tail.cu).
+// Design: a block owns an 8 x 128 tile (median_common.cuh) and loops over
+// the batch's frames in order with three frames staged ahead by TMA.  The
+// carried state is read from HBM once and written once: baseline or prev
+// and the heatmap in registers, the T ring slots in shared memory.  Each
+// frame the block turns its staged frame into intensities, sorts each
+// column once for the whole tile, and each thread merges the sorted
+// columns of its 4 pixels (the selection networks generated from
+// ops/networks.py, median_networks.cuh).  Statistic partials leave per
+// (frame, tile, warp), reduced in a fixed order (no atomics); the sum over
+// the partials runs outside, in plain torch.
 //
-// Bound: per frame it reads 3*Hp*Wp bytes (plus the halo re-reads) and
-// writes C*Hp*Wp bytes, and does a few hundred integer min/max per pixel at
-// w=7 (about 30 at w=3) plus the emphasis transcendental, so w=3 is near
-// the memory bound and w=7 is bound by the integer pipes.  The separable
-// mode needs 8 / 24 / 44 min/max per pixel at w = 3 / 5 / 7 (column
-// medians for the tile's halo columns too, through one more barrier), the
-// quirk mode 0 / 83 / 389.
+// Bound: per frame it reads 3*Hp*Wp bytes (the halo re-reads hit L2) and
+// writes C*Hp*Wp bytes, plus the carried state once per batch; per pixel
+// the exact median's column sort and merge plan are 6 + 16 min/max at w=3
+// and 32 + 320 at w=7, so w=3 is near the memory bound and w=7 is bound by
+// the integer pipes.  The separable mode needs 4 + 4 / 14 + 14 / 26 + 26
+// (w = 3 / 5 / 7), the quirk mode 0 / 83 / 389.
 //
 // Arithmetic mirrors the float32 reference op for op (multiplies where it
 // multiplies, expf/logf, rintf = round half to even); build with
@@ -62,80 +58,97 @@
 
 #include "median_common.cuh"
 
+// Built once per window: -DDIPS_WINDOW=W compiles that window's instances.
+
 namespace {
 
 using namespace dips_median;
 
 template <int W, int M, bool kBands>
-__global__ void __launch_bounds__(kTx * kTy) median_ring_kernel(MedianArgs a) {
-  constexpr int P = W / 2;
-  __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
-  __shared__ int cm[kCmRows<M>][kTx + 2 * P];
-  __shared__ float red[kWarps][4];
+__global__ void __launch_bounds__(kThreads)
+    median_ring_kernel(const MedianArgs a, const __grid_constant__ Maps m) {
+  const Tile<W, M, kBands> t(a);
+  const int* flags = a.flags + (long long)t.si * a.B;
+  const int* valid = a.valid + (long long)t.si * a.B;
+  const int off = a.offs[t.si];
+  const int seed_s = a.seeds[t.si];
 
-  const Pixel p = locate(a);
-  const int* flags = a.flags + (long long)p.si * a.B;
-  const int* valid = a.valid + (long long)p.si * a.B;
-  const int off = a.offs[p.si];
-  const int seed_s = a.seeds[p.si];
-
-  // carried state into registers (ring slots >= T are never read)
-  float ring[DIPS_MAX_T];
-#pragma unroll
-  for (int k = 0; k < DIPS_MAX_T; ++k)
-    ring[k] = k < a.T ? a.ring[k * p.plane + p.pix] : 0.f;
-  float prev = a.overall ? 0.f : a.prev[p.pix];
-  float base = a.base[p.pix];
-  float heat = a.heat[p.pix];
-
-  for (int f = 0; f < a.B; ++f) {
-    // the previous frame's readers of the strip are done: they passed that
-    // frame's reduction barrier
-    const float phi = filtered<W, M, kBands>(strip, cm, a, p, f);
-
-    const int v = valid[f];
-    const int slot = (off + f) % a.T;
-    const bool seed = f == 0 && seed_s != 0;
-#pragma unroll
-    for (int k = 0; k < DIPS_MAX_T; ++k)
-      if ((v != 0 && k == slot) || seed) ring[k] = phi;
-    if (seed && !a.overall) prev = phi;
-    const float cur = tmed(ring, a.T);
-
-    bool capture = false;
-    float diff_i;
-    if (a.overall) {
-      capture = flags[f] != 0 && v != 0;
-      if (capture) base = cur;
-      diff_i = base - cur;
-    } else {
-      diff_i = prev - cur;
-      if (v != 0) prev = cur;
-    }
-    emit(a, p, red, f, cur, diff_i, capture, v, heat);
+  // carried state: the ring into shared memory, the rest into registers
+  for (int k = 0; k < a.T; ++k) {
+    float s[kPx];
+    ld4(a.ring + k * t.plane + t.pix, s);
+    t.put(k, s);
   }
+  float prev[kPx] = {0.f, 0.f, 0.f, 0.f}, base[kPx], heat[kPx];
+  if (!a.overall) ld4(a.prev + t.pix, prev);
+  ld4(a.base + t.pix, base);
+  ld4(a.heat + t.pix, heat);
 
+  t.run(a, m, a.B, [&](int f, const float (&phi)[kPx]) {
+    const int v = valid[f];
+    const bool seed = f == 0 && seed_s != 0;
+    if (seed) {
+      for (int k = 0; k < a.T; ++k) t.put(k, phi);
+    } else if (v != 0) {
+      t.put((off + f) % a.T, phi);
+    }
+    float cur[kPx], diff[kPx];
+    ring_median(t, a.T, cur);
+    bool capture = false;
 #pragma unroll
-  for (int k = 0; k < DIPS_MAX_T; ++k)
-    if (k < a.T) a.ring[k * p.plane + p.pix] = ring[k];
-  if (a.overall) a.base[p.pix] = base;
-  else a.prev[p.pix] = prev;
-  a.heat[p.pix] = heat;
+    for (int k = 0; k < kPx; ++k) {
+      if (seed && !a.overall) prev[k] = phi[k];
+      if (a.overall) {
+        capture = flags[f] != 0 && v != 0;
+        if (capture) base[k] = cur[k];
+        diff[k] = base[k] - cur[k];
+      } else {
+        diff[k] = prev[k] - cur[k];
+        if (v != 0) prev[k] = cur[k];
+      }
+    }
+    emit(a, t, f, cur, diff, capture, v, heat);
+  });
+
+  for (int k = 0; k < a.T; ++k) {
+    float s[kPx];
+    t.get(k, s);
+    st4(a.ring + k * t.plane + t.pix, s);
+  }
+  if (a.overall) st4(a.base + t.pix, base);
+  else st4(a.prev + t.pix, prev);
+  st4(a.heat + t.pix, heat);
 }
 
 struct RingKernel {
   template <int W, int M, bool kBands>
-  static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
-    median_ring_kernel<W, M, kBands><<<grid, block, 0, s>>>(a);
-  }
+  static auto kernel() { return &median_ring_kernel<W, M, kBands>; }
 };
 
 }  // namespace
 
+namespace dips_median {
+template <int W, int M>
+int instance(Ring, cudaStream_t s, const MedianArgs& a) {
+  return launch_bands<RingKernel, W, M>(s, a);
+}
+template int instance<DIPS_WINDOW, kExact>(Ring, cudaStream_t,
+                                           const MedianArgs&);
+template int instance<DIPS_WINDOW, kApprox>(Ring, cudaStream_t,
+                                            const MedianArgs&);
+template int instance<DIPS_WINDOW, kQuirk>(Ring, cudaStream_t,
+                                           const MedianArgs&);
+}  // namespace dips_median
+
+#if DIPS_WINDOW == 1  // the window-1 unit also holds the entry points
+
+using namespace dips_median;
+
 // Hp is one section's height (a stream's padded height, or a row slab's);
 // [y0, y1) x [x0, x1) is the statistics / heatmap window in section-local
 // rows; btop / bbot are the slab bands (B, 3, S*8, Wp), or both null; parts
-// is float (B, S, n_tiles, 4); the caller keeps every offset in [0, T).
+// is float (B, S, dips_median_parts(Hp, Wp), 4); the caller keeps every
+// offset in [0, T).
 extern "C" int dips_median_ring(
     const void* raw, const void* btop, const void* bbot, void* ring, void* prev, void* base, void* heat,
     void* out, void* parts, const void* flags, const void* valid,
@@ -150,10 +163,18 @@ extern "C" int dips_median_ring(
                (const uint8_t*)bbot, (float*)ring, (float*)prev,
                (float*)base, (float*)heat, (uint8_t*)out, (float*)parts,
                (const int*)flags, (const int*)valid, (const int*)offs,
-               (const int*)seeds, B, Hp, Wp, T, overall, out_mode, chroma,
-               filter, k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1};
-  const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy, S);
-  cudaStream_t s = (cudaStream_t)stream;
-  return launch<RingKernel>(W, mode, grid, block, s, a);
+               (const int*)seeds, S, B, B, Hp, Wp, T, overall, out_mode,
+               chroma, filter, k, sens, lo_clip, hi_clip, scale, thr, y0, x0,
+               y1, x1};
+  return launch<Ring>(W, mode, (cudaStream_t)stream, a);
 }
 
+// Statistic partials per (frame, section) of both median kernels: one per
+// warp of each 8 x 128 tile; 0 when the section is not whole tiles.
+extern "C" int dips_median_parts(int Hp, int Wp) {
+  if (Hp < kRows || Hp % kRows != 0 || Wp < kCols || Wp % kCols != 0)
+    return 0;
+  return (Hp / kRows) * (Wp / kCols) * kWarps;
+}
+
+#endif  // DIPS_WINDOW == 1

@@ -26,86 +26,93 @@
 // slab_bands forms of _make_kernel): the bands hold the T tail frames'
 // neighbour rows ahead of the new frames', indexed by the same frame.
 //
-// Design: the ring-carry kernel's tile and frame loop (median_ring.cu),
-// with a warm-up loop over the T tail frames in front that only fills the
-// ring.  The ring lives in registers (T <= DIPS_MAX_T); baseline and heatmap
-// are read once and written once per launch.
+// Design: the ring-carry kernel's tile and frame loop (median_ring.cu,
+// median_common.cuh), over all T+B frames: the first T only fill the ring,
+// which lives in shared memory (T <= DIPS_MAX_T); baseline and heatmap are
+// read once and written once per launch.
 //
 // Bound: per launch it reads (T+B)*3*Hp*Wp bytes and writes B*C*Hp*Wp, and
 // runs T+B spatial medians where the ring kernel runs B, so at T=4, B=16 it
-// does 1.25x the ring kernel's selection work on 1.25x its input bytes; the
-// integer pipes bound it at w >= 3, as they bound the ring kernel.
+// does 1.25x the ring kernel's selection work on 1.25x its input bytes; it
+// carries no ring in and out, so at w=3 the integer pipes bound it, not
+// the bytes.
 
 #include "median_common.cuh"
+
+// Built once per window: -DDIPS_WINDOW=W compiles that window's instances.
 
 namespace {
 
 using namespace dips_median;
 
 template <int W, int M, bool kBands>
-__global__ void __launch_bounds__(kTx * kTy) median_tail_kernel(MedianArgs a) {
-  constexpr int P = W / 2;
-  __shared__ int strip[kTy + 2 * P][kTx + 2 * P];
-  __shared__ int cm[kCmRows<M>][kTx + 2 * P];
-  __shared__ float red[kWarps][4];
+__global__ void __launch_bounds__(kThreads)
+    median_tail_kernel(const MedianArgs a, const __grid_constant__ Maps m) {
+  const Tile<W, M, kBands> t(a);
+  const int* flags = a.flags + (long long)t.si * a.B;
+  const int* valid = a.valid + (long long)t.si * a.B;
 
-  const Pixel p = locate(a);
-  const int* flags = a.flags + (long long)p.si * a.B;
-  const int* valid = a.valid + (long long)p.si * a.B;
+  float prev[kPx] = {0.f, 0.f, 0.f, 0.f}, base[kPx], heat[kPx];
+  ld4(a.base + t.pix, base);
+  ld4(a.heat + t.pix, heat);
 
-  // the ring, filled by the T tail frames (slots >= T are never read)
-  float ring[DIPS_MAX_T];
+  t.run(a, m, a.T + a.B, [&](int g, const float (&phi)[kPx]) {
+    const int f = g - a.T;
+    t.put(f < 0 ? g : f % a.T, phi);  // tail frame g, or global frame T+f
+    if (f < -1 || (f == -1 && a.overall)) return;
+    float cur[kPx], diff[kPx];
+    ring_median(t, a.T, cur);
+    if (f == -1) {  // the last tail frame: PER_FRAME's first reference
 #pragma unroll
-  for (int k = 0; k < DIPS_MAX_T; ++k) ring[k] = 0.f;
-  for (int g = 0; g < a.T; ++g) {
-    const float phi = filtered<W, M, kBands>(strip, cm, a, p, g);
-#pragma unroll
-    for (int k = 0; k < DIPS_MAX_T; ++k)
-      if (k == g) ring[k] = phi;
-    __syncthreads();  // the strip is restaged for the next frame
-  }
-  float prev = a.overall ? 0.f : tmed(ring, a.T);
-  float base = a.base[p.pix];
-  float heat = a.heat[p.pix];
-
-  for (int f = 0; f < a.B; ++f) {
-    const float phi = filtered<W, M, kBands>(strip, cm, a, p, a.T + f);
-    const int slot = f % a.T;  // global frame T+f
-#pragma unroll
-    for (int k = 0; k < DIPS_MAX_T; ++k)
-      if (k == slot) ring[k] = phi;
-    const float cur = tmed(ring, a.T);
-
-    bool capture = false;
-    float diff_i;
-    if (a.overall) {
-      capture = flags[f] != 0;
-      if (capture) base = cur;
-      diff_i = base - cur;
-    } else {
-      diff_i = prev - cur;
-      prev = cur;
+      for (int k = 0; k < kPx; ++k) prev[k] = cur[k];
+      return;
     }
-    emit(a, p, red, f, cur, diff_i, capture, valid[f], heat);
-  }
+    const bool capture = a.overall && flags[f] != 0;
+#pragma unroll
+    for (int k = 0; k < kPx; ++k) {
+      if (a.overall) {
+        if (capture) base[k] = cur[k];
+        diff[k] = base[k] - cur[k];
+      } else {
+        diff[k] = prev[k] - cur[k];
+        prev[k] = cur[k];
+      }
+    }
+    emit(a, t, f, cur, diff, capture, valid[f], heat);
+  });
 
-  if (a.overall) a.base[p.pix] = base;
-  a.heat[p.pix] = heat;
+  if (a.overall) st4(a.base + t.pix, base);
+  st4(a.heat + t.pix, heat);
 }
 
 struct TailKernel {
   template <int W, int M, bool kBands>
-  static void go(dim3 grid, dim3 block, cudaStream_t s, const MedianArgs& a) {
-    median_tail_kernel<W, M, kBands><<<grid, block, 0, s>>>(a);
-  }
+  static auto kernel() { return &median_tail_kernel<W, M, kBands>; }
 };
 
 }  // namespace
 
+namespace dips_median {
+template <int W, int M>
+int instance(Tail, cudaStream_t s, const MedianArgs& a) {
+  return launch_bands<TailKernel, W, M>(s, a);
+}
+template int instance<DIPS_WINDOW, kExact>(Tail, cudaStream_t,
+                                           const MedianArgs&);
+template int instance<DIPS_WINDOW, kApprox>(Tail, cudaStream_t,
+                                            const MedianArgs&);
+template int instance<DIPS_WINDOW, kQuirk>(Tail, cudaStream_t,
+                                           const MedianArgs&);
+}  // namespace dips_median
+
+#if DIPS_WINDOW == 1  // the window-1 unit also holds the entry points
+
+using namespace dips_median;
+
 // raw is (T+B, 3, S*Hp, Wp); Hp is one section's height (a stream's padded
 // height, or a row slab's); the slab bands btop / bbot are (T+B, 3, S*8,
 // Wp), frame for frame with raw, or both null; parts is float
-// (B, S, n_tiles, 4).
+// (B, S, dips_median_parts(Hp, Wp), 4).
 extern "C" int dips_median_tail(
     const void* raw, const void* btop, const void* bbot, void* base, void* heat, void* out, void* parts,
     const void* flags, const void* valid, int S, int B, int Hp, int Wp,
@@ -118,11 +125,10 @@ extern "C" int dips_median_tail(
   MedianArgs a{(const uint8_t*)raw, (const uint8_t*)btop,
                (const uint8_t*)bbot, nullptr, nullptr, (float*)base,
                (float*)heat, (uint8_t*)out, (float*)parts,
-               (const int*)flags, (const int*)valid, nullptr, nullptr, B, Hp,
-               Wp, T, overall, out_mode, chroma, filter, k, sens, lo_clip,
-               hi_clip, scale, thr, y0, x0, y1, x1};
-  const dim3 block(kTx, kTy), grid(Wp / kTx, Hp / kTy, S);
-  cudaStream_t s = (cudaStream_t)stream;
-  return launch<TailKernel>(W, mode, grid, block, s, a);
+               (const int*)flags, (const int*)valid, nullptr, nullptr, S,
+               T + B, B, Hp, Wp, T, overall, out_mode, chroma, filter, k,
+               sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1};
+  return launch<Tail>(W, mode, (cudaStream_t)stream, a);
 }
 
+#endif  // DIPS_WINDOW == 1

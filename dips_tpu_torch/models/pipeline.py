@@ -169,6 +169,13 @@ class DiPsEngine:
 
     # -- state ------------------------------------------------------------
     @property
+    def analysis_pixels(self) -> int:
+        """Pixels the per-frame statistics reduce over: the roi area when
+        ``props.roi`` is set, else the whole (analysis) frame -- the right
+        ``pixels`` for a ``changed_frac`` MotionDetector on this engine."""
+        return self.props.analysis_pixels(self.height, self.width)
+
+    @property
     def _tail_len(self) -> int:
         """Rows of raw tail ahead of the new frames in a launch."""
         return 0 if self.ring_carry else self.props.temporal_size
@@ -302,6 +309,14 @@ class DiPsEngine:
                 raise ValueError(f"planar frame shape {f.shape} != "
                                  f"{(3, self.hp, self.wp)}")
             buf[tr + i] = f
+        return self.collect(self.dispatch_async(buf, n), packed=packed)
+
+    def process_buffer(self, buf: np.ndarray, n: int, packed: bool = False
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Process ``n`` frames already written into a
+        :meth:`new_batch_buffer` buffer at ``buf[tail_rows:tail_rows+n]``;
+        the engine fills the tail rows and the padding.  Returns what
+        :meth:`collect` returns."""
         return self.collect(self.dispatch_async(buf, n), packed=packed)
 
     def dispatch_async(self, buf: np.ndarray, n: int):

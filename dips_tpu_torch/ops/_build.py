@@ -3,8 +3,10 @@
 The sources under ``dips_tpu_torch/csrc/`` are compiled with ``nvcc`` into
 one shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers in the build, so it takes seconds, not minutes).  Each
-source compiles in its own ``nvcc`` process, all started together, and one
-more ``nvcc`` links the objects.  The build
+compile unit runs in its own ``nvcc`` process, all started together, and
+one more ``nvcc`` links the objects: the raw kernel's source, and each
+median kernel's source once per spatial window (``-DDIPS_WINDOW=w``): 9
+processes for the 42 median instances and the raw kernel.  The build
 runs at first use, from the package's own sources only, into
 ``build/dips_tpu_torch/<key>/`` at the repository root, where ``<key>`` is a
 hash of the sources, of the generated network header and of the compiler
@@ -12,10 +14,16 @@ flags: a changed source builds anew, an unchanged one loads the cached
 library.
 
 The median kernels' selection networks are generated here from
-``ops/networks.py`` (the same column-factored window plans, separable
-medians, the quirk window's rank selection and the temporal median
-networks the plain version applies with ``torch.minimum`` /
-``torch.maximum``) into ``median_networks.cuh`` beside the library.
+``ops/networks.py`` (the column sort and the merge plan of the
+column-factored window median, separable medians, the quirk window's rank
+selection and the temporal median networks the plain version applies with
+``torch.minimum`` / ``torch.maximum``) into ``median_networks.cuh`` beside
+the library.  The per-pixel networks read their taps through a functor
+(``s(dx, j)``), so the kernel decides where a tap lies in shared memory.
+
+The median kernels stage their frames with TMA; the tensor maps are
+encoded on the host by ``cuTensorMapEncodeTiled``, which the library looks
+up through the CUDA runtime's entry-point query (no ``-lcuda``).
 
 ``-fmad=false`` and no fast math: the emphasis path must round like the
 float32 reference (``expf``/``logf``, IEEE division, no contracted
@@ -38,12 +46,19 @@ from . import networks
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dips_tpu_torch"
 SOURCES = ("raw_ring.cu", "median_ring.cu", "median_tail.cu")
+#: spatial windows the median kernels are instantiated for
+WINDOWS = (1, 3, 5, 7)
+#: compile units, (source, window): each median source once per window
+#: with that window's instances (-DDIPS_WINDOW=w; the window-1 unit also
+#: holds the entry points), so that they compile in parallel; finer units
+#: (one per window and mode) build slower on 8 cores, each nvcc having a
+#: fixed cost of a few CPU-seconds.
+UNITS = (("raw_ring.cu", None),) + tuple(
+    (src, w) for src in SOURCES[1:] for w in WINDOWS)
 LIB_NAME = "libdips_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
-#: spatial windows the median kernel is instantiated for
-WINDOWS = (1, 3, 5, 7)
-#: largest temporal ring the median kernel carries in registers
+#: largest temporal ring the median kernels carry (in shared memory)
 MAX_T = 16
 
 _P = ctypes.c_void_p
@@ -68,6 +83,8 @@ SIGNATURES = {
     # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
     "dips_median_tail": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
+    # Hp, Wp -> statistic partials per (frame, section), 0: not whole tiles
+    "dips_median_parts": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -84,83 +101,91 @@ def _cmpx(i: int, j: int, need_min: bool, need_max: bool, v: str) -> str:
     return f"  {b} = max({a}, {b});"
 
 
-def _window_median_fn(w: int) -> str:
-    """``int wmed<w>(const int* s, int ld)``: the exact median of the w x w
-    taps whose top-left is ``s`` (row stride ``ld``), as
-    ``networks.window_median`` computes it: sort each column, then the
-    pruned merge plan; wire ``dx * w + j`` is the j-th smallest of
-    column dx."""
-    col_sort, merge_ops, target = networks.column_median_plan(w)
-    lines = [f"__device__ __forceinline__ int wmed{w}(const int* s, int ld) {{"]
-    for dx in range(w):
-        for j in range(w):
-            lines.append(f"  int v{dx * w + j} = s[{j} * ld + {dx}];")
-    for dx in range(w):
-        for i, j in col_sort:
-            lines.append(_cmpx(dx * w + i, dx * w + j, True, True, "v"))
-    for i, j, nmin, nmax in merge_ops:
-        lines.append(_cmpx(i, j, nmin, nmax, "v"))
+def _column_sort_fn(w: int) -> str:
+    """``void csort<w>(int* s)``: sorts ``s[0..w)`` ascending in place --
+    the ``col_sort`` of ``networks.column_median_plan``, which the kernels
+    apply ONCE per column and tile row and share among the w pixels whose
+    windows hold that column."""
+    col_sort, _, _ = networks.column_median_plan(w)
+    lines = [f"__device__ __forceinline__ void csort{w}(int* s) {{"]
+    lines += [f"  int v{j} = s[{j}];" for j in range(w)]
+    lines += [_cmpx(i, j, True, True, "v") for i, j in col_sort]
+    lines += [f"  s[{j}] = v{j};" for j in range(w)]
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def _window_merge_fn(w: int) -> str:
+    """``int wmerge<w>(Tap s)``: the exact median of a w x w window from
+    its w sorted columns, ``s(dx, j)`` the j-th smallest tap of column dx
+    (wire ``dx * w + j``), through the pruned merge plan of
+    ``networks.column_median_plan`` -- the per-pixel half of
+    ``networks.window_median``."""
+    _, merge_ops, target = networks.column_median_plan(w)
+    lines = ["template <class Tap>",
+             f"__device__ __forceinline__ int wmerge{w}(Tap s) {{"]
+    lines += [f"  int v{dx * w + j} = s({dx}, {j});"
+              for dx in range(w) for j in range(w)]
+    lines += [_cmpx(i, j, nmin, nmax, "v") for i, j, nmin, nmax in merge_ops]
     lines.append(f"  return v{target};")
     lines.append("}")
     return "\n".join(lines)
 
 
 def _separable_median_fn(w: int) -> str:
-    """``int smed<w>(const int* s, int step)``: the median of the w taps
-    ``s[0], s[step], ..., s[(w-1) * step]`` through
-    ``networks.median_network(w)`` -- the building block of
-    ``networks.separable_median``: down a column (step = the row stride),
-    then across the w column medians (step 1)."""
-    lines = [f"__device__ __forceinline__ int smed{w}(const int* s, "
-             "int step) {"]
-    for j in range(w):
-        lines.append(f"  int v{j} = s[{j} * step];")
-    for i, j, nmin, nmax in networks.median_network(w):
-        lines.append(_cmpx(i, j, nmin, nmax, "v"))
+    """``int smed<w>(Tap s)``: the median of the w taps ``s(0) .. s(w-1)``
+    through ``networks.median_network(w)`` -- the building block of
+    ``networks.separable_median``: down a column, then across the w column
+    medians."""
+    lines = ["template <class Tap>",
+             f"__device__ __forceinline__ int smed{w}(Tap s) {{"]
+    lines += [f"  int v{j} = s({j});" for j in range(w)]
+    lines += [_cmpx(i, j, nmin, nmax, "v")
+              for i, j, nmin, nmax in networks.median_network(w)]
     lines.append(f"  return v{w // 2};")
     lines.append("}")
     return "\n".join(lines)
 
 
 def _quirk_select_fn(w: int) -> str:
-    """``int qsel<w>(const int* s, int ld)``: ``networks.
-    quirk_window_select`` -- the tap of rank ``w*w//2 + 1 - 2w`` of the
-    off-center (w-1) x (w-1) window whose top-left is ``s`` (offsets
-    [-p, p) in both axes), through ``networks.selection_network``; wire
-    ``dx * (w-1) + dy`` is tap (dy, dx), as the plain version orders them.
-    At w = 3 the rank is negative and the result is 0."""
+    """``int qsel<w>(Tap s)``: ``networks.quirk_window_select`` -- the tap
+    of rank ``w*w//2 + 1 - 2w`` of the off-center (w-1) x (w-1) window
+    whose taps are ``s(dx, dy)`` (offsets [-p, p) in both axes), through
+    ``networks.selection_network``; wire ``dx * (w-1) + dy`` is tap
+    (dy, dx), as the plain version orders them.  At w = 3 the rank is
+    negative and the result is 0."""
     wm1 = w - 1
     rank = (w * w) // 2 + 1 - 2 * w
-    lines = [f"__device__ __forceinline__ int qsel{w}(const int* s, "
-             "int ld) {"]
+    lines = ["template <class Tap>",
+             f"__device__ __forceinline__ int qsel{w}(Tap s) {{"]
     if rank < 0:
         lines += ["  return 0;", "}"]
         return "\n".join(lines)
-    for dx in range(wm1):
-        for dy in range(wm1):
-            lines.append(f"  int v{dx * wm1 + dy} = s[{dy} * ld + {dx}];")
-    for i, j, nmin, nmax in networks.selection_network(wm1 * wm1, (rank,)):
-        lines.append(_cmpx(i, j, nmin, nmax, "v"))
+    lines += [f"  int v{dx * wm1 + dy} = s({dx}, {dy});"
+              for dx in range(wm1) for dy in range(wm1)]
+    lines += [_cmpx(i, j, nmin, nmax, "v") for i, j, nmin, nmax
+              in networks.selection_network(wm1 * wm1, (rank,))]
     lines.append(f"  return v{rank};")
     lines.append("}")
     return "\n".join(lines)
 
 
 def _temporal_median_fn() -> str:
-    """``float tmed(const float (&r)[MAX_T], int t)``: the exact median
-    (index t // 2) of ``r[0..t)``, through ``networks.median_network(t)``
+    """``auto tmed(Tap s, int t)``: the exact median (index t // 2) of the
+    ring slots ``s(0) .. s(t-1)``, through ``networks.median_network(t)``
     for each t, selected by a switch on the runtime ring length."""
-    lines = [f"__device__ __forceinline__ float tmed(const float (&r)[{MAX_T}], "
-             "int t) {", "  switch (t) {"]
+    lines = ["template <class Tap>",
+             "__device__ __forceinline__ auto tmed(Tap s, int t) {",
+             "  switch (t) {"]
     for t in range(1, MAX_T + 1):
         lines.append(f"  case {t}: {{")
         for k in range(t):
-            lines.append(f"    float q{k} = r[{k}];")
+            lines.append(f"    auto q{k} = s({k});")
         for i, j, nmin, nmax in networks.median_network(t):
             lines.append("  " + _cmpx(i, j, nmin, nmax, "q"))
         lines.append(f"    return q{t // 2};")
         lines.append("  }")
-    lines += ["  default: return 0.f;", "  }", "}"]
+    lines += ["  default: { auto q0 = s(0); return q0; }", "  }", "}"]
     return "\n".join(lines)
 
 
@@ -172,8 +197,8 @@ def network_header() -> str:
              f"#define DIPS_MAX_T {MAX_T}"]
     for w in WINDOWS:
         if w > 1:
-            parts += [_window_median_fn(w), _separable_median_fn(w),
-                      _quirk_select_fn(w)]
+            parts += [_column_sort_fn(w), _window_merge_fn(w),
+                      _separable_median_fn(w), _quirk_select_fn(w)]
     parts.append(_temporal_median_fn())
     return "\n\n".join(parts) + "\n"
 
@@ -197,6 +222,7 @@ def build_key(header: str) -> str:
         h.update((CSRC / name).read_bytes())
     h.update(header.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(UNITS).encode())
     return h.hexdigest()[:16]
 
 
@@ -216,14 +242,17 @@ def build(force: bool = False) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "median_networks.cuh").write_text(header)
     nvcc, tag = _nvcc(), os.getpid()
-    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    objs = [out_dir / f"{Path(src).stem}.w{w or 0}.{tag}.o"
+            for src, w in UNITS]
     t0 = time.perf_counter()
-    # one nvcc per source, all running at once; then one link
+    # one nvcc per compile unit, all running at once; then one link
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-I",
-                          str(CSRC), "-c", "-o", str(obj), str(CSRC / src)]
-                         for src, obj in zip(SOURCES, objs))]
+                          str(CSRC)]
+                         + ([] if w is None else [f"-DDIPS_WINDOW={w}"])
+                         + ["-c", "-o", str(obj), str(CSRC / src)]
+                         for (src, w), obj in zip(UNITS, objs))]
     report = []
     for cmd, proc in procs:
         out, err = proc.communicate()

@@ -49,10 +49,12 @@ registers for the batch, and write it back into the same tensors, which the
 functions also return (the JAX functions donate the same buffers).  The
 plain twins update in place too.
 
-Statistics leave the kernels as per-(frame, stream, tile) partials; the
-final reduction over tiles (the counterpart of ``_reduce_stats``) runs here
-in plain torch.  The raw path keeps its partials in integers and sums them
-in int64 before the one float conversion.
+Statistics leave the kernels as per-(frame, stream) partials -- one per
+tile of the raw kernel, one per warp of each tile of the median kernels
+(``dips_median_parts`` of the library says how many); the final reduction
+(the counterpart of ``_reduce_stats``) runs here in plain torch.  The raw
+path keeps its partials in integers and sums them in int64 before the one
+float conversion.
 """
 
 from __future__ import annotations
@@ -245,9 +247,14 @@ def reduce_raw_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
 
 def reduce_median_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
                         w: int) -> torch.Tensor:
-    """float32 partials (B, S, n_tiles, 4) -> (S, B, 4) stats: mean diff,
-    mean |diff|, max |diff|, changed count."""
-    p = parts.sum(dim=2)
+    """float32 partials (B, S, n_parts, 4) -> (S, B, 4) stats: mean diff,
+    mean |diff|, max |diff|, changed count; any split of the pixels into
+    partials (per tile, per tile and warp) sums to the same stats.  The
+    sums are taken in float64 and rounded to float32 once, so that a
+    stream's stats do not depend on the order torch picks for the
+    reduction, which changes with S: a stacked launch's streams equal s = 1
+    launches bit for bit."""
+    p = parts.sum(dim=2, dtype=torch.float64).to(torch.float32)
     p[..., 2] = parts[..., 2].amax(dim=2)
     p[..., :2] *= _f32(1.0 / props.analysis_pixels(h, w))
     return p.transpose(0, 1).contiguous()
@@ -706,7 +713,9 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
     with the T tail frames; there is no ring, prev, offset or seed).
     ``row_bounds`` / ``bands``: the sections are row slabs (the
     ``dyn_rows`` and ``slab_bands`` forms); the statistics keep the full
-    image's scale."""
+    image's scale.  Raises ``ValueError`` unless a section's padded
+    geometry is a whole number of the kernels' 8 x 128 tiles (they have no
+    ragged tile; ``pad_geometry`` gives whole tiles)."""
     _check_median_props(name, props)
     from . import _build
     rows = _row_window(name, row_bounds)
@@ -730,9 +739,11 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
         tensors.update(top_band=(bands[0], torch.uint8, band),
                        bottom_band=(bands[1], torch.uint8, band))
     _check_cuda(name, dev, **tensors)
-    if hp % 8 or wp % 32:
-        raise ValueError(f"{name}: padded geometry {hp}x{wp} must be a "
-                         f"multiple of 8 x 32")
+    n_parts = _build.lib().dips_median_parts(hp, wp)
+    if n_parts < 1:
+        raise ValueError(f"{name}: padded geometry {hp}x{wp} is not a whole "
+                         f"number of the kernels' 8 x 128 tiles "
+                         f"(pad_geometry's is)")
     items = [("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
     if not tail:
         offsets = offsets % t if isinstance(offsets, torch.Tensor) \
@@ -740,9 +751,8 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
         items += [("offsets", offsets, (s,)), ("seeds", seeds, (s,))]
     scalars = _stream_i32(name, dev, items)
     mode, c = _median_out_mode(props)
-    n_tiles = (hp // 8) * (wp // 32)
     out = torch.empty((b, c) + plane, dtype=torch.uint8, device=dev)
-    parts = torch.empty((b, s, n_tiles, 4), dtype=torch.float32, device=dev)
+    parts = torch.empty((b, s, n_parts, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = props.roi_bounds(h, w)
     if rows is not None:
         y0, y1 = rows

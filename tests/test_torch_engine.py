@@ -19,6 +19,7 @@ from dips_tpu.properties import DiPsMethod, DiPsProperties, OutputMode
 from dips_tpu_torch import DiPsEngine as TorchEngine
 from dips_tpu_torch.convert import props_from_jax, state_from_jax, \
     state_to_jax
+from dips_tpu_torch.ops import reference as tref
 from tests.conftest import make_clip
 from tests.test_ring_carry import CASES
 
@@ -110,6 +111,82 @@ def test_refresh_markers_and_snapshot():
         assert np.array_equal(out[f, ..., 0], out[f, ..., 1])
         assert stats[f, 3] == 0
     assert (stats[1:4, 3] > 0).all()
+
+
+@pytest.mark.parametrize("roi", [None, (2, 10, 10, 120)])
+def test_analysis_pixels_match_jax(roi):
+    """The roi's area, or the whole frame; a downscale engine counts the
+    analysis geometry's pixels."""
+    props = DiPsProperties(roi=roi)
+    jeng, teng = engines(props, 4)
+    assert teng.analysis_pixels == jeng.analysis_pixels
+    assert teng.analysis_pixels == (H * W if roi is None else 8 * 110)
+    k = 2
+    jd = JaxEngine(props, k * H, k * W, batch=4, backend="pallas",
+                   ring_carry=True, input_layout="hwc", downscale=k)
+    td = TorchEngine(props_from_jax(props), k * H, k * W, batch=4,
+                     device="cpu", downscale=k)
+    assert td.analysis_pixels == jd.analysis_pixels == teng.analysis_pixels
+
+
+def _buffered(eng, frames, planar, packed=False):
+    """Batches through ``process_buffer``: the frames written into a
+    ``new_batch_buffer`` buffer (padded planar rows after the tail rows,
+    or (H, W, 3) frames)."""
+    outs, stats = [], []
+    for i in range(0, len(frames), eng.batch):
+        chunk = frames[i:i + eng.batch]
+        buf = eng.new_batch_buffer()
+        tr = eng.tail_rows
+        for j, f in enumerate(chunk):
+            buf[tr + j] = (tref.planarize_host(f, *tref.pad_geometry(H, W))
+                           if planar else f)
+        o, s = eng.process_buffer(buf, len(chunk), packed=packed)
+        outs.append(o)
+        stats.append(s)
+    return np.concatenate(outs), np.concatenate(stats)
+
+
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+@pytest.mark.parametrize("roi", [None, (2, 10, 10, 120)])
+def test_process_buffer_matches_jax(roi, layout):
+    """``process_buffer`` of a filled batch buffer equals the JAX engine's,
+    in both input layouts, with and without an roi, over batches of 4 and
+    3 frames."""
+    props = DiPsProperties(roi=roi)
+    planar = layout == "planar"
+    jeng = JaxEngine(props, H, W, batch=4, backend="pallas", ring_carry=True,
+                     input_layout=layout)
+    teng = TorchEngine(props_from_jax(props), H, W, batch=4, device="cpu",
+                       input_layout=layout)
+    frames = list(make_clip(n=7, h=H, w=W, seed=5))
+    got = _buffered(teng, frames, planar)
+    assert_same(props, got, _buffered(jeng, frames, planar))
+    assert_same(props, got, feed(engines(props, 4)[1], frames))
+    assert_same_state(jeng, teng)
+
+
+@pytest.mark.parametrize("roi", [None, (2, 10, 10, 120)])
+def test_packed_process_buffer_matches_jax(roi):
+    """``packed_wire`` THRESHOLD engines: ``process_buffer(packed=True)``
+    returns the same packed masks as the JAX engine's, and unpacked the
+    same maps."""
+    props = DiPsProperties(output=OutputMode.THRESHOLD, roi=roi,
+                           change_threshold=20)
+    jeng = JaxEngine(props, H, W, batch=4, backend="pallas", ring_carry=True,
+                     input_layout="hwc", packed_wire=True)
+    teng = TorchEngine(props_from_jax(props), H, W, batch=4, device="cpu",
+                       packed_wire=True)
+    frames = list(make_clip(n=7, h=H, w=W, seed=6))
+    got = _buffered(teng, frames, False, packed=True)
+    exp = _buffered(jeng, frames, False, packed=True)
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1][:, 2:], exp[1][:, 2:])
+    np.testing.assert_allclose(got[1][:, :2], exp[1][:, :2], atol=1e-6)
+    jeng.reset()
+    teng.reset()
+    assert_same(props, _buffered(teng, frames, False),
+                _buffered(jeng, frames, False))
 
 
 def test_empty_and_oversized_batches():

@@ -6,8 +6,9 @@ store-back).
 * ``reference.spatial_median`` / ``filtered_planes`` of the port against
   ``dips_tpu.ops.reference.spatial_median``, windows 1 / 3 / 5 / 7.
 * The networks the CUDA kernels are built from (``ops/_build.py`` generates
-  ``smed<w>`` and ``qsel<w>``), evaluated here line by line, against
-  ``ops/networks.py``.
+  ``csort<w>``, ``wmerge<w>``, ``smed<w>`` and ``qsel<w>``), evaluated here
+  line by line, against ``ops/networks.py``; the median statistic partials
+  split per tile and per (tile, warp).
 * The four median steps' plain twins (``cuda_fused.batch_step_ring`` /
   ``batch_step_ring_stacked`` / ``batch_step`` / ``batch_step_stacked`` on
   CPU tensors) against the Pallas functions of the same name in interpret
@@ -101,43 +102,50 @@ def test_spatial_median_matches_jax(w, mode):
     np.testing.assert_array_equal(phi, ref)
 
 
-def _run_generated(src: str, name: str, s, ld: int) -> int:
+def _run_generated(src: str, name: str, tap=None, values=None):
     """Evaluate the generated device function ``name`` of the network
-    header on the host: ``s`` a flat list of taps, ``ld`` its row
-    stride (or step)."""
-    body = src[src.index(f"int {name}("):]
+    header on the host.  A tap-form function (``wmerge<w>``, ``smed<w>``,
+    ``qsel<w>``) reads its wires through ``tap(*args)`` and returns the
+    selected value; ``csort<w>`` sorts the list ``values`` in place and
+    returns it."""
+    body = src[src.index(f" {name}("):]
     body = body[:body.index("\n}\n")].splitlines()[1:]
     v = {}
     for line in body:
         line = line.strip()
-        if m := re.fullmatch(r"int (v\d+) = s\[(\d+) \* (?:ld|step)"
-                             r"(?: \+ (\d+))?\];", line):
-            v[m[1]] = s[int(m[2]) * ld + int(m[3] or 0)]
+        if m := re.fullmatch(r"int (v\d+) = s\((\d+)(?:, (\d+))?\);", line):
+            v[m[1]] = tap(*(int(a) for a in m.groups()[1:] if a is not None))
+        elif m := re.fullmatch(r"int (v\d+) = s\[(\d+)\];", line):
+            v[m[1]] = values[int(m[2])]
         elif m := re.fullmatch(r"\{ auto t = min\((v\d+), (v\d+)\); \2 = "
                                r"max\(\1, \2\); \1 = t; \}", line):
             v[m[1]], v[m[2]] = min(v[m[1]], v[m[2]]), max(v[m[1]], v[m[2]])
         elif m := re.fullmatch(r"(v\d+) = (min|max)\((v\d+), (v\d+)\);",
                                line):
             v[m[1]] = (min if m[2] == "min" else max)(v[m[3]], v[m[4]])
+        elif m := re.fullmatch(r"s\[(\d+)\] = (v\d+);", line):
+            values[int(m[1])] = v[m[2]]
         elif m := re.fullmatch(r"return (v\d+|0);", line):
             return 0 if m[1] == "0" else v[m[1]]
         else:
             raise AssertionError(f"unparsed line {line!r}")
-    raise AssertionError("no return")
+    if values is None:
+        raise AssertionError("no return")
+    return values
 
 
 @pytest.mark.parametrize("w", [3, 5, 7])
 def test_generated_networks_select_as_networks(w):
-    """``smed<w>`` is the median of w taps at a stride and ``qsel<w>`` the
-    quirk pick over the (w-1)^2 window at the top-left of its pointer, as
-    ``networks.median_of`` / ``quirk_window_select`` compute them, on
-    random and tied integer taps."""
+    """``smed<w>`` is the median of its w taps and ``qsel<w>`` the quirk
+    pick over the (w-1)^2 window of its taps, as ``networks.median_of`` /
+    ``quirk_window_select`` compute them, on random and tied integer
+    taps."""
     src = _build.network_header()
     rng = np.random.default_rng(w)
     for trial in range(40):
         hi = 4 if trial % 2 else 511  # many ties, then few
         col = [int(x) for x in rng.integers(0, hi, w)]
-        got = _run_generated(src, f"smed{w}", col, 1)
+        got = _run_generated(src, f"smed{w}", lambda j: col[j])
         assert got == sorted(col)[w // 2]
         ld = w + 3
         grid = [int(x) for x in rng.integers(0, hi, ld * ld)]
@@ -145,7 +153,8 @@ def test_generated_networks_select_as_networks(w):
                 for dy in range(w - 1)]
         rank = w * w // 2 + 1 - 2 * w
         exp = 0 if rank < 0 else sorted(taps)[rank]
-        assert _run_generated(src, f"qsel{w}", grid, ld) == exp
+        assert _run_generated(src, f"qsel{w}",
+                              lambda dx, dy: grid[dy * ld + dx]) == exp
         # the same pick through the plain network on 1x1 "planes"
         vt = [np.asarray([[grid[dy * ld + dx] for dx in range(ld)]])
               for dy in range(w - 1)]
@@ -154,6 +163,61 @@ def test_generated_networks_select_as_networks(w):
             vt, lambda x, dx: x[..., p + dx:p + dx + 1], np.minimum,
             np.maximum)
         assert int(pick.ravel()[0]) == exp
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("w", [3, 5, 7])
+def test_generated_column_sort_and_merge_give_the_window_median(w, tied):
+    """The exact median as the kernels split it: ``csort<w>`` sorts each
+    column of the window once, and ``wmerge<w>`` merges the w sorted
+    columns (``s(dx, j)``: rank j of column dx) into the median, equal to
+    ``sorted(window)[w*w//2]`` and to ``networks.window_median`` on random
+    and tied integer taps."""
+    src = _build.network_header()
+    rng = np.random.default_rng(10 * w + tied)
+    hi = 3 if tied else 511
+    for _ in range(60):
+        win = rng.integers(0, hi, (w, w))  # win[dy, dx]
+        cols = [_run_generated(src, f"csort{w}",
+                               values=[int(x) for x in win[:, dx]])
+                for dx in range(w)]
+        for dx in range(w):
+            assert cols[dx] == sorted(int(x) for x in win[:, dx])
+        got = _run_generated(src, f"wmerge{w}", lambda dx, j: cols[dx][j])
+        assert got == sorted(int(x) for x in win.ravel())[w * w // 2]
+        p = w // 2
+        vt = [win[dy][None, :] for dy in range(w)]
+        plain = networks.window_median(
+            vt, lambda x, dx: x[..., p + dx:p + dx + 1], np.minimum,
+            np.maximum)
+        assert int(plain.ravel()[0]) == got
+
+
+def test_median_partials_split_per_warp_sum_to_per_tile_stats():
+    """``reduce_median_stats`` gives the same stats whether the kernel
+    leaves one partial per tile or one per (tile, warp): sums within float
+    rounding, maxima and counts exact."""
+    props = props_from_jax(DiPsProperties())
+    rng = np.random.default_rng(5)
+    b, s, tiles, warps = 3, 2, 12, 8
+    fine = np.empty((b, s, tiles * warps, 4), np.float32)
+    fine[..., :2] = rng.normal(0, 40, (b, s, tiles * warps, 2))
+    fine[..., 1] = np.abs(fine[..., 1])
+    fine[..., 2] = rng.uniform(0, 1, (b, s, tiles * warps))
+    fine[..., 3] = rng.integers(0, 33, (b, s, tiles * warps))
+    per_tile = fine.reshape(b, s, tiles, warps, 4)
+    coarse = np.concatenate([per_tile[..., :2].sum(3, dtype=np.float32),
+                             per_tile[..., 2:3].max(3),
+                             per_tile[..., 3:].sum(3, dtype=np.float32)],
+                            axis=-1)
+    h, w = 96, 128
+    got = cuda_fused.reduce_median_stats(torch.from_numpy(fine), props, h, w)
+    exp = cuda_fused.reduce_median_stats(torch.from_numpy(coarse), props, h,
+                                         w)
+    assert got.shape == (s, b, 4)
+    np.testing.assert_array_equal(got[..., 2:].numpy(), exp[..., 2:].numpy())
+    np.testing.assert_allclose(got[..., :2].numpy(), exp[..., :2].numpy(),
+                               rtol=1e-5, atol=1e-7)
 
 
 def test_quirk_window_is_off_center():

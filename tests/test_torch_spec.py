@@ -101,16 +101,23 @@ def test_network_header_covers_every_window_and_ring():
     from dips_tpu_torch.ops import _build
     src = _build.network_header()
     for w in (3, 5, 7):
-        assert f"int wmed{w}(" in src
+        assert f"void csort{w}(" in src and f"int wmerge{w}(" in src
+    assert "wmed" not in src  # the per-pixel column sorts are gone
     for t in range(1, _build.MAX_T + 1):
         assert f"case {t}:" in src
-    # every comparator of the w=7 plan is emitted
+    # every comparator of the w=7 plan is emitted, the column sort once
     col, merge, target = port_networks.column_median_plan(7)
-    body = src[src.index("int wmed7("):]
-    body = body[:body.index("\n}\n")]
-    n_ops = body.count("min(") + body.count("max(")
-    assert n_ops == 7 * 2 * len(col) + sum(nm + nx for _, _, nm, nx in merge)
-    assert body.rstrip().endswith(f"return v{target};")
+
+    def body(name):
+        b = src[src.index(f" {name}("):]
+        return b[:b.index("\n}\n")]
+
+    def n_ops(b):
+        return b.count("min(") + b.count("max(")
+
+    assert n_ops(body("csort7")) == 2 * len(col)
+    assert n_ops(body("wmerge7")) == sum(nm + nx for _, _, nm, nx in merge)
+    assert body("wmerge7").rstrip().endswith(f"return v{target};")
 
 
 def test_port_imports_without_jax():
