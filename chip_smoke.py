@@ -55,6 +55,19 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   1080p x 8 streams held against the fleet without a mesh (maps and
   carried state bit for bit), with exact launch counts per cell, in both
   protocols and both slab constructions (``[grid]``);
+* the post-analysis (``ops/analysis.py``: cuFFT and plain torch ops, no
+  kernel of the port's own; ``[analysis]``): ``perform_dips`` on a 4K clip
+  with ``denoise_radius=75``, two denoised maps a batch held against
+  numpy's float64 recipe, a ``FlickerAnalyzer`` on the card fed by the
+  frame callback against one on the CPU, its peak on the oscillating
+  square, ``temporal_dft`` of the stats against numpy's float64 rfft; a
+  ``FleetFlickerAnalyzer`` at 1080p x 8 against 8 single analyzers bit for
+  bit over ragged rounds; ``run_dips_on_files(flicker=)`` on the
+  ``[fleet-file]`` clips against single analyzers on the decoded frames;
+  ``python -m dips_tpu_torch`` with ``--denoise --dft-json --flicker-hz``
+  on the 4K clip; device times of each piece with its launches, bytes
+  bound and (denoise) memory peak, and the flicker update's share of the
+  4K engine's and the fleet's batch walls;
 
 then times kernels (wrapper, and alone for the variants), plain twins and
 every engine with CUDA events (``[time]``), the variants, the slab forms
@@ -1932,6 +1945,460 @@ def phase_grid(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6g: the post-analysis (ops/analysis.py: cuFFT and plain torch ops)
+# ---------------------------------------------------------------------------
+
+#: the [analysis] phase's clip rate and flicker frequency
+FPS, FLICKER_HZ = 30.0, 5.0
+#: the reference's denoise radius (image_denoise.py:22)
+DENOISE_R = 75
+#: where the 4K clip's square oscillates (away from the moving square)
+OSC = (1500, 3000, 64)
+
+
+def flicker_frames(n, h, w, seed):
+    """moving_square_frames plus a grey square whose level swings at
+    FLICKER_HZ (level 128 +- 100, so the lightness swings +- 200)."""
+    frames = moving_square_frames(n, h, w, seed)
+    y, x, side = OSC
+    for k in range(n):
+        v = 128 + 100 * np.cos(2 * np.pi * FLICKER_HZ * k / FPS)
+        frames[k, y:y + side, x:x + side] = int(round(v))
+    return frames
+
+
+def write_avi(path, frames_rgb, fps=FPS):
+    import cv2
+    h, w = frames_rgb.shape[1:3]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, (w, h))
+    for f in frames_rgb:
+        vw.write(np.ascontiguousarray(f[..., ::-1]))
+    vw.release()
+
+
+def read_rgb(path):
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(np.ascontiguousarray(f[..., ::-1]))
+    cap.release()
+    return frames
+
+
+def denoise_f64(maps_u8, radius):
+    """numpy's float64 recipe of fft_denoise (the reference's
+    image_denoise.py:13-30) on (H, W, C) uint8 maps, rounded to uint8;
+    scipy's FFT on all host cores where scipy is installed."""
+    try:
+        import scipy.fft as sfft
+        fft2 = lambda a: sfft.fft2(a, axes=(0, 1), workers=-1)  # noqa: E731
+        ifft2 = lambda a: sfft.ifft2(a, axes=(0, 1),  # noqa: E731
+                                     workers=-1)
+    except ImportError:
+        fft2 = lambda a: np.fft.fft2(a, axes=(0, 1))  # noqa: E731
+        ifft2 = lambda a: np.fft.ifft2(a, axes=(0, 1))  # noqa: E731
+    h, w = maps_u8.shape[:2]
+    f = np.fft.fftshift(fft2(maps_u8.astype(np.float64)), axes=(0, 1))
+    mask = np.zeros((h, w, 1))
+    mask[max(h // 2 - radius, 0):h // 2 + radius,
+         max(w // 2 - radius, 0):w // 2 + radius] = 1
+    back = np.abs(ifft2(np.fft.ifftshift(f * mask, axes=(0, 1))))
+    return np.clip(np.rint(back), 0, 255).astype(np.uint8)
+
+
+def _lsb(tag, got, exp, flip_frac=1e-3):
+    d = np.abs(got.astype(np.int16) - exp.astype(np.int16))
+    flips = float((d > 0).mean())
+    if got.shape != exp.shape or d.max() > 1 or flips > flip_frac:
+        raise AssertionError(f"{tag}: max {d.max()} LSB, {flips:.2e} "
+                             f"flipped (allowed 1 LSB, {flip_frac})")
+    return int(d.max()), flips
+
+
+def _amp_err(tag, got, exp, bit_for_bit):
+    """Amplitude maps: equal bit for bit, or within rtol 1e-5 + atol
+    1e-4; returns the maximum error."""
+    err = float(np.abs(got.astype(np.float64) - exp).max())
+    if bit_for_bit:
+        if not np.array_equal(got, exp):
+            raise AssertionError(f"{tag}: not bit for bit (max error "
+                                 f"{err:.3e})")
+    elif not np.allclose(got, exp, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"{tag}: max error {err:.3e} beyond rtol "
+                             f"1e-5 + atol 1e-4")
+    return err
+
+
+def median_ms(fn, trials=5, reps=3):
+    """Median over ``trials`` of the CUDA-event ms per call of ``fn``."""
+    return float(np.median([_time(fn, reps) for _ in range(trials)]))
+
+
+def device_launches(fn):
+    """(kernel launches, device ms) of one call of ``fn``, from a
+    ``torch.profiler`` trace (copies and memsets not counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(ks), sum(e.time_range.end - e.time_range.start
+                        for e in ks) / 1e3
+
+
+def analysis_4k(card, work):
+    """perform_dips on a 4K clip with denoise and a flicker callback:
+    denoised maps against numpy's float64 recipe, the card's analyzer
+    against the CPU's, the peak at the oscillating square, temporal_dft of
+    the stats against numpy's float64 rfft."""
+    from dips_tpu_torch import DiPsJob, DiPsProperties, perform_dips
+    from dips_tpu_torch.ops import analysis
+    n = 2 * B
+    clip = os.path.abspath(os.path.join(work, "clip4k.avi"))
+    write_avi(clip, flicker_frames(n, H4K, W4K, 101))
+    on_card = analysis.FlickerAnalyzer(FLICKER_HZ, FPS, tau_frames=8.0,
+                                       device="cuda")
+    on_cpu = analysis.FlickerAnalyzer(FLICKER_HZ, FPS, tau_frames=8.0,
+                                      device="cpu")
+
+    def observe(idx, inp, out, stats):
+        on_card.update(inp)
+        on_cpu.update(inp)
+
+    held = []  # (raw maps, denoised maps) of two frames a batch
+    real = analysis.denoise_frames
+
+    def spy(frames_u8, radius, device=None):
+        den = real(frames_u8, radius, device)
+        held.append((frames_u8[:2].cpu().numpy(), den[:2].cpu().numpy()))
+        return den
+
+    job = DiPsJob(properties=DiPsProperties(), video_path=clip,
+                  output_path=os.path.join(work, "out4k.avi"), batch=B,
+                  device="cuda", denoise_radius=DENOISE_R, frame_callback=observe)
+    analysis.denoise_frames = spy
+    try:
+        t0 = time.perf_counter()
+        stats = perform_dips(job)
+        wall = time.perf_counter() - t0
+    finally:
+        analysis.denoise_frames = real
+    if stats.shape != (n, 4) or len(held) != 2:
+        raise AssertionError(f"[analysis] 4K run: stats {stats.shape}, "
+                             f"{len(held)} denoised batches")
+    worst = (0, 0.0)
+    for raw, den in held:
+        for i in range(2):
+            got = _lsb("[analysis] 4K denoise vs numpy float64", den[i],
+                       denoise_f64(raw[i], DENOISE_R))
+            worst = max(worst, got)
+    if np.array_equal(held[0][0][0], held[0][1][0]):
+        raise AssertionError("[analysis] denoise left a map unchanged")
+    log(f"[analysis] perform_dips 4K COLORIZE w3/T4 B={B}, {n} frames, "
+        f"denoise_radius={DENOISE_R}, flicker callback: {wall:.2f} s (decode, CPU "
+        f"analyzer and MJPG encode included); 4 denoised maps against "
+        f"numpy's float64 recipe: max {worst[0]} LSB, {worst[1]:.2e} "
+        f"flipped; {card}")
+    a_card, a_cpu = on_card.amplitude(), on_cpu.amplitude()
+    err = _amp_err("[analysis] 4K flicker, card vs CPU", a_card, a_cpu,
+                   bit_for_bit=False)
+    py, px = np.unravel_index(int(np.argmax(a_card)), a_card.shape)
+    y, x, side = OSC
+    if not (y <= py < y + side and x <= px < x + side):
+        raise AssertionError(f"[analysis] 4K flicker peak at ({py}, {px}), "
+                             f"not in the oscillating square")
+    log(f"[analysis] FlickerAnalyzer(cuda) over the callback's {n} 4K "
+        f"frames against FlickerAnalyzer(cpu): max error {err:.3e}, bit "
+        f"for bit: {bool(np.array_equal(a_card, a_cpu))}; peak "
+        f"{float(a_card[py, px]):.1f} at y={py} x={px}, inside the "
+        f"oscillating square")
+    mag, phase = analysis.temporal_dft(stats, device="cuda")
+    f64 = np.fft.rfft(stats.astype(np.float64), axis=0)
+    scale = np.abs(f64).max(axis=0)
+    rel = float((np.abs(mag.cpu().numpy() - np.abs(f64)) / scale).max())
+    if mag.shape != (n // 2 + 1, 4) or rel > 1e-5:
+        raise AssertionError(f"[analysis] temporal_dft of the stats: "
+                             f"shape {tuple(mag.shape)}, max error {rel:.2e}"
+                             f" of the column maximum")
+    log(f"[analysis] temporal_dft of the run's ({n}, 4) stats against "
+        f"numpy's float64 rfft: max error {rel:.2e} of each column's "
+        f"maximum")
+    return clip, stats
+
+
+def analysis_fleet(card, frame):
+    """FleetFlickerAnalyzer at 1080p x 8 against 8 single-stream analyzers
+    on the card, bit for bit, over ragged rounds with stream 2 gated off
+    in the first."""
+    from dips_tpu_torch.ops import analysis
+    fleet = analysis.FleetFlickerAnalyzer(FLEET, device="cuda")
+    fleet.configure_all(FLICKER_HZ, FPS)
+    singles = [analysis.FlickerAnalyzer(FLICKER_HZ, FPS, batch=B,
+                                        device="cuda")
+               for _ in range(FLEET)]
+    rounds = ((16, 16, 0, 16, 16, 16, 16, 16),
+              (16, 9, 16, 3, 16, 0, 16, 12),
+              (7, 16, 16, 16, 1, 16, 16, 16))
+    cursor = [0] * FLEET
+    for counts in rounds:
+        feeds = []
+        for si, c in enumerate(counts):
+            feeds.append([frame(si, k)
+                          for k in range(cursor[si], cursor[si] + c)])
+            cursor[si] += c
+            if c:
+                singles[si].update(np.stack(feeds[-1]))
+        fleet.update(feeds)
+    for si in range(FLEET):
+        _amp_err(f"[analysis] fleet stream {si} vs its single analyzer",
+                 fleet.amplitude(si), singles[si].amplitude(),
+                 bit_for_bit=True)
+        if fleet.frames_seen[si] != cursor[si]:
+            raise AssertionError(f"[analysis] fleet stream {si} saw "
+                                 f"{fleet.frames_seen[si]} frames")
+    log(f"[analysis] FleetFlickerAnalyzer 1080p x {FLEET} over ragged "
+        f"rounds {[list(r) for r in rounds]}: each stream equals its "
+        f"single-stream analyzer on the card bit for bit")
+
+
+def analysis_files(card):
+    """run_dips_on_files(flicker=) on the [fleet-file] clips against
+    single analyzers fed the same decoded RGB frames."""
+    from dips_tpu_torch import DiPsProperties, OutputMode, run_dips_on_files
+    from dips_tpu_torch.ops import analysis
+    work = os.path.join("build", "chip_smoke", "fleet_file")
+    paths = [os.path.join(work, f"cam{si}.avi") for si in range(3)]
+    counts, maps = run_dips_on_files(
+        paths, os.path.join(work, "flicker"),
+        properties=DiPsProperties(output=OutputMode.STATS_ONLY), batch=B,
+        device="cuda", flicker=dict(freq_hz=FLICKER_HZ))
+    if maps.shape != (3, H1080, W1080):
+        raise AssertionError(f"[analysis] flicker maps {maps.shape}")
+    from dips_tpu_torch.io.video import VideoReader
+    for si, p in enumerate(paths):
+        reader = VideoReader(p)
+        fps = reader.fps
+        reader.close()
+        single = analysis.FlickerAnalyzer(FLICKER_HZ, fps, batch=B,
+                                          device="cuda")
+        frames = read_rgb(p)
+        single.update(np.stack(frames))
+        if counts[si] != len(frames):
+            raise AssertionError(f"[analysis] cam{si}: {counts[si]} frames "
+                                 f"run, {len(frames)} decoded")
+        _amp_err(f"[analysis] run_dips_on_files flicker cam{si}", maps[si],
+                 single.amplitude(), bit_for_bit=True)
+    log(f"[analysis] run_dips_on_files(flicker=) on the three 1080p clips "
+        f"({[int(c) for c in counts]} frames): each map equals a single analyzer's on "
+        f"the decoded RGB frames bit for bit")
+
+
+def analysis_cli(card, clip, work):
+    """python -m dips_tpu_torch on the 4K clip with the post-analysis
+    flags."""
+    import sys
+    dft = os.path.abspath(os.path.join(work, "dft.json"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m", "dips_tpu_torch", "--input", clip, "--output",
+         os.path.abspath(os.path.join(work, "cli4k.avi")), "--batch", str(B), "--denoise",
+         str(DENOISE_R), "--dft-json", dft, "--flicker-hz", f"{FLICKER_HZ:g}",
+         "--flicker-tau", "8", "--device", "cuda"], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"[analysis] CLI exit code {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    with open(dft) as f:
+        doc = json.load(f)
+    if len(doc["magnitude"]) != B + 1 or len(doc["phase"]) != B + 1:
+        raise AssertionError(f"[analysis] --dft-json has "
+                             f"{len(doc['magnitude'])} bins")
+    peak = [ln for ln in res.stdout.splitlines() if ln.startswith("flicker")]
+    import re
+    m = re.search(r"x=(\d+) y=(\d+)", peak[0] if peak else "")
+    y, x, side = OSC
+    if not m or not (y <= int(m[2]) < y + side and x <= int(m[1]) < x + side):
+        raise AssertionError(f"[analysis] CLI flicker peak not in the "
+                             f"oscillating square: {peak}")
+    log(f"[analysis] python -m dips_tpu_torch --input <4K clip> --denoise "
+        f"{DENOISE_R} --dft-json --flicker-hz {FLICKER_HZ:g} --device cuda: exit 0, "
+        f"{B + 1} DFT bins; {peak[0] if peak else 'no flicker line'}")
+
+
+def analysis_times(card):
+    """Device time of each piece on device-resident inputs: the flicker
+    update per frame (4K, s = 1) and per frame-round (1080p x 8), denoise
+    per 4K batch with its memory peak, temporal_dft; each beside a bytes
+    bound at 3.35 TB/s, with its kernel launches."""
+    import torch
+    from dips_tpu_torch.ops import analysis
+    from dips_tpu_torch.properties import ChromaFilter
+    dev = torch.device("cuda")
+    out = []
+
+    def record(name, route, ms, per, nbytes, launches, **extra):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append(dict(name=name, route=route, ms=ms, per=per,
+                        bound_ms=bound, bound_by="bytes",
+                        launches=launches, **extra))
+        log(f"[analysis] time {name}: {ms:.4f} ms per {per} (median of 5 "
+            f"trials, CUDA events), {launches} kernel launches; bytes "
+            f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+            f"{card}")
+
+    def host_wall(label, fn, nbytes):
+        """Median host-clock ms of ``fn`` (host frames in, synchronized):
+        the analyzer's staging and upload included."""
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(walls))
+        out.append(dict(name=label, route="plain torch", ms=ms,
+                        per=f"batch of {B}", clock="host",
+                        host_mb=nbytes / 1e6))
+        log(f"[analysis] time {label}: {ms:.2f} ms per batch of {B} "
+            f"(host clock, median of 5; {nbytes / 1e6:.0f} MB of frames "
+            f"staged and uploaded); {card}")
+
+    all_ = ChromaFilter.ALL.value
+    host = flicker_frames(B, H4K, W4K, 102)
+    fa = analysis.FlickerAnalyzer(FLICKER_HZ, FPS, device="cuda")
+    host_wall("FlickerAnalyzer.update 4K", lambda: fa.update(host),
+              host.nbytes)
+    del fa
+    frames = torch.from_numpy(host).to(dev)
+    state = tuple(torch.zeros((H4K, W4K), device=dev) for _ in range(3))
+    coeffs = torch.rand((3, B), device=dev) + 0.5
+    alpha = torch.tensor(0.9, device=dev)
+    step = lambda: analysis._flicker_update(all_, state, frames,  # noqa
+                                            coeffs, alpha)
+    n_l, _ = device_launches(step)
+    px = H4K * W4K
+    record("flicker update 4K s=1", "plain torch", median_ms(step) / B,
+           "frame", px * (3 + 6 * 4), n_l)
+    del frames, state
+    shost = np.stack([flicker_frames(B, H1080, W1080, 103 + si)
+                      for si in range(FLEET)], axis=1)
+    fleet = analysis.FleetFlickerAnalyzer(FLEET, device="cuda")
+    fleet.configure_all(FLICKER_HZ, FPS)
+    feeds = [list(shost[:, si]) for si in range(FLEET)]
+    host_wall(f"FleetFlickerAnalyzer.update 1080p x {FLEET}",
+              lambda: fleet.update(feeds), shost.nbytes)
+    del fleet, feeds
+    sframes = torch.from_numpy(shost).to(dev)
+    sstate = tuple(torch.zeros((FLEET, H1080, W1080), device=dev)
+                   for _ in range(3))
+    scoeffs = torch.rand((3, B, FLEET), device=dev) + 0.5
+    gates = torch.ones((B, FLEET), dtype=torch.bool, device=dev)
+    salpha = torch.full((FLEET,), 0.9, device=dev)
+    fstep = lambda: analysis._flicker_update_fleet(  # noqa: E731
+        all_, sstate, sframes, scoeffs, gates, salpha)
+    n_l, _ = device_launches(fstep)
+    record(f"flicker update 1080p x {FLEET}", "plain torch",
+           median_ms(fstep) / B, "frame-round",
+           FLEET * H1080 * W1080 * (3 + 6 * 4), n_l)
+    del sframes, sstate
+    maps = torch.from_numpy(flicker_frames(B, H4K, W4K, 104)).to(dev)
+    den = lambda: analysis.denoise_frames(maps, DENOISE_R)  # noqa: E731
+    n_l, _ = device_launches(den)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    den()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    record(f"denoise_frames 4K radius {DENOISE_R}", "cuFFT", median_ms(den, reps=1),
+           f"batch of {B}", 2 * maps.numel(), n_l, peak_mib=peak)
+    log(f"[analysis] denoise_frames 4K batch of {B}: device memory peak "
+        f"{peak:.1f} MiB above the {base / 2 ** 20:.1f} MiB held before")
+    del maps
+    traces = torch.rand((64, H1080, W1080), device=dev)
+    dft = lambda: analysis.temporal_dft(traces)  # noqa: E731
+    n_l, _ = device_launches(dft)
+    record("temporal_dft 64 x 1080p pixel traces", "cuFFT",
+           median_ms(dft), "call",
+           traces.numel() * 4 + 2 * 33 * H1080 * W1080 * 4, n_l)
+    series = torch.rand((2 * B, 4), device=dev)
+    sdft = lambda: analysis.temporal_dft(series)  # noqa: E731
+    n_l, _ = device_launches(sdft)
+    record(f"temporal_dft ({2 * B}, 4) stats series", "cuFFT",
+           median_ms(sdft), "call", series.numel() * 4 + 2 * 17 * 4 * 4,
+           n_l)
+    return out
+
+
+def batch_walls(card):
+    """ms per batch of the 4K COLORIZE engine and of the 1080p x 8
+    COLORIZE fleet, host frames in and host maps out: the walls the
+    flicker update is weighed against."""
+    import torch
+    from dips_tpu_torch import DiPsEngine, DiPsProperties, MultiStreamEngine
+    frames = list(moving_square_frames(B, H4K, W4K, 105))
+    eng = DiPsEngine(DiPsProperties(), H4K, W4K, batch=B, device="cuda")
+    eng.process_batch(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.process_batch(frames)
+    w4k = (time.perf_counter() - t0) / 3 * 1e3
+    del eng
+    frame = FleetFrames(106)
+    feeds = [[frame(si, k) for k in range(B)] for si in range(FLEET)]
+    fleet = MultiStreamEngine(DiPsProperties(), H1080, W1080, FLEET,
+                              batch=B, device="cuda")
+    fleet.process_batch(feeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        fleet.process_batch(feeds)
+    wfleet = (time.perf_counter() - t0) / 2 * 1e3
+    log(f"[analysis] batch walls, host frames in and maps out: 4K "
+        f"COLORIZE engine {w4k:.1f} ms, 1080p x {FLEET} COLORIZE fleet "
+        f"{wfleet:.1f} ms per batch of {B}; {card}")
+    return w4k, wfleet
+
+
+def phase_analysis(card):
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise AssertionError("[analysis] needs cv2 for its clips")
+    work = os.path.join("build", "chip_smoke", "analysis")
+    os.makedirs(work, exist_ok=True)
+    clip, _ = analysis_4k(card, work)
+    analysis_fleet(card, FleetFrames(107))
+    analysis_files(card)
+    analysis_cli(card, clip, work)
+    times = analysis_times(card)
+    w4k, wfleet = batch_walls(card)
+    for t in times:
+        name = t["name"]
+        wall = (w4k if "4K" in name else wfleet if "1080p" in name
+                else None)
+        if wall is not None and "lick" in name:
+            per_batch = t["ms"] * (B if t["per"] != f"batch of {B}" else 1)
+            t["share_of_batch_wall"] = per_batch / wall
+            log(f"[analysis] {name}: {per_batch:.2f} ms per batch of {B}, "
+                f"{100 * t['share_of_batch_wall']:.1f}% of the engine's "
+                f"{wall:.1f} ms batch wall")
+    log("[analysis] " + json.dumps({"device_code": times}))
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -2464,6 +2931,7 @@ def main():
     launches.update(timed(phase_options, card))
     errs.update(timed(phase_kernels_slabs))
     launches.update(timed(phase_grid, card))
+    timed(phase_analysis, card)
     times = timed(phase_times, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null

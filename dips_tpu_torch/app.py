@@ -11,6 +11,10 @@ engine options ``packed_wire``, ``downscale`` (video written at the
 analysis geometry) and ``input_layout`` ("hwc": the device lays out the
 decoded BGR bytes; "planar": the host does) pass through, and ``profile``
 collects per-stage :class:`~dips_tpu_torch.utils.profiling.StageTimers`.
+The post-analysis of ``ops/analysis.py`` runs on the engine's device:
+``DiPsJob.denoise_radius`` low-passes the maps before the frame callback
+sees them, and ``run_dips_on_files(flicker=)`` returns per-stream flicker
+maps.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .errors import (DecodeError, FrameCallbackError, OutputPathError,
                      VideoPathError)
@@ -77,6 +82,9 @@ class DiPsJob:
     #: analyze (and write) at 1/k scale: the k x k box mean runs on the
     #: device; k must divide the input dimensions
     downscale: int = 1
+    #: FFT low-pass post-analysis of the diff maps before they are yielded
+    #: (ops/analysis.denoise_frames radius), on the engine's device
+    denoise_radius: Optional[int] = None
     #: run artifacts
     frame_geometry: Optional[tuple] = None
     engine: Optional[DiPsEngine] = None
@@ -194,6 +202,11 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
                 timers.add_frames(n)
             else:
                 outs, stats = engine.collect(engine.dispatch_async(buf, n))
+            if job.denoise_radius:
+                from .ops.analysis import denoise_frames
+                outs = denoise_frames(
+                    torch.from_numpy(outs).to(engine.device),
+                    int(job.denoise_radius)).cpu().numpy()
             for i in range(n):
                 inp = inputs[i] if inputs is not None else None
                 out = outs[i]
@@ -215,17 +228,24 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
 def perform_dips(job: DiPsJob) -> np.ndarray:
     """Run the job: input video -> diff-map video; returns the per-frame
     statistics (N, 4).  A map-suppressed pipeline (STATS_ONLY or
-    ``emit_maps=False``) writes no video and needs no output path."""
+    ``emit_maps=False``) writes no video, needs no output path and takes
+    no ``denoise_radius``.  A caller-provided ``job.reader`` (e.g. the
+    CLI's ``--flicker-hz`` fps probe) is used instead of opening
+    ``video_path`` again."""
     stats_only = job.properties.out_channels == 0
     if stats_only and job.output_path:
         raise OutputPathError("output_path set with a map-suppressed "
                               "pipeline (STATS_ONLY / emit_maps=False)")
+    if stats_only and job.denoise_radius:
+        raise ValueError("denoise filters diff maps; a map-suppressed "
+                         "pipeline (STATS_ONLY / emit_maps=False) has none")
     if not stats_only and not job.output_path:
         raise OutputPathError("no output path set (DiPsJob.output_path)")
     if not job.video_path:
         raise VideoPathError("no video path set")
     from .io.video import VideoReader, VideoWriter
-    reader = VideoReader(job.video_path)
+    reader = (job.reader if job.reader is not None
+              else VideoReader(job.video_path))
     fps = reader.fps
     try:
         # the written video lives at the analysis geometry (the engine
@@ -317,13 +337,19 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
     * ``collect_stats``: one (n_i, 4) stats array per input;
     * ``auto_refresh`` (BaselineRefreshPolicy kwargs, ops/refresh.py,
       OVERALL only): each stream's own adaptive baseline refresh, and one
-      list of fired frame indices per input.
+      list of fired frame indices per input;
+    * ``flicker`` (dict(freq_hz=..., tau_frames=None)): per-stream flicker
+      maps from one :class:`~dips_tpu_torch.ops.analysis.
+      FleetFlickerAnalyzer` on the engine's device, fps from the shared
+      reader clock, fed the decoded RGB frames before any downscale: one
+      (S, H_in, W_in) float32 array of amplitude maps at the input
+      geometry (zero maps when no frame was decoded).
 
     The decoders yield cv2's BGR frames: with ``input_layout`` "hwc" the
     engine swaps them on the device, with "planar" the host planarizes
     them in RGB order.  ``downscale`` = k decimates every stream on the
-    device and writes the videos at the analysis geometry.  ``flicker``
-    and the "gstreamer" video backend are not ported yet and raise
+    device and writes the videos at the analysis geometry.  The
+    "gstreamer" video backend is not ported and raises
     ``NotImplementedError``.  ``mesh`` (``parallel.stream_mesh`` /
     ``parallel.grid_mesh``) splits the fleet over devices, ``slab_impl``
     ("bands" / "extended") picks a 2-D grid's slab construction; the files
@@ -340,8 +366,6 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                                   "ported: the port decodes with OpenCV")
     if video_backend not in ("auto", "opencv"):
         raise ValueError(f"unknown video backend {video_backend!r}")
-    if flicker is not None:
-        raise NotImplementedError("fleet flicker analysis is not ported yet")
     if auto_refresh is not None and props.method is not DiPsMethod.OVERALL:
         raise ValueError("auto_refresh re-pins the OVERALL baseline; "
                          "method=per_frame has none")
@@ -371,7 +395,9 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                                 else "hwc_bgr",
                                 downscale=downscale, slab_impl=slab_impl,
                                 mesh=mesh)
-        # outputs, stats and events live at the analysis geometry
+        # outputs, stats and events live at the analysis geometry; the
+        # flicker maps at the input geometry
+        h_in, w_in = h, w
         h, w = eng.height, eng.width
         stats_only = props.out_channels == 0
         if not stats_only:  # no diff videos, no writers at all
@@ -405,6 +431,17 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
             refreshers = [BaselineRefreshPolicy(**rcfg) for _ in range(s)]
         stream_stats: Optional[list] = ([[] for _ in range(s)]
                                         if collect_stats else None)
+        fleet_flicker = None
+        if flicker is not None:
+            from .ops.analysis import FleetFlickerAnalyzer
+            fcfg = dict(flicker)
+            fleet_flicker = FleetFlickerAnalyzer(s, chroma=props.chroma,
+                                                 device=eng.device)
+            fleet_flicker.configure_all(
+                float(fcfg.pop("freq_hz")), fps,
+                tau_frames=fcfg.pop("tau_frames", None))
+            if fcfg:
+                raise ValueError(f"unknown flicker options {sorted(fcfg)}")
         frames_in = [r.iter_bgr() for r in readers]
         done = [False] * s
         while not all(done):
@@ -421,6 +458,13 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
             if not any(feeds):
                 break
             out, stats, _ = eng.process_batch(feeds)
+            if fleet_flicker is not None:
+                # the analyzer takes RGB; failed streams stop feeding
+                # below, so they are gated off here too
+                fleet_flicker.update(
+                    [[] if si in eng.failed
+                     else fd if planar else [f[..., ::-1] for f in fd]
+                     for si, fd in enumerate(feeds)])
             for si in range(s):
                 if si in eng.failed:
                     # isolated stream: stop decoding and writing it
@@ -467,4 +511,8 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
                        for rows in stream_stats])
     if refreshers is not None:
         result.append([list(r.refreshes) for r in refreshers])
+    if fleet_flicker is not None:
+        result.append(fleet_flicker.amplitudes()
+                      if any(fleet_flicker.frames_seen)
+                      else np.zeros((s, h_in, w_in), np.float32))
     return result[0] if len(result) == 1 else tuple(result)

@@ -7,14 +7,17 @@ defaults, messages and exit codes (2 for usage errors, 1 for a failed run):
   --chroma --win_size --approx-median --quirk-compat --roi --colorize
   --method --output-mode --no-maps --sensitivity --temporal --threshold
   --batch --packed-wire --downscale --input-layout --profile, bare
-  integers as refresh markers, plus --device;
+  integers as refresh markers, plus --device; the post-analysis flags
+  --denoise R, --dft-json PATH and --flicker-hz F with --flicker-png and
+  --flicker-tau (``ops/analysis.py``, on the run's device);
 * the fleet: --inputs FILE... --output-dir DIR with the same pipeline and
   engine options (--packed-wire is accepted and, as in the JAX CLI, not
   used: the fleet writes unpacked maps), and --stats-json, --events-json
   (and the --event-* options), --auto-refresh, and --mesh SxR /
   --slab-impl (the fleet over a stream x rows grid of cells:
-  ``parallel/grid2d.py``); exit code 1 when a stream failed and was
-  isolated.
+  ``parallel/grid2d.py``), and --flicker-hz (one fleet flicker analyzer,
+  a peak line and, with --flicker-png, one PNG per stream); exit code 1
+  when a stream failed and was isolated.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
@@ -119,6 +122,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "the upload")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage timings after the run")
+    p.add_argument("--denoise", type=int, metavar="R",
+                   help="FFT low-pass denoise radius applied to diff maps "
+                        "(post-analysis, see ops/analysis.fft_denoise)")
+    p.add_argument("--dft-json", metavar="PATH",
+                   help="write the temporal DFT of the per-frame "
+                        "mean-|diff| series to a JSON file")
+    p.add_argument("--flicker-hz", type=float, metavar="F",
+                   help="per-PIXEL temporal-frequency analysis: stream a "
+                        "single-bin demodulator at F Hz over the input "
+                        "(ops/analysis.FlickerAnalyzer) and print the "
+                        "peak oscillation amplitude + location; F must be "
+                        "below the input's Nyquist rate (fps/2). Costs "
+                        "one extra host pass + device stream per frame")
+    p.add_argument("--flicker-png", metavar="PATH",
+                   help="save the --flicker-hz amplitude map as a PNG "
+                        "(sequential rendering; --inputs mode writes one "
+                        "per stream, PATH's stem + .<stream>)")
+    p.add_argument("--flicker-tau", type=float, metavar="N",
+                   help="averaging time constant in frames for "
+                        "--flicker-hz (default: max(16, 4*fps/F))")
     p.add_argument("--device", default="cuda",
                    help="cuda | cuda:N | cpu (default: cuda; without a card "
                         "the run fails unless --device cpu is given)")
@@ -223,6 +246,28 @@ def _parse_encoding(name: str) -> Optional[Encoding]:
         return None
 
 
+def _save_map_png(amp, path: str) -> None:
+    """One amplitude map as a PNG (sequential colour map, one hue)."""
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(6, 6 * amp.shape[0] / amp.shape[1]))
+    im = ax.imshow(amp, cmap="Blues")
+    ax.set_axis_off()
+    fig.colorbar(im, ax=ax, shrink=0.8)
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+
+
+def _png_ready() -> bool:
+    """matplotlib is importable; else its message on stderr."""
+    from .report import _require_matplotlib
+    try:
+        _require_matplotlib()
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return False
+    return True
+
+
 def _detector_cfg(args) -> dict:
     """The --event-* flags as MotionDetector kwargs."""
     return dict(on_threshold=args.event_on, off_threshold=args.event_off,
@@ -265,6 +310,8 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
             return 1
     ev_cfg = _detector_cfg(args) if args.events_json else None
     want_stats = bool(args.stats_json)
+    flicker_cfg = (dict(freq_hz=args.flicker_hz, tau_frames=args.flicker_tau)
+                   if args.flicker_hz is not None else None)
     try:
         result = run_dips_on_files(args.inputs, args.output_dir or ".", enc,
                                    props, batch=args.batch,
@@ -274,16 +321,18 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
                                    collect_stats=want_stats,
                                    downscale=args.downscale,
                                    auto_refresh=auto_refresh,
+                                   flicker=flicker_cfg,
                                    slab_impl=args.slab_impl, mesh=mesh)
     except (DiPsError, NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    # counts, [events,] [stats,] [refreshes]
+    # counts, [events,] [stats,] [refreshes,] [flicker maps]
     res = list(result) if isinstance(result, tuple) else [result]
     counts = res.pop(0)
     per_stream = res.pop(0) if ev_cfg is not None else None
     per_stats = res.pop(0) if want_stats else None
     per_refresh = res.pop(0) if auto_refresh is not None else None
+    per_flicker = res.pop(0) if flicker_cfg is not None else None
     # duplicate input paths must not collapse to one JSON key
     dup = {p for p in args.inputs if args.inputs.count(p) > 1}
     keys = [f"{p}#{si}" if p in dup else p
@@ -310,6 +359,22 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
                       + ", ".join(map(str, idxs)))
         else:
             print("auto-refresh: no scene change detected")
+    if per_flicker is not None:
+        import numpy as np
+        for k, amp in zip(keys, per_flicker):
+            py, px = np.unravel_index(int(np.argmax(amp)), amp.shape)
+            print(f"flicker @ {args.flicker_hz:g} Hz [{k}]: peak "
+                  f"amplitude {float(amp[py, px]):.1f} at x={px} "
+                  f"y={py}, mean {float(amp.mean()):.2f}")
+        if args.flicker_png:
+            if not _png_ready():
+                return 1
+            import os
+            root, ext = os.path.splitext(args.flicker_png)
+            for si, amp in enumerate(per_flicker):
+                path = f"{root}.{si}{ext or '.png'}"
+                _save_map_png(amp, path)
+                print(f"flicker map written: {path}")
     failed = [i for i, c in enumerate(counts) if c < 0]
     ok_total = int(sum(c for c in counts if c >= 0))
     print(f"processed {len(counts)} streams ({ok_total} frames) -> "
@@ -349,10 +414,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "--output/--output-dir (stats/events/heatmap artifacts "
                   "are the products)", file=sys.stderr)
             return 2
-        if args.packed_wire:
-            print(f"--packed-wire needs diff maps; {why} suppresses them",
-                  file=sys.stderr)
-            return 2
+        for flag, val in (("--denoise", args.denoise),
+                          ("--packed-wire", args.packed_wire)):
+            if val:
+                print(f"{flag} needs diff maps; {why} suppresses them",
+                      file=sys.stderr)
+                return 2
+    if (args.flicker_png or args.flicker_tau is not None) \
+            and args.flicker_hz is None:
+        print("--flicker-png/--flicker-tau need --flicker-hz",
+              file=sys.stderr)
+        return 2
     if args.downscale < 1:
         print(f"--downscale must be >= 1, got {args.downscale}",
               file=sys.stderr)
@@ -363,6 +435,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.inputs:
+        if args.dft_json:
+            print("--dft-json is not written in this mode — use the "
+                  "--input/--output run mode", file=sys.stderr)
+            return 2
         return _run_inputs(args, props, auto_refresh)
     for flag, val in (("--mesh", args.mesh),
                       ("--stats-json", args.stats_json),
@@ -383,20 +459,69 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
         return 2
     from .app import DiPsJob, perform_dips
+    flicker = flicker_cb = probed_reader = None
+    if args.flicker_hz is not None:
+        # the analyzer needs the input's frame rate up front (Nyquist
+        # validation + demodulation angle); the probed reader is handed to
+        # the job, which decodes from it instead of opening the file again
+        from .io.video import VideoReader
+        from .ops.analysis import FlickerAnalyzer
+        try:
+            probed_reader = VideoReader(args.input)
+            flicker = FlickerAnalyzer(args.flicker_hz, probed_reader.fps,
+                                      tau_frames=args.flicker_tau,
+                                      chroma=props.chroma, batch=args.batch,
+                                      device=args.device)
+        except (DiPsError, ValueError) as e:
+            if probed_reader is not None:
+                probed_reader.close()
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+
+        def flicker_cb(idx, inp, out, stat, _fl=flicker):
+            _fl.update(inp)
+            return None  # observe-only: the diff map passes through
     job = DiPsJob(properties=props, video_path=args.input,
                   output_path=args.output, encoding=enc, batch=args.batch,
                   device=args.device, packed_wire=args.packed_wire,
                   input_layout=args.input_layout, downscale=args.downscale,
-                  profile=args.profile)
+                  profile=args.profile, denoise_radius=args.denoise,
+                  reader=probed_reader, frame_callback=flicker_cb)
     try:
         stats = perform_dips(job)
     except (DiPsError, ValueError) as e:
+        if probed_reader is not None:
+            probed_reader.close()
         print(f"error: {e}", file=sys.stderr)
         return 1
     if args.profile and job.timers:
         print(job.timers)
     print(f"processed {stats.shape[0]} frames -> "
           + (args.output if args.output else "stats only"))
+    if flicker is not None:
+        import numpy as np
+        flicker.flush()
+        if flicker.frames_seen == 0:
+            print("flicker: no frames streamed", file=sys.stderr)
+        else:
+            amp = flicker.amplitude()
+            py, px = np.unravel_index(int(np.argmax(amp)), amp.shape)
+            print(f"flicker @ {args.flicker_hz:g} Hz over "
+                  f"{flicker.frames_seen} frames: peak amplitude "
+                  f"{float(amp[py, px]):.1f} (intensity units, 0-510) at "
+                  f"x={px} y={py}, mean {float(amp.mean()):.2f}")
+            if args.flicker_png:
+                if not _png_ready():
+                    return 1
+                _save_map_png(amp, args.flicker_png)
+                print(f"flicker map written: {args.flicker_png}")
+    if args.dft_json:
+        from .ops.analysis import temporal_dft
+        mag, phase = temporal_dft(stats[:, 1], device=args.device)
+        with open(args.dft_json, "w") as f:
+            json.dump({"magnitude": mag.cpu().tolist(),
+                       "phase": phase.cpu().tolist()}, f)
+        print(f"temporal DFT written: {args.dft_json}")
     return 0
 
 

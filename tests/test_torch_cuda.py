@@ -642,3 +642,75 @@ def test_unaligned_slabs_raise_on_the_card(cuda):
                  np.zeros((s, b), bool), torch.zeros((s, hp, wp), device=cuda),
                  np.ones((s, b), bool))
     assert cuda_fused.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the post-analysis on the card (cuFFT and plain torch ops) against the CPU
+# ---------------------------------------------------------------------------
+
+def _flicker_frames(n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    frames = np.repeat(rng.integers(0, 256, (1, h, w, 3), np.uint8), n, 0)
+    for k in range(n):
+        frames[k, 8:16, 10:20] = int(128 + 90 * np.cos(2 * np.pi * k / 6))
+    return frames
+
+
+@pytest.mark.parametrize("chroma", [ChromaFilter.ALL, ChromaFilter.RED])
+def test_flicker_on_the_card_equals_the_cpu(cuda, chroma):
+    """The analyzers' maps on the card equal the CPU's bit for bit (IEEE
+    mul / add / div in both), and the fleet equals its single analyzers
+    over ragged rounds with a gated stream."""
+    from dips_tpu_torch.ops import analysis
+    frames = _flicker_frames(40, H, W, 3)
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        fa = analysis.FlickerAnalyzer(5.0, 30.0, chroma=chroma, batch=16,
+                                      device=dev)
+        fa.update(frames[:23])
+        for f in frames[23:]:
+            fa.update(f)
+        maps[dev] = fa.amplitude()
+    np.testing.assert_array_equal(maps["cuda"], maps["cpu"])
+    fleet = analysis.FleetFlickerAnalyzer(3, chroma=chroma, device="cuda")
+    fleet.configure_all(5.0, 30.0)
+    singles = [analysis.FlickerAnalyzer(5.0, 30.0, chroma=chroma,
+                                        device="cuda") for _ in range(3)]
+    cursor = [0, 0, 0]
+    for counts in ((16, 0, 5), (3, 16, 16), (16, 7, 0)):
+        feeds = []
+        for si, c in enumerate(counts):
+            feeds.append(list(frames[cursor[si]:cursor[si] + c]))
+            if c:
+                singles[si].update(frames[cursor[si]:cursor[si] + c])
+            cursor[si] += c
+        fleet.update(feeds)
+    for si in range(3):
+        np.testing.assert_array_equal(fleet.amplitude(si),
+                                      singles[si].amplitude())
+
+
+def test_fft_ops_on_the_card_match_the_cpu(cuda):
+    """temporal_dft, fft_denoise and denoise_frames on the card against
+    the CPU: rtol 1e-5 / 1e-4, and denoised uint8 maps within 1 LSB with
+    at most 1e-3 flipped."""
+    from dips_tpu_torch.ops import analysis
+    rng = np.random.default_rng(5)
+    traces = rng.standard_normal((33, 20, 30)).astype(np.float32)
+    for got, exp in zip(analysis.temporal_dft(traces, device="cuda"),
+                        analysis.temporal_dft(traces, device="cpu")):
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), exp.numpy(),
+                                   rtol=1e-5, atol=1e-4)
+    img = rng.integers(0, 256, (3, H, W)).astype(np.float32)
+    np.testing.assert_allclose(
+        analysis.fft_denoise(img, 9, device="cuda").cpu().numpy(),
+        analysis.fft_denoise(img, 9, device="cpu").numpy(), rtol=1e-4,
+        atol=1e-3)
+    frames = rng.integers(0, 256, (4, H, W, 3), np.uint8)
+    got = analysis.denoise_frames(torch.from_numpy(frames).to(cuda), 9)
+    exp = analysis.denoise_frames(frames, 9, device="cpu")
+    d = (got.cpu().to(torch.int16) - exp.to(torch.int16)).abs()
+    assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+    with pytest.raises(ValueError, match="was asked for"):
+        analysis.fft_denoise(torch.from_numpy(img), 9, device="cuda")

@@ -235,17 +235,18 @@ def test_run_dips_on_files_names_and_checks(clip_paths, tmp_path):
     with pytest.raises(dips_tpu_torch.VideoPathError, match="geometry"):
         dips_tpu_torch.run_dips_on_files([clip_paths[0], other],
                                          str(tmp_path / "x"), device="cpu")
-    for kw in (dict(flicker=dict(freq_hz=5.0)),
-               dict(video_backend="gstreamer")):
-        with pytest.raises(NotImplementedError):
-            dips_tpu_torch.run_dips_on_files(clip_paths, str(tmp_path / "y"),
-                                             device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        dips_tpu_torch.run_dips_on_files(clip_paths, str(tmp_path / "y"),
+                                         device="cpu",
+                                         video_backend="gstreamer")
     # the ported options run (their outputs are held in
-    # tests/test_torch_options.py)
-    for kw in (dict(downscale=2), dict(input_layout="planar")):
-        counts = dips_tpu_torch.run_dips_on_files(
+    # tests/test_torch_options.py and tests/test_torch_fleet_flicker.py)
+    for kw in (dict(downscale=2), dict(input_layout="planar"),
+               dict(flicker=dict(freq_hz=4.0))):
+        res = dips_tpu_torch.run_dips_on_files(
             [clip_paths[0], clip_paths[0]], str(tmp_path / "y"),
             properties=props, batch=4, device="cpu", **kw)
+        counts = res[0] if "flicker" in kw else res
         assert list(counts) == [9, 9]
 
 

@@ -142,6 +142,44 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("rel", ["ops/analysis.py", "report.py"])
+def test_module_imports_nothing_of_jax(rel):
+    """The post-analysis modules import neither jax nor the JAX package."""
+    src = (ROOT / "dips_tpu_torch" / rel).read_text()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s and "dips_tpu." not in s \
+                and not s.endswith(" dips_tpu"), s
+
+
+def test_require_matplotlib_copy_is_verbatim():
+    """``report._require_matplotlib`` is the original's source and
+    behaves alike, with matplotlib and without it."""
+    import inspect
+
+    import dips_tpu.report as jax_report
+    import dips_tpu_torch.report as port_report
+    assert inspect.getsource(port_report._require_matplotlib) == \
+        inspect.getsource(jax_report._require_matplotlib)
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "from dips_tpu_torch.report import _require_matplotlib\n"
+            "try:\n"
+            "    _require_matplotlib()\n"
+            "except RuntimeError as e:\n"
+            "    print(e)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "chart rendering needs matplotlib" in res.stdout
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return
+    assert port_report._require_matplotlib().get_backend().lower() == "agg"
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     for line in src.splitlines():
@@ -246,12 +284,10 @@ def test_unported_fleet_options_raise(kwargs):
                                     dict(downscale=2),
                                     dict(input_layout="planar")])
 def test_unported_fleet_run_options_raise(kwargs):
-    """Fleet flicker is still unported and raises NotImplementedError
-    before any file is opened; ``downscale`` and the planar layout are
-    ported, so the run gets as far as opening the (missing) input."""
+    """Fleet flicker, ``downscale`` and the planar layout are ported: the
+    run gets as far as opening the (missing) input."""
     from dips_tpu_torch import VideoPathError, run_dips_on_files
-    exc = NotImplementedError if "flicker" in kwargs else VideoPathError
-    with pytest.raises(exc):
+    with pytest.raises(VideoPathError):
         run_dips_on_files(["a.avi"], "out", device="cpu", **kwargs)
 
 
