@@ -25,7 +25,7 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
 * the tail protocol (``ring_carry=False``): each of the four tail kernels
   against its plain twin at 1080p s = 1, 1080p x 8 and 480p x 3, with a
   flagged invalid slot (``[kernels-tail]``); the tail ``DiPsEngine`` at
-  1080p against the ring engine over 96 frames in uneven batches,
+  1080p against the ring engine over 64 frames in uneven batches,
   COLORIZE and ABSDIFF, OVERALL and PER_FRAME, with checkpoints crossing
   the protocols (``[tail]``); the tail fleet at 1080p x 8 against the ring
   fleet through an idle and an isolated stream (``[fleet-tail]``);
@@ -36,7 +36,7 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   a 1080p engine fed ``pool_frame_host`` frames (checkpoint resume
   included), a ``packed_wire`` THRESHOLD engine against the unpacked one
   and ``pack_mask_host``, a planar-layout engine against the hwc one, the
-  approx w7 and quirk w5 COLORIZE engines over 96 frames with every batch
+  approx w7 and quirk w5 COLORIZE engines over 64 frames with every batch
   held against the plain twins, ring and tail; the 1080p x 8 fleet with
   ``packed_wire``, and 1080p x 8 fleets with ``downscale=2`` in both
   variants, against single-stream engines;
@@ -68,6 +68,24 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   on the 4K clip; device times of each piece with its launches, bytes
   bound and (denoise) memory peak, and the flicker update's share of the
   4K engine's and the fleet's batch walls;
+
+* the serving slice (``dips_tpu_torch.serve``, ``loadgen``; ``[serve]``),
+  servers on cuda:0 in threads of this process and clients over TCP on
+  localhost, at 1080p: a dedicated COLORIZE and an ABSDIFF session (3
+  requests of 16 frames, a snapshot, the heatmap) against a
+  ``DiPsEngine`` bit for bit; 8 concurrent clients on a ``coalesce=8``
+  server against single-stream engines, with the coalescer's metrics;
+  the same clients on ``coalesce_mesh=(2, 3)`` against the server without
+  a mesh, and ABSDIFF x 2 with an roi on the mesh against the engine
+  (the band and ``dyn_rows`` forms); THRESHOLD ``packed_wire`` reply bytes against
+  ``pack_mask_host``; a named session autosaved, the daemon shut down
+  without close and restarted, the restored stream against the
+  uninterrupted engine, the serving thread's autosave timed; a
+  flicker-armed coalesced session against a ``FlickerAnalyzer``;
+  ``python -m dips_tpu_torch.loadgen`` in a process of its own against a
+  dedicated and a coalescing server, 40 requests each (frames/s, latency
+  p50 / p99 / max, mean fill). The servers' own launches are counted
+  (``serve_launches`` in the record);
 
 then times kernels (wrapper, and alone for the variants), plain twins and
 every engine with CUDA events (``[time]``), the variants, the slab forms
@@ -783,6 +801,10 @@ def phase_kernels_tail():
 
 #: batch sizes of the tail-vs-ring runs: partial batches among full ones
 SPLITS = (16, 16, 11, 16, 5, 16, 16)
+#: frames the split runs stream: the batches that start before frame 64
+#: (both partial batches, the refresh marker at 48 and the snapshot before
+#: frame 59 stay inside)
+SPLIT_FRAMES = 64
 
 
 def run_split(props, frames, ring_carry, engine=None, start=0, stop=None):
@@ -819,7 +841,7 @@ def phase_tail(card):
     from dips_tpu_torch import DiPsEngine, DiPsMethod, DiPsProperties, \
         OutputMode
     from dips_tpu_torch.ops import cuda_fused
-    n = sum(SPLITS)
+    n = SPLIT_FRAMES
     frames = moving_square_frames(n, H1080, W1080, 23)
     configs = [
         ("COLORIZE OVERALL", DiPsProperties(refresh_markers=(48,))),
@@ -866,7 +888,8 @@ def phase_tail(card):
                                   start=cut)
             _same_run(f"[tail] {label} resumed", (o2, s2),
                       (ring[0][cut:], ring[1][cut:]))
-        log(f"[tail] {label} 1080p {n} frames in batches {SPLITS}: the "
+        log(f"[tail] {label} 1080p {n} frames in batches {SPLITS} (those "
+            f"that start before frame {n}): the "
             f"tail engine equals the ring engine (maps byte for byte, stats "
             f"within 1e-5, baseline exact); a checkpoint from either "
             f"protocol continues in the other")
@@ -1420,14 +1443,14 @@ def held_engine(eng):
 
 
 def options_variant_engines(card):
-    """The approx w7 and quirk w5 COLORIZE engines over 96 frames in
+    """The approx w7 and quirk w5 COLORIZE engines over 64 frames in
     uneven batches with a refresh marker and a snapshot, ring and tail,
     every batch held against the plain twins of its step.  Returns the
     variants' launches during these runs."""
     import torch
     from dips_tpu_torch import DiPsEngine
     from dips_tpu_torch.ops import cuda_fused
-    frames = moving_square_frames(sum(SPLITS), H1080, W1080, 57)
+    frames = moving_square_frames(SPLIT_FRAMES, H1080, W1080, 57)
     cuda_fused.reset_launch_counts()
     helds = []
     for mode, w in MAIN_VARIANTS.items():
@@ -1449,7 +1472,8 @@ def options_variant_engines(card):
                 and not k.split(":")[0].endswith("stacked")}
     log(f"[options] launches during the variant engine runs: {launches}")
     log(f"[options] approx w7 and quirk w5 COLORIZE 1080p, ring and tail, "
-        f"{len(frames)} frames in batches {SPLITS}: {sum(h['batches'] for h in helds)} "
+        f"{len(frames)} frames in batches {SPLITS} (those that start before "
+        f"frame {len(frames)}): {sum(h['batches'] for h in helds)} "
         f"batches held against the plain twins on the same state; tie flips "
         f"{sum(h['flips'] for h in helds)}/{sum(h['px'] for h in helds)}")
     return launches
@@ -2399,6 +2423,431 @@ def phase_analysis(card):
 
 
 # ---------------------------------------------------------------------------
+# the serving slice: dips_tpu_torch.serve over the engines
+# ---------------------------------------------------------------------------
+
+#: the ring kernels (and their slab forms) the serving path launches
+SERVE_KERNELS = ("absdiff_step_ring", "batch_step_ring",
+                 "absdiff_step_ring_stacked", "batch_step_ring_stacked",
+                 "absdiff_step_ring_stacked:dyn_rows",
+                 "batch_step_ring_stacked:slab_bands")
+FPS_SERVE, HZ_SERVE = 30.0, 5.0  # a flicker session's camera and target
+
+
+class Served:
+    """Launch counts of the server's own work: each ``with`` block is
+    driven with the counts set to 0 just before and read just after, so
+    the engines and analyzers the replies are held against count
+    nothing."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(SERVE_KERNELS, 0)
+
+    def __enter__(self):
+        from dips_tpu_torch.ops import cuda_fused
+        cuda_fused.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from dips_tpu_torch.ops import cuda_fused
+        torch.cuda.synchronize()
+        counts = cuda_fused.launch_counts()
+        for name in SERVE_KERNELS:
+            self.counts[name] += counts[name]
+
+
+def start_server(props, **kw):
+    """A ``DiPsServer`` at 1080p on cuda:0, serving from a thread."""
+    import threading
+    from dips_tpu_torch.serve import DiPsServer
+    kw = dict(dict(port=0, batch=B, device="cuda:0", input_layout="hwc"),
+              **kw)
+    srv = DiPsServer(props, H1080, W1080, **kw)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th
+
+
+def stop_server(srv, th):
+    srv.shutdown()
+    th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("[serve] the server did not stop")
+
+
+def connect(port, **kw):
+    """A DiPsClient whose socket times out instead of hanging the run."""
+    from dips_tpu_torch.serve import DiPsClient
+    cli = DiPsClient(port, **kw)
+    cli._sock.settimeout(120)
+    return cli
+
+
+def in_threads(fn, n, timeout=300):
+    """fn(0..n-1) in n client threads; their results, errors re-raised."""
+    import threading
+    res, errs = [None] * n, []
+
+    def run(i):
+        try:
+            res[i] = fn(i)
+        except BaseException as e:  # re-raised on the calling thread
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=(i,), daemon=True)
+          for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("[serve] a client thread did not finish")
+    return res
+
+
+def same(tag, got, exp):
+    if not np.array_equal(got, exp):
+        d = np.abs(np.asarray(got, np.float64) - np.asarray(exp, np.float64))
+        raise AssertionError(f"{tag}: differs (max {d.max()}, "
+                             f"{int((d > 0).sum())} values)")
+
+
+def engine_batches(props, batches, snapshot_before=None, **kw):
+    """A DiPsEngine on the card over ``batches`` (lists of frames), with a
+    snapshot before batch ``snapshot_before``: (maps, stats, heatmap)."""
+    from dips_tpu_torch import DiPsEngine
+    eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda", **kw)
+    outs, stats = [], []
+    for bi, frames in enumerate(batches):
+        if bi == snapshot_before:
+            eng.snapshot()
+        o, s = eng.process_batch(list(frames))
+        outs.append(o)
+        stats.append(s)
+    return np.concatenate(outs), np.concatenate(stats), eng.heatmap()
+
+
+def serve_dedicated(props, frames, served, label):
+    """One session of 3 requests of B frames, a snapshot before the third,
+    then the heatmap: equal to a DiPsEngine bit for bit."""
+    with served:
+        srv, th = start_server(props)
+        try:
+            with connect(srv.port) as cli:
+                cfg = cli.hello()["config"]
+                if cfg["backend"] != "kernel" or cfg["height"] != H1080:
+                    raise AssertionError(f"[serve] hello {cfg}")
+                o, s = [], []
+                for bi in range(3):
+                    if bi == 2:
+                        cli.snapshot()
+                    ob, sb = cli.process_many(frames[bi * B:(bi + 1) * B])
+                    o.append(ob)
+                    s.append(sb)
+                heat = cli.heatmap()
+        finally:
+            stop_server(srv, th)
+    maps, stats = np.concatenate(o), np.concatenate(s)
+    exp = engine_batches(props, [frames[i:i + B] for i in range(0, 3 * B, B)],
+                         snapshot_before=2)
+    for tag, got, want in zip(("maps", "stats", "heatmap"),
+                              (maps, stats, heat), exp):
+        same(f"[serve] dedicated {label} {tag}", got, want)
+    log(f"[serve] dedicated {label} 1080p, {3 * B} frames in 3 "
+        f"process_batch requests, a snapshot before the third: maps, "
+        f"stats and heatmap equal a DiPsEngine bit for bit")
+    return maps, stats
+
+
+def serve_coalesced(props, feeds, served, n_req, label, **kw):
+    """len(feeds) concurrent clients on a coalescing server, each sending
+    ``n_req`` requests of B frames; returns each client's maps and stats
+    and the server's metrics."""
+    with served:
+        srv, th = start_server(props, coalesce=len(feeds), **kw)
+        try:
+            def client(i):
+                with connect(srv.port, session=f"cam-{i}") as cli:
+                    if cli.hello()["config"]["backend"] != "kernel":
+                        raise AssertionError("[serve] coalesced backend")
+                    got = [cli.process_many(feeds[i][r * B:(r + 1) * B])
+                           for r in range(n_req)]
+                return (np.concatenate([g[0] for g in got]),
+                        np.concatenate([g[1] for g in got]))
+            res = in_threads(client, len(feeds))
+            metrics = srv.metrics()
+        finally:
+            stop_server(srv, th)
+    if metrics["coalesce_dispatches"] < 1 or \
+            not 1.0 <= metrics["coalesce_mean_fill"] <= len(feeds) * B:
+        raise AssertionError(f"[serve] {label} metrics {metrics}")
+    return res, metrics
+
+
+def serve_autosave(props, frames, ref_maps, served, work):
+    """A named session autosaves every B frames; the daemon "crashes"
+    (shut down without close), a new daemon restores the session from
+    the file the serving thread wrote, and the continued stream equals
+    the uninterrupted engine bit for bit.  Returns that autosave's ms,
+    timed on the serving thread."""
+    import shutil
+    import threading
+    auto = os.path.join(work, "autosave")
+    shutil.rmtree(auto, ignore_errors=True)
+    kw = dict(autosave_dir=auto, autosave_every=B)
+    saves = []  # (ms, on a thread other than this one) of each save
+    with served:
+        srv, th = start_server(props, **kw)
+        run_autosave = srv._maybe_autosave
+
+        def timed_autosave(*a, **k):
+            n0 = srv.metrics()["autosaves"]
+            t0 = time.perf_counter()
+            run_autosave(*a, **k)
+            if srv.metrics()["autosaves"] > n0:
+                saves.append((1e3 * (time.perf_counter() - t0),
+                              threading.current_thread()
+                              is not threading.main_thread()))
+        srv._maybe_autosave = timed_autosave
+        try:
+            cli = connect(srv.port, session="cam")
+            cli.process_many(frames[:B])
+            deadline = time.monotonic() + 60
+            while srv.metrics()["autosaves"] < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("[serve] no autosave")
+                time.sleep(0.01)
+        finally:
+            stop_server(srv, th)  # the crash: no close
+        cli._sock.close()
+        if len(saves) != 1 or not saves[0][1] or \
+                srv.metrics()["autosaves"] != 1:
+            raise AssertionError(f"[serve] autosaves {saves}")
+        save_ms = saves[0][0]
+        size = os.path.getsize(os.path.join(auto, "cam.npz"))
+        srv2, th2 = start_server(props, **kw)
+        try:
+            with connect(srv2.port, session="cam") as cli2:
+                if cli2.hello()["frame_index"] != B:
+                    raise AssertionError("[serve] not restored")
+                maps, _ = cli2.process_many(frames[B:2 * B])
+            if srv2.metrics()["autorestores"] != 1:
+                raise AssertionError("[serve] autorestores")
+        finally:
+            stop_server(srv2, th2)
+    same("[serve] autosave restore", maps, ref_maps[B:2 * B])
+    log(f"[serve] named session 'cam', autosave every {B} frames: shut "
+        f"down without close after {B} frames, a new daemon restored the "
+        f"serving thread's autosave (frame_index {B}), frames {B}..{2 * B - 1}"
+        f" equal the uninterrupted engine bit for bit; that 1080p autosave "
+        f"took {save_ms:.1f} ms on the serving thread ({size / 1e6:.1f} MB "
+        f"file)")
+    return save_ms
+
+
+def serve_packed(served):
+    """THRESHOLD with packed_wire: the reply carries the device-packed
+    planes verbatim; cropped to the true width they equal
+    ``pack_mask_host`` of an unpacked engine's maps."""
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    from dips_tpu_torch.ops.reference import pad_geometry
+    from dips_tpu_torch.ops.wire import pack_mask_host
+    props = DiPsProperties(output=OutputMode.THRESHOLD)
+    frames = moving_square_frames(B, H1080, W1080, 83)
+    hp, wp = pad_geometry(H1080, W1080)
+    with served:
+        srv, th = start_server(props, packed_wire=True)
+        try:
+            with connect(srv.port) as cli:
+                hdr, body = cli._rpc({"cmd": "process_batch",
+                                      "shape": list(frames.shape),
+                                      "packed": True}, frames.tobytes())
+                if not hdr.get("ok") or hdr.get("padded") != [hp, wp]:
+                    raise AssertionError(f"[serve] packed reply {hdr}")
+                maps = cli._decode_maps(hdr, body)
+        finally:
+            stop_server(srv, th)
+    ref, _, _ = engine_batches(props, [frames])
+    planes = np.frombuffer(body, np.uint8).reshape(B, 1, hp // 8, wp)
+    same("[serve] packed reply bytes", planes[:, 0, :, :W1080],
+         pack_mask_host(ref[..., 0]))
+    same("[serve] packed reply decoded", maps, ref)
+    log(f"[serve] THRESHOLD packed_wire: {len(body)} reply bytes (1/8 of "
+        f"the padded maps), equal to pack_mask_host of an unpacked "
+        f"engine's maps on the true width; decoded maps equal")
+
+
+def serve_flicker(props, frames, served):
+    """A flicker-armed coalesced session: its amplitude map equals a
+    FlickerAnalyzer on the card fed the same frames, bit for bit."""
+    from dips_tpu_torch.ops.analysis import FlickerAnalyzer
+    with served:
+        srv, th = start_server(props, coalesce=2)
+        try:
+            with connect(srv.port, session="fl", flicker_hz=HZ_SERVE,
+                            flicker_fps=FPS_SERVE) as cli:
+                for r in range(2):
+                    cli.process_many(frames[r * B:(r + 1) * B])
+                amp, meta = cli.flicker()
+        finally:
+            stop_server(srv, th)
+    fl = FlickerAnalyzer(HZ_SERVE, FPS_SERVE, batch=B, device="cuda")
+    fl.update(frames[:2 * B])
+    same("[serve] flicker map", amp, fl.amplitude())
+    if meta["frames"] != 2 * B or not np.isfinite(amp).all():
+        raise AssertionError(f"[serve] flicker {meta}")
+    log(f"[serve] flicker-armed coalesced session ({HZ_SERVE:g} Hz at "
+        f"{FPS_SERVE:g} fps, {2 * B} frames): amplitude map equals a "
+        f"FlickerAnalyzer on the card bit for bit (peak {amp.max():.2f})")
+
+
+#: measured requests of each loadgen run: 40 from the one dedicated
+#: client, 5 from each of the 8 coalesced clients
+LOAD_REQUESTS = 40
+
+
+def serve_load(props, card, served):
+    """``python -m dips_tpu_torch.loadgen`` in a process of its own (its
+    clients share no interpreter lock with the server) against a
+    dedicated and a coalescing server: frames/s and client latency
+    percentiles over LOAD_REQUESTS requests, with the server's request
+    latency and the coalescer's mean fill."""
+    import sys
+    out = {}
+    for label, kw, clients in (("dedicated", dict(), 1),
+                               (f"coalesced x {FLEET}",
+                                dict(coalesce=FLEET), FLEET)):
+        frames = LOAD_REQUESTS // clients * B
+        with served:
+            srv, th = start_server(props, **kw)
+            try:
+                run = subprocess.run(
+                    [sys.executable, "-m", "dips_tpu_torch.loadgen",
+                     "--port", str(srv.port), "--clients", str(clients),
+                     "--frames", str(frames), "--batch", str(B),
+                     "--geometry", f"{H1080}x{W1080}"],
+                    capture_output=True, text=True, timeout=300)
+                m = srv.metrics()
+            finally:
+                stop_server(srv, th)
+        lines = run.stdout.strip().splitlines()
+        res = json.loads(lines[-1]) if lines else {"ok": False}
+        if run.returncode != 0 or not res["ok"] or \
+                res["requests"] != LOAD_REQUESTS:
+            raise AssertionError(f"[serve] loadgen {label}: rc "
+                                 f"{run.returncode} {res} {run.stderr}")
+        lat = res["latency_ms"]
+        res["server_latency_ms"] = m["latency_ms"]
+        if "coalesce_mean_fill" in m:
+            res["coalesce_mean_fill"] = m["coalesce_mean_fill"]
+            res["coalesce_dispatches"] = m["coalesce_dispatches"]
+        log(f"[serve] loadgen {label}: {clients} client(s) in their own "
+            f"process, batch {B}, 1080p COLORIZE w3/T4: {res['fps']} "
+            f"frames/s ({card})")
+        log(f"[serve] loadgen {label}: client latency p50 {lat['p50']} ms, "
+            f"p99 {lat['p99']} ms, max {lat['max']} ms over "
+            f"{res['requests']} requests (p99 by nearest rank is the max "
+            f"at 100 requests or fewer) ({card})")
+        if "coalesce_mean_fill" in res:
+            log(f"[serve] loadgen {label}: coalescer mean fill "
+                f"{res['coalesce_mean_fill']} frames a dispatch over "
+                f"{res['coalesce_dispatches']} dispatches ({card})")
+        out[label] = res
+    return out
+
+
+def phase_serve(card):
+    """The serving slice at 1080p on cuda:0, over TCP on localhost: the
+    servers and the checking clients in this process, loadgen in its
+    own."""
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    work = os.path.join("build", "chip_smoke", "serve")
+    os.makedirs(work, exist_ok=True)
+    served = Served()
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        log(f"[serve] {part}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    colorize = DiPsProperties()
+    absdiff = DiPsProperties(output=OutputMode.ABSDIFF)
+    frames = moving_square_frames(3 * B, H1080, W1080, 97)
+    cmaps, _ = serve_dedicated(colorize, frames, served, "COLORIZE w3/T4")
+    serve_dedicated(absdiff, frames, served, "ABSDIFF")
+    lap("dedicated sessions")
+
+    # 8 coalesced clients, each its own stream, 2 requests of B frames
+    frame = FleetFrames(103, H1080, W1080)
+    feeds = [np.stack([frame(si, k) for k in range(2 * B)])
+             for si in range(FLEET)]
+    res, m = serve_coalesced(colorize, feeds, served, 2, "COLORIZE x 8")
+    for si in range(FLEET):  # as [options] holds a fleet against engines
+        o, s, _ = engine_batches(colorize, [feeds[si][:B], feeds[si][B:]])
+        same(f"[serve] coalesced client {si} maps", res[si][0], o)
+        _check_stats(f"[serve] coalesced client {si}", res[si][1], s, 1e-6)
+    if served.counts["batch_step_ring_stacked"] <= 0:
+        raise AssertionError("[serve] the stacked ring kernel never launched")
+    log(f"[serve] coalesced x {FLEET} (COLORIZE w3/T4, 1080p, 8 concurrent "
+        f"clients x 2 requests of {B}): each client equals a single-stream "
+        f"DiPsEngine on its frames (maps byte for byte, stats within 1e-6); "
+        f"{m['coalesce_dispatches']} dispatches, mean fill "
+        f"{m['coalesce_mean_fill']} frames")
+    lap("coalesced x 8")
+
+    # --coalesce-mesh 2x3 on the one card: the band form (COLORIZE) equals
+    # the same server without a mesh, the dyn_rows form (ABSDIFF with an
+    # roi that the third row slab misses) single-stream engines; maps bit
+    # for bit, stats as [grid] holds them (the slabs' partial sums add up
+    # in another order)
+    mres, _ = serve_coalesced(colorize, [f[:B] for f in feeds], served, 1,
+                              "COLORIZE x 8 mesh", coalesce_mesh=GRID)
+    for si in range(FLEET):
+        same(f"[serve] mesh client {si} maps", mres[si][0], res[si][0][:B])
+        _check_stats(f"[serve] mesh client {si}", mres[si][1],
+                     res[si][1][:B], 1e-5)
+    second = moving_square_frames(B, H1080, W1080, 101)
+    absdiff_roi = DiPsProperties(output=OutputMode.ABSDIFF,
+                                 roi=(100, 200, 500, 1700))
+    rres, _ = serve_coalesced(absdiff_roi, [frames[:B], second], served, 1,
+                              "ABSDIFF x 2 mesh", coalesce_mesh=GRID)
+    for si, (maps, stats, _) in enumerate((
+            engine_batches(absdiff_roi, [frames[:B]]),
+            engine_batches(absdiff_roi, [second]))):
+        same(f"[serve] mesh ABSDIFF client {si} maps", rres[si][0], maps)
+        _check_stats(f"[serve] mesh ABSDIFF client {si}", rres[si][1],
+                     stats, 1e-5)
+    for name in ("batch_step_ring_stacked:slab_bands",
+                 "absdiff_step_ring_stacked:dyn_rows"):
+        if served.counts[name] <= 0:
+            raise AssertionError(f"[serve] {name} never launched")
+    log(f"[serve] --coalesce-mesh {GRID[0]}x{GRID[1]} on cuda:0: COLORIZE "
+        f"x {FLEET} equals the server without a mesh bit for bit (slab "
+        f"bands), ABSDIFF x 2 with an roi single-stream engines "
+        f"(dyn_rows)")
+    lap("coalesce mesh")
+    serve_packed(served)
+    lap("packed THRESHOLD")
+    save_ms = serve_autosave(colorize, frames, cmaps, served, work)
+    lap("autosave and restart")
+    serve_flicker(colorize, frames, served)
+    lap("flicker session")
+    load = serve_load(colorize, card, served)
+    lap("loadgen")
+    for name, k in served.counts.items():
+        if k <= 0:
+            raise AssertionError(f"[serve] {name} never launched")
+    log(f"[serve] launches by the servers: {served.counts}")
+    log("[serve] " + json.dumps({"autosave_ms": save_ms, "loadgen": load,
+                                 "card": card}))
+    return served.counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -2932,6 +3381,7 @@ def main():
     errs.update(timed(phase_kernels_slabs))
     launches.update(timed(phase_grid, card))
     timed(phase_analysis, card)
+    serve = timed(phase_serve, card)
     times = timed(phase_times, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null
@@ -2941,7 +3391,8 @@ def main():
          "ms": times[name]["kernel"], "plain_ms": times[name]["plain"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"], "library_ms": None,
-         "regs": regs.get(record_instance(name), (None,))[0]}
+         "regs": regs.get(record_instance(name), (None,))[0],
+         "serve_launches": serve.get(name, 0)}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:
         if k["launches"] <= 0:

@@ -37,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -88,6 +89,11 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+#: held while one thread builds and loads the library: the object files
+#: and the temporary library are named by pid, so two threads of one
+#: process (a server's sessions at their first launch) must not build at
+#: once
+_lib_lock = threading.Lock()
 #: what the last build or load did: directory, seconds, ptxas report
 build_info: Dict[str, object] = {}
 
@@ -280,17 +286,21 @@ def build(force: bool = False) -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, by one thread while
+    any others wait for it)."""
     global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.dips_error_string.argtypes = [ctypes.c_int]
-        handle.dips_error_string.restype = ctypes.c_char_p
-        _lib = handle
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.dips_error_string.argtypes = [ctypes.c_int]
+            handle.dips_error_string.restype = ctypes.c_char_p
+            _lib = handle
     return _lib
 
 

@@ -7,6 +7,7 @@ originals, and the port imports without jax.
 byte for byte and by behaviour.
 """
 
+import difflib
 import subprocess
 import sys
 from pathlib import Path
@@ -26,7 +27,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("rel", ["properties.py", "errors.py",
-                                 "ops/networks.py", "ops/refresh.py"])
+                                 "ops/networks.py", "ops/refresh.py",
+                                 "serve/protocol.py", "serve/metrics.py",
+                                 "serve/client.py", "serve/sessions.py",
+                                 "serve/__main__.py", "utils/webhook.py",
+                                 "loadgen.py"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
@@ -42,6 +47,38 @@ def test_events_copy_is_verbatim_but_its_import():
     diff = [(a, b) for a, b in zip(port, orig) if a != b]
     assert diff == [("from .reference import STAT_NAMES",
                      "from .oracle import STAT_NAMES")]
+
+
+def test_serve_analytics_copy_is_verbatim_but_its_device():
+    """``serve/analytics.py`` builds a session's flicker analyzer on the
+    session engine's device (the port's analyzers default to the card);
+    every other line is the original's."""
+    port = (ROOT / "dips_tpu_torch/serve/analytics.py").read_text()
+    orig = (ROOT / "dips_tpu/serve/analytics.py").read_text()
+    port, orig = port.splitlines(), orig.splitlines()
+    assert len(port) == len(orig)
+    diff = [(a.strip(), b.strip()) for a, b in zip(port, orig) if a != b]
+    assert diff == [("batch=eng.batch, device=eng.device)",
+                     "batch=eng.batch)")]
+
+
+@pytest.mark.parametrize("rel", ["serve/server.py", "serve/coalesce.py",
+                                 "serve/daemon.py", "serve/__init__.py"])
+def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
+    """The port's near-copies of the JAX serving modules differ from the
+    originals only by the lines listed in ``tests/forks/<module>.diff``
+    (``difflib.unified_diff`` without context): ``backend`` becoming
+    ``device``, NUM_STATS from ``ops/reference``, the coalescer's mesh on
+    the server's device, the reply's stall deadline, the daemon's error
+    exit, and their comments.  A change on either side that the list
+    does not hold fails here; a deliberate one rewrites the list."""
+    orig = (ROOT / "dips_tpu" / rel).read_text().splitlines(keepends=True)
+    port = (ROOT / "dips_tpu_torch" / rel).read_text().splitlines(
+        keepends=True)
+    got = "".join(difflib.unified_diff(orig, port, f"dips_tpu/{rel}",
+                                       f"dips_tpu_torch/{rel}", n=0))
+    listed = ROOT / "tests" / "forks" / (rel.replace("/", "_") + ".diff")
+    assert got == listed.read_text()
 
 
 PROPS_KW = [
@@ -128,7 +165,7 @@ def test_port_imports_without_jax():
         "import dips_tpu_torch\n"
         "for m in pkgutil.walk_packages(dips_tpu_torch.__path__, "
         "'dips_tpu_torch.'):\n"
-        "    if m.name != 'dips_tpu_torch.__main__':\n"
+        "    if not m.name.endswith('.__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "from dips_tpu_torch.parallel.multistream import MultiStreamEngine\n"
         "from dips_tpu_torch.app import run_dips_on_files\n"
@@ -142,15 +179,34 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("rel", ["ops/analysis.py", "report.py"])
+@pytest.mark.parametrize("rel", [
+    "ops/analysis.py", "report.py", "serve/__init__.py", "serve/__main__.py",
+    "serve/analytics.py", "serve/client.py", "serve/coalesce.py",
+    "serve/daemon.py", "serve/metrics.py", "serve/protocol.py",
+    "serve/server.py", "serve/sessions.py", "utils/webhook.py",
+    "loadgen.py"])
 def test_module_imports_nothing_of_jax(rel):
-    """The post-analysis modules import neither jax nor the JAX package."""
+    """The post-analysis and serving modules import neither jax nor the
+    JAX package."""
     src = (ROOT / "dips_tpu_torch" / rel).read_text()
     for line in src.splitlines():
         s = line.strip()
         if s.startswith(("import ", "from ")):
             assert "jax" not in s and "dips_tpu." not in s \
                 and not s.endswith(" dips_tpu"), s
+
+
+def test_serve_imports_no_jax_module():
+    """``import dips_tpu_torch.serve`` (and the load generator) loads no
+    module of jax or of the JAX package, with both installed."""
+    code = ("import sys\n"
+            "import dips_tpu_torch.serve, dips_tpu_torch.loadgen\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'dips_tpu')))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
 
 
 def test_require_matplotlib_copy_is_verbatim():
