@@ -18,7 +18,8 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   ``[kernels-stacked]``), ``MultiStreamEngine`` at 1080p x 8 streams
   (refresh marker, per-stream snapshot, a stream isolated by a wrong-shape
   frame and revived, checkpoint resume) held stream by stream against
-  single-stream engines (``[fleet]``), and ``run_dips_on_files`` on three
+  single-stream engines (``[fleet]``; the ABSDIFF fleet's checkpoint
+  resume at 480p x 3 streams), and ``run_dips_on_files`` on three
   1080p clips when cv2 is present, then the same clips over a (3, 3) grid
   of cells on the card, through ``mesh=`` and through the CLI's ``--mesh
   3x3`` (``[fleet-file]``);
@@ -28,7 +29,8 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   1080p against the ring engine over 64 frames in uneven batches,
   COLORIZE and ABSDIFF, OVERALL and PER_FRAME, with checkpoints crossing
   the protocols (``[tail]``); the tail fleet at 1080p x 8 against the ring
-  fleet through an idle and an isolated stream (``[fleet-tail]``);
+  fleet through an idle and an isolated stream, and its checkpoint resume
+  at 480p x 3, COLORIZE and ABSDIFF (``[fleet-tail]``);
 * the spatial-filter variants: each of the four median wrappers in
   approx_median (w3, w7) and quirk_compat (w1, w3, w5, w7) against its
   plain twin at 1080p s = 1 and 480p x 3 (``[kernels-variants]``);
@@ -69,6 +71,24 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   bound and (denoise) memory peak, and the flicker update's share of the
   4K engine's and the fleet's batch walls;
 
+* the single-stream run mode (``[run]``), with every
+  ``batch_step_ring`` / ``absdiff_step_ring`` launch of the phase held
+  against its plain twin on copies of its state (the engines inside the
+  CLI, ``custom_dips_on_files``, ``run_live`` and ``rebuild_engine``
+  included): ``python -m dips_tpu_torch`` in this process on a 64-frame
+  1080p clip (still, a moving square, a lighting flip) with
+  ``--record-events --pre-roll 8 --post-roll 8 --auto-refresh 0.6:3
+  --stats-json --events-json --heatmap-png --retime-vfr --profile`` (each
+  segment's frame count as listed, ``events.json`` equal to
+  ``detect_events`` over ``stats.json``, the re-pin at the flip, the
+  output as long as the input); ``--output-mode absdiff --trace-dir`` on
+  16 frames, whose Chrome trace must name the raw kernel (``--heatmap-png``
+  there writes the PNG or, without matplotlib, exits 1 with the hint);
+  ``--dat-dir`` over 24 ``Dat_N.d`` dumps at 273 x 640 with ``--chroma r``
+  against an engine on the CPU; ``run_live`` at 1080p, B = 1, 32 frames
+  with the keys ``w W t T T m o s e a`` and cv2's window calls stubbed
+  (per-frame wall p50 and max); ``--thumbnail`` and ``--subsample 4``.
+  The phase's launches are ``run_launches`` in the record;
 * the serving slice (``dips_tpu_torch.serve``, ``loadgen``; ``[serve]``),
   servers on cuda:0 in threads of this process and clients over TCP on
   localhost, at 1080p: a dedicated COLORIZE and an ABSDIFF session (3
@@ -916,8 +936,8 @@ def phase_fleet_tail(card):
                                        refresh_markers=(24,)))):
         name = ("absdiff_step_stacked" if props.output == OutputMode.ABSDIFF
                 else "batch_step_stacked")
-        # no checkpoint here (a fleet save compresses 0.35 GB): the fleet's
-        # resume is held in [fleet] and, on a grid, in [grid]; a tail
+        # no checkpoint at 1080p x 8 (a fleet save compresses 0.35 GB):
+        # the tail fleets' resume is held at 480p x 3 below; a tail
         # engine's, across the protocols, in [tail]
         cuda_fused.reset_launch_counts()
         tail = run_fleet(props, frame, work, ring_carry=False, idle=idle,
@@ -946,6 +966,7 @@ def phase_fleet_tail(card):
             f"lagging stream 7, idle stream {idle}, the snapshot of stream "
             f"3, stream 5 isolated and revived")
         del tail, ring
+        fleet_resume_small(f"[fleet-tail] {label} resume", props, False, work)
     return launches
 
 
@@ -1046,6 +1067,52 @@ def run_fleet(props, frame, work, ring_carry=True, idle=None,
 #: the COLORIZE ring fleet's run without a mesh, kept for [grid]
 FLEET_REF = {}
 
+#: the geometry of the small fleets whose checkpoint resume is held
+RESUME_H, RESUME_W, RESUME_S = 480, 640, 3
+
+
+def fleet_resume_small(tag, props, ring_carry, work):
+    """A 480p x 3 fleet saved after two batches (a snapshot of stream 1
+    before the second) and resumed in a fresh engine equals the
+    uninterrupted fleet over the third: maps byte for byte, stats within
+    1e-6, carried baseline and heatmaps exact."""
+    from dips_tpu_torch import MultiStreamEngine
+    frame = FleetFrames(139, RESUME_H, RESUME_W)
+    mk = lambda: MultiStreamEngine(props, RESUME_H, RESUME_W, RESUME_S,
+                                   batch=B, device="cuda",
+                                   ring_carry=ring_carry)
+    feeds = [[[frame(si, bi * B + k) for k in range(B)]
+              for si in range(RESUME_S)] for bi in range(3)]
+    ref, cut = mk(), mk()
+    for bi in range(2):
+        if bi == 1:
+            ref.snapshot(stream=1)
+            cut.snapshot(stream=1)
+        ref.process_batch(feeds[bi])
+        cut.process_batch(feeds[bi])
+    ck = os.path.join(work, "fleet_small.npz")
+    cut.save(ck)
+    resumed = mk()
+    resumed.load(ck)
+    exp = ref.process_batch(feeds[2])
+    got = resumed.process_batch(feeds[2])
+    if not np.array_equal(got[0], exp[0]):
+        raise AssertionError(f"{tag}: resumed maps differ")
+    for si in range(RESUME_S):
+        _check_stats(f"{tag} stream {si}", got[1][si], exp[1][si], 1e-6)
+    a, b = resumed.state_dict(), ref.state_dict()
+    if not np.array_equal(a["baseline"], b["baseline"]) or \
+            not np.array_equal(resumed.heatmaps(), ref.heatmaps()):
+        raise AssertionError(f"{tag}: resumed state differs")
+    if resumed.frame_cursors != [3 * B] * RESUME_S or \
+            ref.frame_cursors != [3 * B] * RESUME_S:
+        raise AssertionError(f"{tag}: cursors {resumed.frame_cursors}")
+    log(f"{tag} 480p x {RESUME_S} streams, B={B}: saved after 2 batches "
+        f"(stream 1's snapshot before the second), resumed in a fresh "
+        f"engine, batch 3 equals the uninterrupted fleet (maps byte for "
+        f"byte, stats within 1e-6, baseline and heatmaps exact)")
+
+
 
 def phase_fleet(card):
     import torch
@@ -1114,6 +1181,10 @@ def phase_fleet(card):
             FLEET_REF.update(props=props, frame=frame, batches=batches,
                              state=state)
         del batches, out, stats
+    # the ABSDIFF fleet's resume, at a geometry whose save is quick
+    fleet_resume_small("[fleet] ABSDIFF resume",
+                       DiPsProperties(output=OutputMode.ABSDIFF,
+                                      refresh_markers=(24,)), True, work)
     return launches
 
 
@@ -2423,6 +2494,406 @@ def phase_analysis(card):
 
 
 # ---------------------------------------------------------------------------
+# the single-stream run mode: the CLI's artifacts, raw dumps, live preview
+# ---------------------------------------------------------------------------
+
+#: the ring kernels the single-stream run mode launches
+RUN_KERNELS = ("absdiff_step_ring", "batch_step_ring")
+#: the [run] clip: still, a moving square, a lighting flip
+RUN_STILL, RUN_MOVING, RUN_LIT = 16, 24, 24
+#: side of the [run] clip's square: 4.9% of a 1080p frame, over the
+#: default --event-on of 1% changed
+RUN_SIDE = 320
+
+
+class HeldRing:
+    """For the duration of the block, every ``batch_step_ring`` /
+    ``absdiff_step_ring`` launch, by whichever engine (the CLI's,
+    ``custom_dips_on_files``'s, ``run_live``'s, ``rebuild_engine``'s
+    rebuild of the ring), also runs the plain twin on copies of its
+    state and input and is held against it: median maps within
+    MEDIAN_TOL, raw maps exact, carried state exact on the true region,
+    heatmap and stats within tolerance.  Counts the kernels' launches
+    from 0 (``counts``); the twins count nothing."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(RUN_KERNELS, 0)
+        self.held = dict.fromkeys(RUN_KERNELS, 0)
+        self.err = dict.fromkeys(RUN_KERNELS, 0.0)
+        self.flips = self.px = 0
+
+    def _compare(self, name, props, h, w, got, exp):
+        import torch
+        d = (got[0][..., :h, :w].to(torch.int16)
+             - exp[0][..., :h, :w].to(torch.int16)).abs()
+        raw = name == "absdiff_step_ring"
+        self.flips += int((d > 0).sum())
+        self.px += d.numel()
+        if int(d.max()) > (0 if raw else MEDIAN_TOL["lsb"]) or \
+                self.flips > MEDIAN_TOL["flip_frac"] * self.px:
+            raise AssertionError(f"[run] {name} {ptag(props)}: maps differ "
+                                 f"from the plain twin")
+        for g, e in zip(got[2:-1], exp[2:-1]):
+            if not torch.equal(g[..., :h, :w], e[..., :h, :w]):
+                raise AssertionError(f"[run] {name}: carried state differs")
+        self.err[name] = max(self.err[name], _max_err(got[-1], exp[-1]))
+        if self.err[name] > MEDIAN_TOL["heat_atol"]:
+            raise AssertionError(f"[run] {name}: heatmap differs")
+        _check_stats(f"[run] {name} {ptag(props)}", got[1], exp[1],
+                     RAW_TOL["stats_rtol"] if raw
+                     else MEDIAN_TOL["stats_rtol"])
+        self.held[name] += 1
+
+    def _wrap(self, name):
+        from dips_tpu_torch.ops import cuda_fused as cf
+        kernel, plain = getattr(cf, name), getattr(cf, name + "_plain")
+
+        def held(props, h, w, raw, *state_and_flags):
+            # the plain twin gets copies of every tensor argument
+            copies = [a.clone() if hasattr(a, "clone") else a
+                      for a in (raw,) + state_and_flags]
+            setattr(cf, name, kernel)  # the wrapper counts itself
+            try:
+                got = kernel(props, h, w, raw, *state_and_flags)
+            finally:
+                setattr(cf, name, held)
+            exp = plain(props, h, w, *copies)
+            self._compare(name, props, h, w, got, exp)
+            return got
+
+        return kernel, held
+
+    def __enter__(self):
+        from dips_tpu_torch.ops import cuda_fused as cf
+        cf.reset_launch_counts()
+        self._saved = {}
+        for name in RUN_KERNELS:
+            self._saved[name], held = self._wrap(name)
+            setattr(cf, name, held)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from dips_tpu_torch.ops import cuda_fused as cf
+        for name, kernel in self._saved.items():
+            setattr(cf, name, kernel)
+        torch.cuda.synchronize()
+        counts = cf.launch_counts()
+        for name in RUN_KERNELS:
+            self.counts[name] += counts[name]
+
+
+def run_clip_frames(seed):
+    """The [run] clip: RUN_STILL still frames (a colour gradient with a
+    little noise: MJPG encodes every copy of it alike, where a pure-noise
+    frame's first copy decodes differently from the rest), RUN_MOVING with
+    a RUN_SIDE square moving over it, RUN_LIT still ones 90 levels
+    brighter."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H1080, 0:W1080]
+    bg = np.stack([yy * 150 // H1080, xx * 150 // W1080,
+                   (yy + xx) * 80 // (H1080 + W1080) + 40], -1)
+    bg = (bg + rng.integers(0, 8, bg.shape)).astype(np.uint8)
+    n = RUN_STILL + RUN_MOVING + RUN_LIT
+    frames = np.empty((n, H1080, W1080, 3), np.uint8)
+    frames[:] = bg
+    for k in range(RUN_MOVING):
+        y, x = 100 + 15 * k, 200 + 45 * k
+        frames[RUN_STILL + k, y:y + RUN_SIDE, x:x + RUN_SIDE] = (250, 60, 30)
+    frames[RUN_STILL + RUN_MOVING:] += 90
+    return frames
+
+
+def _cli(argv):
+    """dips_tpu_torch.cli.main in this process (the held wrappers apply):
+    (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+    from dips_tpu_torch.cli import main as cli_main
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _frame_count(path):
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.grab():
+        n += 1
+    cap.release()
+    return n
+
+
+def run_cli(card, work, clip, held, has_mpl):
+    """The CLI's single-stream run with every artifact flag, COLORIZE."""
+    from dips_tpu_torch import DiPsProperties
+    from dips_tpu_torch.ops.events import detect_events
+    from dips_tpu_torch.ops.reference import STAT_NAMES
+    n = RUN_STILL + RUN_MOVING + RUN_LIT
+    rec = os.path.join(work, "rec")
+    art = {k: os.path.join(work, f"{k}.json") for k in ("stats", "events")}
+    argv = ["--input", clip, "--output", os.path.join(work, "out.avi"),
+            "--device", "cuda", "--batch", str(B), "--record-events", rec,
+            "--pre-roll", "8", "--post-roll", "8", "--auto-refresh",
+            "0.6:3", "--stats-json", art["stats"], "--events-json",
+            art["events"], "--retime-vfr", "--profile"]
+    if has_mpl:
+        argv += ["--heatmap-png", os.path.join(work, "heatmap.png")]
+    t0 = time.perf_counter()
+    with held:
+        rc, out, err = _cli(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[run] CLI exit {rc}: {err[-2000:]}")
+    with open(os.path.join(rec, "segments.json")) as f:
+        segs = json.load(f)
+    if not segs:
+        raise AssertionError("[run] no event segment recorded")
+    for s in segs:
+        got = _frame_count(s["path"])
+        if got != s["frames"]:
+            raise AssertionError(f"[run] segment {s['path']}: {got} frames, "
+                                 f"segments.json says {s['frames']}")
+    with open(art["stats"]) as f:
+        stats = np.asarray([[r[k] for k in STAT_NAMES] for r in json.load(f)],
+                           np.float32)
+    with open(art["events"]) as f:
+        events = json.load(f)
+    exp = [e.to_dict() for e in detect_events(
+        [stats], on_threshold=0.01, off_threshold=None,
+        metric="changed_frac", min_frames=2, cooldown=0,
+        pixels=DiPsProperties().analysis_pixels(H1080, W1080))]
+    if events != exp or not events:
+        raise AssertionError(f"[run] events.json {events} != detect_events "
+                             f"over stats.json {exp}")
+    fired = [ln for ln in out.splitlines()
+             if ln.startswith("auto-refresh fired at frame(s): ")]
+    first = int(fired[0].split(": ")[1].split(",")[0]) if fired else -1
+    flip = RUN_STILL + RUN_MOVING
+    if not flip <= first < flip + B:
+        raise AssertionError(f"[run] auto-refresh did not fire at the flip "
+                             f"(frame {flip}): {fired}")
+    after = stats[(first // B + 1) * B:, 3]  # the re-pin's next batch on
+    if stats.shape[0] != n or not after.size or after.max() > 0:
+        raise AssertionError("[run] the lit scene still diffs after the "
+                             "re-pin")
+    frames_out = _frame_count(os.path.join(work, "out.avi"))
+    if frames_out != n:
+        raise AssertionError(f"[run] output has {frames_out} frames, the "
+                             f"input {n}")
+    if has_mpl and not os.path.getsize(os.path.join(work, "heatmap.png")):
+        raise AssertionError("[run] empty heatmap PNG")
+    log(f"[run] python -m dips_tpu_torch --input <1080p clip, {n} frames> "
+        f"--record-events --pre-roll 8 --post-roll 8 --auto-refresh 0.6:3 "
+        f"--stats-json --events-json --retime-vfr --profile"
+        + (" --heatmap-png" if has_mpl else "") + f": exit 0 in "
+        f"{wall:.1f} s; {len(segs)} segment(s) "
+        f"{[(s['start_frame'], s['end_frame'], s['frames']) for s in segs]} "
+        f"(each file's frame count as listed); events.json equals "
+        f"detect_events over stats.json ({len(events)} event(s)); "
+        f"auto-refresh fired at {first} (flip at {flip}); {frames_out} "
+        f"frames out, as in; card {card}")
+    timers = [ln for ln in out.splitlines() if ln.startswith("  ")]
+    log("[run] stage timers: " + "; ".join(t.strip() for t in timers))
+    return wall
+
+
+def run_trace(card, work, frames, held, has_mpl):
+    """--output-mode absdiff --trace-dir on the clip's first 16 frames:
+    the Chrome trace names the raw kernel; --heatmap-png either writes
+    the PNG or, without matplotlib, exits 1 with the install hint."""
+    clip16 = os.path.join(work, "clip16.avi")
+    write_avi(clip16, frames[:B])
+    tdir = os.path.join(work, "trace")
+    hm = os.path.join(work, "heatmap16.png")
+    with held:
+        rc, out, err = _cli(["--input", clip16, "--output",
+                             os.path.join(work, "abs.avi"), "--device",
+                             "cuda", "--batch", str(B), "--output-mode",
+                             "absdiff", "--trace-dir", tdir,
+                             "--heatmap-png", hm])
+    if has_mpl and rc != 0:
+        raise AssertionError(f"[run] traced run exit {rc}: {err[-2000:]}")
+    if not has_mpl and (rc != 1 or "chart rendering needs matplotlib"
+                        not in err):
+        raise AssertionError(f"[run] --heatmap-png without matplotlib: "
+                             f"exit {rc}, {err[-500:]}")
+    (name,) = os.listdir(tdir)
+    with open(os.path.join(tdir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    ours = [k for k in kernels if "raw_step_kernel" in k]
+    if not ours:
+        raise AssertionError(f"[run] the trace names no raw kernel: "
+                             f"{kernels[:20]}")
+    size = os.path.getsize(os.path.join(tdir, name))
+    log(f"[run] --output-mode absdiff --trace-dir on {B} frames: exit {rc}"
+        + ("" if has_mpl else " (no matplotlib: the --heatmap-png hint)")
+        + f"; the trace ({size / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} kernel names) names {ours[0][:80]}")
+
+
+def run_dat(card, work, held):
+    """--dat-dir over 24 Dat_N.d dumps at the dumps' 273 x 640, red
+    chroma, against the same dumps through an engine on the CPU."""
+    from dips_tpu_torch import ChromaFilter, DiPsEngine, DiPsProperties
+    from dips_tpu_torch.io.datfiles import read_dat_dir
+    from dips_tpu_torch.ops.reference import STAT_NAMES
+    w, h, n = 273, 640, 24
+    ddir = os.path.join(work, "dat")
+    os.makedirs(ddir, exist_ok=True)
+    rng = np.random.default_rng(113)
+    base = rng.integers(0, 256, (h, w, 4), np.uint8)
+    for i in range(n):
+        f = base.copy()
+        y, x = 20 + 17 * i, 5 + 7 * i
+        f[y:y + 64, x:x + 64, 0] = 250
+        f[y + 32:y + 96, x:x + 64, 2] = 20
+        with open(os.path.join(ddir, f"Dat_{i}.d"), "wb") as fh:
+            fh.write(b"\0" * 4 + f.tobytes())
+    sj = os.path.join(work, "dat_stats.json")
+    t0 = time.perf_counter()
+    with held:
+        rc, out, err = _cli(["--dat-dir", ddir, "--output",
+                             os.path.join(work, "dat.avi"), "--chroma", "r",
+                             "--dat-geometry", f"{w}x{h}", "--stats-json",
+                             sj, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[run] --dat-dir exit {rc}: {err[-2000:]}")
+    with open(sj) as f:
+        got = np.asarray([[r[k] for k in STAT_NAMES] for r in json.load(f)],
+                         np.float32)
+    cpu = DiPsEngine(DiPsProperties(chroma=ChromaFilter.RED), h, w,
+                     batch=8, device="cpu")
+    _, exp = cpu.process_frames(list(read_dat_dir(ddir, w, h)))
+    _check_stats("[run] --dat-dir against the CPU", got, exp,
+                 MEDIAN_TOL["stats_rtol"])
+    if got.shape != (n, 4) or got[:, 3].max() <= 0:
+        raise AssertionError("[run] --dat-dir: no change seen")
+    log(f"[run] --dat-dir, {n} dumps at {w} x {h} (an 819-byte RGB row), "
+        f"--chroma r: exit 0 in {wall:.1f} s; stats equal an engine on the "
+        f"CPU (counts and maxima exact, sums within "
+        f"{MEDIAN_TOL['stats_rtol']})")
+
+
+def run_live_1080(card, held):
+    """run_live at 1080p, B = 1, 32 frames from an injected reader, cv2's
+    window calls stubbed, the keys w W t T T m o s e a pressed after
+    frames 2-11: each rebuild builds an engine and rebuilds its ring from
+    the carried tail with one kernel launch."""
+    import cv2
+    from dips_tpu_torch import DiPsProperties
+    from dips_tpu_torch.live import run_live
+    frames = moving_square_frames(32, H1080, W1080, 127)
+    stamps, shown = [], []
+
+    class Reader:
+        def __init__(self):
+            self.i = 0
+
+        def read(self):
+            stamps.append(time.perf_counter())
+            if self.i >= len(frames):
+                return None
+            self.i += 1
+            return frames[self.i - 1]
+
+        def close(self):
+            pass
+
+    keys = dict(zip(range(2, 12), "wWtTTmosea"))
+    shown_i = iter(range(10**6))
+    stubs = {"namedWindow": lambda *a, **k: None,
+             "imshow": lambda _w, img: shown.append(img.shape),
+             "setWindowTitle": lambda *a: None,
+             "waitKey": lambda _ms: ord(keys.get(next(shown_i), "\xff")),
+             "destroyAllWindows": lambda: None}
+    saved = {k: getattr(cv2, k) for k in stubs}
+    display = os.environ.get("DISPLAY")
+    os.environ["DISPLAY"] = ":0"
+    try:
+        for k, v in stubs.items():
+            setattr(cv2, k, v)
+        with held:
+            rc = run_live(DiPsProperties(), reader=Reader(), device="cuda",
+                          auto_refresh={"threshold": 0.6})
+    finally:
+        for k, v in saved.items():
+            setattr(cv2, k, v)
+        if display is None:
+            del os.environ["DISPLAY"]
+        else:
+            os.environ["DISPLAY"] = display
+    if rc != 0 or len(shown) != 32 or set(shown) != {(H1080, W1080, 3)}:
+        raise AssertionError(f"[run] run_live: exit {rc}, {len(shown)} "
+                             f"frames shown {set(shown)}")
+    walls = np.diff(stamps[:33]) * 1e3  # read to read, one frame each
+    log(f"[run] run_live 1080p, B = 1, 32 frames, keys w W t T T m o s e a: "
+        f"exit 0; per-frame wall p50 {np.median(walls):.1f} ms, max "
+        f"{walls.max():.1f} ms over {len(walls)} frames (the first builds "
+        f"the engine, each key a rebuild); card {card}")
+    return {"count": int(len(walls)), "p50_ms": float(np.median(walls)),
+            "max_ms": float(walls.max())}
+
+
+def run_utilities(work, clip):
+    """--thumbnail and --subsample 4 on the clip."""
+    import cv2
+    thumb = os.path.join(work, "thumb.png")
+    rc, out, err = _cli(["--thumbnail", thumb, "--input", clip])
+    img = cv2.imread(thumb)
+    if rc != 0 or img is None or img.shape != (240, 427, 3):
+        raise AssertionError(f"[run] --thumbnail: exit {rc}, "
+                             f"{None if img is None else img.shape}")
+    sub = os.path.join(work, "sub.avi")
+    rc, out, err = _cli(["--input", clip, "--output", sub,
+                         "--subsample", "4"])
+    n = RUN_STILL + RUN_MOVING + RUN_LIT
+    if rc != 0 or _frame_count(sub) != n // 4:
+        raise AssertionError(f"[run] --subsample 4: exit {rc}, "
+                             f"{_frame_count(sub)} frames")
+    log(f"[run] --thumbnail: a 240 x 427 PNG; --subsample 4: {n // 4} of "
+        f"{n} frames")
+
+
+def phase_run(card):
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise AssertionError("[run] needs cv2 for its clips")
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "run"))
+    os.makedirs(work, exist_ok=True)
+    frames = run_clip_frames(131)
+    clip = os.path.join(work, "clip.avi")
+    write_avi(clip, frames)
+    held = HeldRing()
+    walls = {"cli": run_cli(card, work, clip, held, has_mpl)}
+    run_trace(card, work, frames, held, has_mpl)
+    run_dat(card, work, held)
+    live = run_live_1080(card, held)
+    run_utilities(work, clip)
+    for name in RUN_KERNELS:
+        if held.counts[name] <= 0 or held.held[name] != held.counts[name]:
+            raise AssertionError(f"[run] {name}: {held.counts[name]} "
+                                 f"launches, {held.held[name]} held")
+    log(f"[run] every launch held against its plain twin: {held.held} "
+        f"(maps: {held.flips} of {held.px} values differ by 1 LSB; "
+        f"heatmap max error {held.err})")
+    log("[run] " + json.dumps({"cli_wall_s": walls["cli"], "live": live,
+                               "card": card}))
+    return held.counts
+
+
+# ---------------------------------------------------------------------------
 # the serving slice: dips_tpu_torch.serve over the engines
 # ---------------------------------------------------------------------------
 
@@ -3381,6 +3852,7 @@ def main():
     errs.update(timed(phase_kernels_slabs))
     launches.update(timed(phase_grid, card))
     timed(phase_analysis, card)
+    run = timed(phase_run, card)
     serve = timed(phase_serve, card)
     times = timed(phase_times, card)
     import torch
@@ -3392,6 +3864,7 @@ def main():
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"], "library_ms": None,
          "regs": regs.get(record_instance(name), (None,))[0],
+         "run_launches": run.get(name, 0),
          "serve_launches": serve.get(name, 0)}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:

@@ -1,23 +1,34 @@
-"""Command line: the run commands of the ``dips`` CLI on the port.
+"""Command line: the ``dips`` CLI on the port.
 
-Counterpart of two modes of ``dips_tpu/cli.py``, with the same option names,
-defaults, messages and exit codes (2 for usage errors, 1 for a failed run):
+Counterpart of ``dips_tpu/cli.py``, with the same option names, defaults,
+messages and exit codes (2 for usage errors, 1 for a failed run), its
+``--backend`` read as ``--device`` (default cuda: without a card the run
+fails unless ``--device cpu`` is given):
 
 * file in, file out: --input --output --encoding --filter --sig_scalar
   --chroma --win_size --approx-median --quirk-compat --roi --colorize
   --method --output-mode --no-maps --sensitivity --temporal --threshold
-  --batch --packed-wire --downscale --input-layout --profile, bare
-  integers as refresh markers, plus --device; the post-analysis flags
-  --denoise R, --dft-json PATH and --flicker-hz F with --flicker-png and
-  --flicker-tau (``ops/analysis.py``, on the run's device);
+  --batch --packed-wire --downscale --input-layout --video-backend
+  --retime-vfr --profile --trace-dir, bare integers as refresh markers;
+  the artifacts --stats-json, --events-json (with the --event-* options),
+  --heatmap-png, --record-events DIR (--pre-roll, --post-roll),
+  --auto-refresh; the post-analysis flags --denoise R, --dft-json PATH
+  and --flicker-hz F with --flicker-png and --flicker-tau
+  (``ops/analysis.py``, on the run's device);
 * the fleet: --inputs FILE... --output-dir DIR with the same pipeline and
   engine options (--packed-wire is accepted and, as in the JAX CLI, not
-  used: the fleet writes unpacked maps), and --stats-json, --events-json
-  (and the --event-* options), --auto-refresh, and --mesh SxR /
-  --slab-impl (the fleet over a stream x rows grid of cells:
-  ``parallel/grid2d.py``), and --flicker-hz (one fleet flicker analyzer,
-  a peak line and, with --flicker-png, one PNG per stream); exit code 1
-  when a stream failed and was isolated.
+  used: the fleet writes unpacked maps), and --stats-json, --events-json,
+  --auto-refresh, --mesh SxR / --slab-impl (the fleet over a stream x
+  rows grid of cells: ``parallel/grid2d.py``) and --flicker-hz (one fleet
+  flicker analyzer, a peak line and, with --flicker-png, one PNG per
+  stream); exit code 1 when a stream failed and was isolated;
+* the utility modes --thumbnail OUT.png, --subsample N, --dat-dir DIR
+  (--dat-geometry WxH; raw ``Dat_N.d`` dumps) and the live preview
+  --live (a display needed; ``live.py``).
+
+--mesh and --output-dir are refused outside the fleet mode (the JAX CLI
+ignores them there).  Not ported: --decode-workers, --pipeline-depth and
+the XLA --compile-cache.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
@@ -120,8 +131,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "the layout transform (+BGR swap) on the device; "
                         "'planar': the host planarizes each frame before "
                         "the upload")
+    p.add_argument("--video-backend", default="auto",
+                   choices=["auto", "opencv", "gstreamer"],
+                   help="media decode/encode backend (OpenCV; gstreamer "
+                        "is not ported and fails the run)")
+    p.add_argument("--retime-vfr", action="store_true",
+                   help="dup/drop frames onto the CFR writer schedule so "
+                        "variable-frame-rate inputs do not drift")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage timings after the run")
+    p.add_argument("--trace-dir", metavar="DIR",
+                   help="capture a torch.profiler trace of the run (CPU "
+                        "and CUDA activity) into DIR as Chrome trace JSON")
     p.add_argument("--denoise", type=int, metavar="R",
                    help="FFT low-pass denoise radius applied to diff maps "
                         "(post-analysis, see ops/analysis.fft_denoise)")
@@ -160,14 +181,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "inputs, slabs stay in owned coordinates; "
                         "'extended' = bands concatenated around each slab")
     p.add_argument("--stats-json", metavar="PATH",
-                   help="--inputs mode: write per-frame statistics to a "
-                        "JSON file, one row list per stream keyed by input "
-                        "path")
+                   help="write per-frame statistics to a JSON file; with "
+                        "--inputs, one row list per stream keyed by "
+                        "input path")
     p.add_argument("--events-json", metavar="PATH",
-                   help="--inputs mode: segment the per-frame stats into "
-                        "motion events (hysteresis + debounce, "
-                        "ops/events.py) and write them to a JSON file, one "
-                        "event list per stream keyed by input path")
+                   help="segment the per-frame stats into motion events "
+                        "(hysteresis + debounce, ops/events.py) and write "
+                        "them to a JSON file; with --inputs, one event "
+                        "list per stream keyed by input path")
     p.add_argument("--event-on", default=0.01, metavar="X|auto",
                    type=lambda s: s if s == "auto" else float(s),
                    help="metric level that OPENS an event (default 0.01 "
@@ -184,16 +205,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "(changed_frac = changed pixels / frame pixels)")
     p.add_argument("--event-min-frames", type=int, default=2, metavar="N",
                    help="discard events shorter than N frames (default 2)")
+    p.add_argument("--heatmap-png", metavar="PATH",
+                   help="save the run's accumulated |diff| heatmap as a "
+                        "PNG (single-hue sequential rendering; embeddable "
+                        "via dips-torch-report --heatmap)")
+    p.add_argument("--record-events", metavar="DIR",
+                   help="event-triggered recording: additionally write "
+                        "one clip per motion burst into DIR (pre/post-"
+                        "roll included, bursts during post-roll merge); "
+                        "the --event-* flags configure its detector and "
+                        "DIR/segments.json records the spans")
+    p.add_argument("--pre-roll", type=int, default=30, metavar="N",
+                   help="frames kept before each recorded event "
+                        "(default 30)")
+    p.add_argument("--post-roll", type=int, default=30, metavar="N",
+                   help="frames kept after each recorded event "
+                        "(default 30)")
+    p.add_argument("--auto-refresh", metavar="FRAC[:PERSIST[:COOLDOWN]]",
+                   help="adaptive baseline refresh (overall method): "
+                        "re-capture the snapshot when at least FRAC of "
+                        "the analysis pixels stay changed for PERSIST "
+                        "consecutive frames (default 3), then hold off "
+                        "COOLDOWN frames (default covers the snapshot "
+                        "latency); fired frame indices are printed after "
+                        "the run.  In --inputs mode each stream gets its "
+                        "own policy; with --live it arms the preview's "
+                        "'a' toggle")
     p.add_argument("--event-cooldown", type=int, default=0, metavar="N",
                    help="sub-threshold frames tolerated inside one event "
                         "before it closes (default 0)")
-    p.add_argument("--auto-refresh", metavar="FRAC[:PERSIST[:COOLDOWN]]",
-                   help="--inputs mode, overall method: re-capture a "
-                        "stream's snapshot when at least FRAC of the "
-                        "analysis pixels stay changed for PERSIST "
-                        "consecutive frames (default 3), then hold off "
-                        "COOLDOWN frames; each stream gets its own policy "
-                        "and fired frame indices are printed after the run")
+    p.add_argument("--live", action="store_true",
+                   help="live preview window (requires a display). "
+                        "Default source is the webcam; add --input "
+                        "FILE-or-URI to preview that instead")
+    # utility modes
+    p.add_argument("--thumbnail", metavar="OUT.png",
+                   help="extract a 240px-high thumbnail of --input and exit")
+    p.add_argument("--subsample", type=int, metavar="N",
+                   help="keep every Nth frame of --input into --output and "
+                        "exit")
+    p.add_argument("--dat-dir", metavar="DIR",
+                   help="process a directory of raw Dat_N.d dumps instead "
+                        "of a video file")
+    p.add_argument("--dat-geometry", default="273x640",
+                   help="WIDTHxHEIGHT of raw dumps (default 273x640)")
     return p
 
 
@@ -243,6 +298,8 @@ def _parse_encoding(name: str) -> Optional[Encoding]:
     try:
         return Encoding(name)
     except ValueError:
+        print(f"unknown --encoding {name!r} "
+              f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
         return None
 
 
@@ -285,8 +342,6 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
         return 2
     enc = _parse_encoding(args.encoding)
     if enc is None:
-        print(f"unknown --encoding {args.encoding!r} "
-              f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
         return 2
     from .app import run_dips_on_files
     mesh = None
@@ -317,6 +372,7 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
                                    props, batch=args.batch,
                                    device=args.device,
                                    input_layout=args.input_layout,
+                                   video_backend=args.video_backend,
                                    events=ev_cfg,
                                    collect_stats=want_stats,
                                    downscale=args.downscale,
@@ -388,12 +444,162 @@ def _run_inputs(args, props: DiPsProperties, auto_refresh) -> int:
     return 0
 
 
+def _refused(args, stats_only: bool) -> Optional[str]:
+    """The message of the first flag combination the JAX CLI refuses with
+    exit code 2 before any mode runs, or None."""
+    if args.event_on == "auto" and args.event_off is not None:
+        return ("--event-off is computed in auto mode (estimated floor + "
+                "margin/2) — drop it or use a fixed --event-on")
+    if stats_only:
+        why = ("--output-mode stats_only" if args.output_mode == "stats_only"
+               else "--no-maps")
+        if args.output or args.output_dir:
+            return (f"{why} writes no diff video — drop "
+                    "--output/--output-dir (stats/events/heatmap artifacts "
+                    "are the products)")
+        for flag, val in (("--record-events", args.record_events),
+                          ("--denoise", args.denoise),
+                          ("--packed-wire", args.packed_wire),
+                          ("--live", args.live),
+                          ("--dat-dir", args.dat_dir),
+                          ("--thumbnail", args.thumbnail),
+                          ("--subsample", args.subsample is not None),
+                          ("--retime-vfr", args.retime_vfr)):
+            if val:
+                return f"{flag} needs diff maps; {why} suppresses them"
+    if (args.flicker_png or args.flicker_tau is not None) \
+            and args.flicker_hz is None:
+        return "--flicker-png/--flicker-tau need --flicker-hz"
+    if args.downscale < 1:
+        return f"--downscale must be >= 1, got {args.downscale}"
+    utility = (args.dat_dir or args.live or args.thumbnail
+               or args.subsample is not None)
+    if args.downscale > 1 and utility:
+        # decimation is an engine feature of the run modes
+        return "--downscale needs the --input/--output or --inputs modes"
+    return None
+
+
+def _refused_artifacts(args) -> Optional[str]:
+    """The JAX CLI's refusals of flags a mode would silently not honour
+    (checked after --auto-refresh parses), or None."""
+    if args.auto_refresh and (args.dat_dir or args.thumbnail
+                              or args.subsample is not None):
+        return ("--auto-refresh needs the --input/--output, --inputs or "
+                "--live modes")
+    for flag, val in (("--heatmap-png", args.heatmap_png),
+                      ("--record-events", args.record_events),
+                      ("--flicker-hz", args.flicker_hz is not None)):
+        inputs_ok = flag == "--flicker-hz" and args.inputs
+        if val and not inputs_ok and (
+                args.inputs or args.dat_dir or args.live
+                or args.thumbnail or args.subsample is not None):
+            return f"{flag} needs the --input/--output or --inputs modes"
+    for flag, val in (("--stats-json", args.stats_json),
+                      ("--events-json", args.events_json),
+                      ("--dft-json", args.dft_json)):
+        live_only = args.live and not args.dat_dir
+        if val and (live_only or args.thumbnail
+                    or args.subsample is not None
+                    or (args.inputs and flag == "--dft-json")):
+            return (f"{flag} is not written in this mode — use the "
+                    f"--input/--output (or --dat-dir) run modes")
+    return None
+
+
+def _run_live(args, props: DiPsProperties, auto_refresh) -> int:
+    """--live: preview the webcam, or --input (a file or stream URI)."""
+    from .live import run_live
+    reader = None
+    if args.input:
+        from .io.gstreamer import open_video
+        try:
+            reader = open_video(args.input, args.video_backend)
+        except (DiPsError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    try:
+        return run_live(props, device=args.device, reader=reader,
+                        auto_refresh=auto_refresh)
+    except DiPsError as e:  # e.g. no card
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+def _run_file(args, props: DiPsProperties, auto_refresh):
+    """The --input run: (exit code, None) on failure, else (None, (stats,
+    job, flicker analyzer or None))."""
+    enc = _parse_encoding(args.encoding)
+    if enc is None:
+        return 2, None
+    from .app import DiPsJob, perform_dips
+    from .utils.profiling import trace
+    record = None
+    if args.record_events:
+        record = dict(dir=args.record_events, pre_roll=args.pre_roll,
+                      post_roll=args.post_roll, detector=_detector_cfg(args))
+    flicker = flicker_cb = probed_reader = None
+    if args.flicker_hz is not None:
+        # the analyzer needs the input's frame rate up front (Nyquist
+        # validation + demodulation angle); the probed reader is handed to
+        # the job, which decodes from it instead of opening the file again
+        from .io.gstreamer import open_video
+        from .ops.analysis import FlickerAnalyzer
+        try:
+            probed_reader = open_video(args.input, args.video_backend)
+            flicker = FlickerAnalyzer(args.flicker_hz, probed_reader.fps,
+                                      tau_frames=args.flicker_tau,
+                                      chroma=props.chroma, batch=args.batch,
+                                      device=args.device)
+        except (DiPsError, NotImplementedError, ValueError) as e:
+            if probed_reader is not None:
+                probed_reader.close()
+            print(f"error: {e}", file=sys.stderr)
+            return 1, None
+
+        def flicker_cb(idx, inp, out, stat, _fl=flicker):
+            _fl.update(inp)
+            return None  # observe-only: the diff map passes through
+    job = DiPsJob(properties=props, video_path=args.input,
+                  output_path=args.output, encoding=enc, batch=args.batch,
+                  device=args.device, video_backend=args.video_backend,
+                  retime_vfr=args.retime_vfr, packed_wire=args.packed_wire,
+                  input_layout=args.input_layout, downscale=args.downscale,
+                  profile=args.profile, denoise_radius=args.denoise,
+                  reader=probed_reader, frame_callback=flicker_cb,
+                  record_events=record, auto_refresh=auto_refresh)
+    try:
+        with trace(args.trace_dir):
+            stats = perform_dips(job)
+    except (DiPsError, NotImplementedError, ValueError) as e:
+        if probed_reader is not None:
+            probed_reader.close()
+        print(f"error: {e}", file=sys.stderr)
+        return 1, None
+    if args.profile and job.timers:
+        print(job.timers)
+    if auto_refresh is not None and job.baseline_refreshes is not None:
+        if job.baseline_refreshes:
+            print("auto-refresh fired at frame(s): "
+                  + ", ".join(map(str, job.baseline_refreshes)))
+        else:
+            print("auto-refresh: no scene change detected")
+    if args.record_events and job.event_segments is not None:
+        import os
+        with open(os.path.join(args.record_events, "segments.json"),
+                  "w") as f:
+            json.dump(job.event_segments, f)
+        print(f"{len(job.event_segments)} event segment(s) "
+              f"recorded -> {args.record_events}")
+    return None, (stats, job, flicker)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.event_on == "auto" and args.event_off is not None:
-        print("--event-off is computed in auto mode (estimated floor + "
-              "margin/2) — drop it or use a fixed --event-on",
-              file=sys.stderr)
+    stats_only = args.output_mode == "stats_only" or args.no_maps
+    msg = _refused(args, stats_only)
+    if msg:
+        print(msg, file=sys.stderr)
         return 2
     auto_refresh = None
     if args.auto_refresh:
@@ -405,99 +611,102 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "(want FRAC[:PERSIST[:COOLDOWN]], e.g. 0.6:3:64)",
                   file=sys.stderr)
             return 2
-    stats_only = args.output_mode == "stats_only" or args.no_maps
-    if stats_only:
-        why = ("--output-mode stats_only" if args.output_mode == "stats_only"
-               else "--no-maps")
-        if args.output or args.output_dir:
-            print(f"{why} writes no diff video — drop "
-                  "--output/--output-dir (stats/events/heatmap artifacts "
-                  "are the products)", file=sys.stderr)
+    msg = _refused_artifacts(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 2
+
+    if args.thumbnail:
+        if not args.input:
+            print("--thumbnail requires --input", file=sys.stderr)
             return 2
-        for flag, val in (("--denoise", args.denoise),
-                          ("--packed-wire", args.packed_wire)):
-            if val:
-                print(f"{flag} needs diff maps; {why} suppresses them",
-                      file=sys.stderr)
-                return 2
-    if (args.flicker_png or args.flicker_tau is not None) \
-            and args.flicker_hz is None:
-        print("--flicker-png/--flicker-tau need --flicker-hz",
-              file=sys.stderr)
-        return 2
-    if args.downscale < 1:
-        print(f"--downscale must be >= 1, got {args.downscale}",
-              file=sys.stderr)
-        return 2
+        from .io.thumbnail import extract_thumbnail
+        extract_thumbnail(args.input, args.thumbnail)
+        print(f"thumbnail written: {args.thumbnail}")
+        return 0
+    if args.subsample is not None:
+        if args.subsample < 1:
+            print(f"--subsample must be >= 1, got {args.subsample}",
+                  file=sys.stderr)
+            return 2
+        if not (args.input and args.output):
+            print("--subsample requires --input and --output",
+                  file=sys.stderr)
+            return 2
+        from .io.subsample import subsample_video
+        n = subsample_video(args.input, args.output, args.subsample)
+        print(f"wrote {n} frames to {args.output}")
+        return 0
+
     try:
         props = props_from_args(args)
     except ValueError as e:  # e.g. --approx-median with --quirk-compat
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.inputs:
-        if args.dft_json:
-            print("--dft-json is not written in this mode — use the "
-                  "--input/--output run mode", file=sys.stderr)
-            return 2
         return _run_inputs(args, props, auto_refresh)
     for flag, val in (("--mesh", args.mesh),
-                      ("--stats-json", args.stats_json),
-                      ("--events-json", args.events_json),
-                      ("--auto-refresh", args.auto_refresh),
                       ("--output-dir", args.output_dir)):
-        if val:
+        if val:  # the JAX CLI ignores these outside the fleet mode
             print(f"{flag} needs the --inputs mode in this port",
                   file=sys.stderr)
             return 2
-    if not args.input or (not args.output and not stats_only):
-        print("need --input and --output (--output-mode stats_only runs "
-              "without --output)", file=sys.stderr)
-        return 2
-    enc = _parse_encoding(args.encoding)
-    if enc is None:
-        print(f"unknown --encoding {args.encoding!r} "
-              f"(RGBA | HFYU | H264 | MJPG | mp4v)", file=sys.stderr)
-        return 2
-    from .app import DiPsJob, perform_dips
-    flicker = flicker_cb = probed_reader = None
-    if args.flicker_hz is not None:
-        # the analyzer needs the input's frame rate up front (Nyquist
-        # validation + demodulation angle); the probed reader is handed to
-        # the job, which decodes from it instead of opening the file again
-        from .io.video import VideoReader
-        from .ops.analysis import FlickerAnalyzer
+
+    job = flicker = None  # the --input mode's; dat mode has no job
+    if args.dat_dir:
+        if not args.output:
+            print("--dat-dir requires --output", file=sys.stderr)
+            return 2
+        from .app import custom_dips_on_files
         try:
-            probed_reader = VideoReader(args.input)
-            flicker = FlickerAnalyzer(args.flicker_hz, probed_reader.fps,
-                                      tau_frames=args.flicker_tau,
-                                      chroma=props.chroma, batch=args.batch,
-                                      device=args.device)
+            w, h = (int(v) for v in args.dat_geometry.lower().split("x"))
+        except ValueError:
+            print(f"bad --dat-geometry {args.dat_geometry!r} "
+                  f"(want WIDTHxHEIGHT, e.g. 273x640)", file=sys.stderr)
+            return 2
+        enc = _parse_encoding(args.encoding)
+        if enc is None:
+            return 2
+        try:
+            stats = custom_dips_on_files(
+                args.dat_dir, args.output, width=w, height=h,
+                properties=props, encoding=enc, batch=args.batch,
+                device=args.device,
+                show=args.live)  # --live + --dat-dir previews the batch
         except (DiPsError, ValueError) as e:
-            if probed_reader is not None:
-                probed_reader.close()
             print(f"error: {e}", file=sys.stderr)
             return 1
+        frame_geometry = (h, w)
+    elif args.live:
+        return _run_live(args, props, auto_refresh)
+    else:
+        if not args.input or (not args.output and not stats_only):
+            print("need --input and --output (see --help; --output-mode "
+                  "stats_only runs without --output)", file=sys.stderr)
+            return 2
+        rc, run = _run_file(args, props, auto_refresh)
+        if rc is not None:
+            return rc
+        stats, job, flicker = run
+        frame_geometry = job.frame_geometry
 
-        def flicker_cb(idx, inp, out, stat, _fl=flicker):
-            _fl.update(inp)
-            return None  # observe-only: the diff map passes through
-    job = DiPsJob(properties=props, video_path=args.input,
-                  output_path=args.output, encoding=enc, batch=args.batch,
-                  device=args.device, packed_wire=args.packed_wire,
-                  input_layout=args.input_layout, downscale=args.downscale,
-                  profile=args.profile, denoise_radius=args.denoise,
-                  reader=probed_reader, frame_callback=flicker_cb)
-    try:
-        stats = perform_dips(job)
-    except (DiPsError, ValueError) as e:
-        if probed_reader is not None:
-            probed_reader.close()
-        print(f"error: {e}", file=sys.stderr)
-        return 1
-    if args.profile and job.timers:
-        print(job.timers)
     print(f"processed {stats.shape[0]} frames -> "
           + (args.output if args.output else "stats only"))
+    if args.stats_json:
+        from .ops.reference import STAT_NAMES
+        rows = [dict(zip(STAT_NAMES, map(float, row))) for row in stats]
+        with open(args.stats_json, "w") as f:
+            json.dump(rows, f)
+        print(f"stats written: {args.stats_json}")
+    if args.heatmap_png:
+        if job is None or job.engine is None:
+            print("--heatmap-png needs the --input/--output mode",
+                  file=sys.stderr)
+            return 2
+        if not _png_ready():
+            return 1
+        _save_map_png(job.engine.heatmap(), args.heatmap_png)
+        print(f"heatmap written: {args.heatmap_png}")
     if flicker is not None:
         import numpy as np
         flicker.flush()
@@ -515,6 +724,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                     return 1
                 _save_map_png(amp, args.flicker_png)
                 print(f"flicker map written: {args.flicker_png}")
+    if args.events_json:
+        from .ops.events import detect_events
+        events = detect_events(
+            [stats], **_detector_cfg(args),
+            pixels=(props.analysis_pixels(*frame_geometry)
+                    if args.event_metric == "changed_frac" and
+                    frame_geometry else None))
+        with open(args.events_json, "w") as f:
+            json.dump([e.to_dict() for e in events], f)
+        print(f"{len(events)} motion event(s) written: {args.events_json}")
     if args.dft_json:
         from .ops.analysis import temporal_dft
         mag, phase = temporal_dft(stats[:, 1], device=args.device)

@@ -1,11 +1,14 @@
-"""Per-stage wall-clock timers for the run path.
+"""Per-stage wall-clock timers and a device trace for the run path.
 
-Counterpart of ``dips_tpu/utils/profiling.py``: :class:`StageTimers`, a
-verbatim copy of the JAX package's class (accumulating wall-clock timers
-per named stage with a frames/s summary).  The engines split their time
-into ``h2d``, ``dispatch`` and ``d2h``; the run path adds ``decode``,
-``device`` and ``encode``.  The JAX package's ``trace`` (``jax.profiler``)
-is not copied: a ``torch.profiler`` counterpart is queued in ROADMAP.md.
+Counterpart of ``dips_tpu/utils/profiling.py``:
+
+* :class:`StageTimers`, a verbatim copy of the JAX package's class
+  (accumulating wall-clock timers per named stage with a frames/s
+  summary).  The engines split their time into ``h2d``, ``dispatch`` and
+  ``d2h``; the run path adds ``decode``, ``device`` and ``encode``.
+* :func:`trace`, a ``torch.profiler`` capture (CPU activity, and CUDA
+  activity when a card is present) written as a Chrome trace, in place of
+  the JAX package's ``jax.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class StageTimers:
@@ -67,3 +70,30 @@ class StageTimers:
     def __str__(self) -> str:
         rows = [f"  {k:<12} {v}" for k, v in self.summary().items()]
         return "StageTimers:\n" + "\n".join(rows)
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str] = None) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the block into
+    ``logdir/trace.<pid>.json`` (Chrome trace format, viewable in Perfetto
+    or chrome://tracing), also when the block raises; a no-op when
+    ``logdir`` is None."""
+    if logdir is None:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:  # a run that dies still leaves its trace
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir,
+                                              f"trace.{os.getpid()}.json"))

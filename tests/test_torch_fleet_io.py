@@ -292,8 +292,8 @@ def test_cli_inputs_matches_jax(clip_paths, tmp_path, capsys):
       "--event-off", "0.1"], 2, "--event-off is computed in auto mode"),
     (["--inputs", "{0}", "/nonexistent.avi", "--output-dir", "{d}"], 1,
      "error:"),
-    (["--input", "{0}", "--output", "{d}/o.avi", "--stats-json",
-      "{d}/s.json"], 2, "--stats-json needs the --inputs mode"),
+    (["--input", "{0}", "--output", "{d}/o.avi", "--output-dir", "{d}"], 2,
+     "--output-dir needs the --inputs mode"),
 ])
 def test_cli_inputs_usage(clip_paths, tmp_path, capsys, argv, rc, msg):
     argv = [a.format(*clip_paths, d=tmp_path) for a in argv]

@@ -31,7 +31,10 @@ ROOT = Path(__file__).resolve().parents[1]
                                  "serve/protocol.py", "serve/metrics.py",
                                  "serve/client.py", "serve/sessions.py",
                                  "serve/__main__.py", "utils/webhook.py",
-                                 "loadgen.py"])
+                                 "loadgen.py", "utils/indexing.py",
+                                 "io/synthetic.py", "io/datfiles.py",
+                                 "io/subsample.py", "io/thumbnail.py",
+                                 "io/eventrecorder.py"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
@@ -63,14 +66,17 @@ def test_serve_analytics_copy_is_verbatim_but_its_device():
 
 
 @pytest.mark.parametrize("rel", ["serve/server.py", "serve/coalesce.py",
-                                 "serve/daemon.py", "serve/__init__.py"])
+                                 "serve/daemon.py", "serve/__init__.py",
+                                 "report.py", "live.py", "gui.py"])
 def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
-    """The port's near-copies of the JAX serving modules differ from the
+    """The port's near-copies of JAX modules (the serving modules, the
+    report, the live preview and the Tk frontend) differ from the
     originals only by the lines listed in ``tests/forks/<module>.diff``
     (``difflib.unified_diff`` without context): ``backend`` becoming
-    ``device``, NUM_STATS from ``ops/reference``, the coalescer's mesh on
-    the server's device, the reply's stall deadline, the daemon's error
-    exit, and their comments.  A change on either side that the list
+    ``device``, NUM_STATS / STAT_NAMES from ``ops/reference``, the
+    coalescer's mesh on the server's device, the reply's stall deadline,
+    the daemon's error exit, the GUI's card check, the port's command
+    names, and their comments.  A change on either side that the list
     does not hold fails here; a deliberate one rewrites the list."""
     orig = (ROOT / "dips_tpu" / rel).read_text().splitlines(keepends=True)
     port = (ROOT / "dips_tpu_torch" / rel).read_text().splitlines(
@@ -184,10 +190,13 @@ def test_port_imports_without_jax():
     "serve/analytics.py", "serve/client.py", "serve/coalesce.py",
     "serve/daemon.py", "serve/metrics.py", "serve/protocol.py",
     "serve/server.py", "serve/sessions.py", "utils/webhook.py",
-    "loadgen.py"])
+    "loadgen.py", "__init__.py", "app.py", "cli.py", "live.py", "gui.py",
+    "io/__init__.py", "io/video.py", "io/gstreamer.py", "io/synthetic.py",
+    "io/datfiles.py", "io/subsample.py", "io/thumbnail.py",
+    "io/eventrecorder.py", "utils/indexing.py", "utils/profiling.py"])
 def test_module_imports_nothing_of_jax(rel):
-    """The post-analysis and serving modules import neither jax nor the
-    JAX package."""
+    """The post-analysis, serving and run-path modules import neither jax
+    nor the JAX package."""
     src = (ROOT / "dips_tpu_torch" / rel).read_text()
     for line in src.splitlines():
         s = line.strip()
@@ -197,10 +206,18 @@ def test_module_imports_nothing_of_jax(rel):
 
 
 def test_serve_imports_no_jax_module():
-    """``import dips_tpu_torch.serve`` (and the load generator) loads no
-    module of jax or of the JAX package, with both installed."""
+    """``import dips_tpu_torch.serve`` (and the load generator, and the
+    run path: the app, CLI, live preview, GUI, report and every ``io``
+    module) loads no module of jax or of the JAX package, with both
+    installed."""
     code = ("import sys\n"
             "import dips_tpu_torch.serve, dips_tpu_torch.loadgen\n"
+            "import dips_tpu_torch.app, dips_tpu_torch.cli\n"
+            "import dips_tpu_torch.live, dips_tpu_torch.gui\n"
+            "import dips_tpu_torch.report, dips_tpu_torch.utils.indexing\n"
+            "import dips_tpu_torch.utils.profiling\n"
+            "from dips_tpu_torch.io import (video, gstreamer, synthetic,\n"
+            "    datfiles, subsample, thumbnail, eventrecorder)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'dips_tpu')))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -435,3 +452,64 @@ def test_pool_frame_host_matches_original():
     f[..., 1] = [[1, 0], [0, 0]]              # mean 0.25 -> 0
     f[..., 2] = [[1, 1], [0, 0]]              # mean 0.5 -> 0 (half to even)
     assert list(tref.pool_frame_host(f, 2)[0, 0]) == [25, 0, 0]
+
+
+def test_port_imports_without_cv2():
+    """OpenCV stays a lazy import: the package, the run path, the CLI and
+    the live preview import with cv2 made unimportable, and the cv2
+    names of ``io`` resolve only when used."""
+    code = ("import sys\n"
+            "sys.modules['cv2'] = None\n"
+            "import dips_tpu_torch, dips_tpu_torch.io\n"
+            "import dips_tpu_torch.app, dips_tpu_torch.cli\n"
+            "import dips_tpu_torch.live, dips_tpu_torch.gui\n"
+            "import dips_tpu_torch.io.video, dips_tpu_torch.io.gstreamer\n"
+            "import dips_tpu_torch.io.eventrecorder\n"
+            "assert 'cv2' not in [k for k, v in sys.modules.items() if v]\n"
+            "for mod, name in ((dips_tpu_torch, 'extract_thumbnail'),\n"
+            "                  (dips_tpu_torch.io, 'extract_thumbnail')):\n"
+            "    try:\n"
+            "        getattr(mod, name)\n"
+            "    except ImportError:\n"
+            "        pass\n"
+            "    else:\n"
+            "        raise SystemExit(name + ' resolved without cv2')\n"
+            "print(sorted(dips_tpu_torch.io.__all__))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    import dips_tpu.io as jio
+    assert res.stdout.strip() == str(sorted(
+        n for n in dir(jio) if not n.startswith("_") and callable(
+            getattr(jio, n))))
+    import dips_tpu_torch
+    import dips_tpu_torch.io.thumbnail as thumb
+    assert dips_tpu_torch.extract_thumbnail is thumb.extract_thumbnail
+    assert dips_tpu_torch.io.VideoReader is \
+        dips_tpu_torch.io.video.VideoReader
+    with pytest.raises(AttributeError):
+        dips_tpu_torch.io.nothing_here
+
+
+@pytest.mark.parametrize("name", ["CfrRetimer", "retime_cfr"])
+def test_retimer_copy_is_verbatim(name):
+    """``io/video.CfrRetimer`` and ``retime_cfr`` are the originals'
+    source."""
+    import inspect
+
+    import dips_tpu.io.video as jvideo
+    import dips_tpu_torch.io.video as tvideo
+    assert inspect.getsource(getattr(tvideo, name)) == \
+        inspect.getsource(getattr(jvideo, name))
+
+
+def test_exports_cover_the_jax_package():
+    """The package exports the JAX package's names, but the multi-host
+    engine (not ported yet) and the version."""
+    import dips_tpu
+    import dips_tpu_torch
+    missing = set(dips_tpu.__all__) - set(dips_tpu_torch.__all__)
+    assert missing == {"MultiHostStreamEngine", "init_multihost",
+                       "__version__"}
+    for name in dips_tpu_torch.__all__:
+        assert getattr(dips_tpu_torch, name) is not None, name
