@@ -107,6 +107,22 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   p50 / p99 / max, mean fill). The servers' own launches are counted
   (``serve_launches`` in the record);
 
+* the ingest slice (``[ingest]``): ``native.planarize`` / ``interleave``
+  against the plain twin on a 1080p frame (and timed against it);
+  ``stream_dips`` on a 96-frame 1080p MJPG clip, COLORIZE w3/T4 and
+  ABSDIFF, at (decode_workers, pipeline_depth) (1, 1), (4, 1), (1, 2),
+  (4, 2) in the hwc layout and (4, 2) in the planar one, each run equal
+  to the (1, 1) run bit for bit (indices, maps, stats, timestamps,
+  inputs) and every ring launch held against its plain twin, then timed
+  unheld with the stage timers; ``python -m dips_tpu_torch
+  --decode-workers 4 --pipeline-depth 2 --profile`` in this process
+  against the default run's video; GStreamer where its C libraries load
+  (a clip written by ``GstVideoWriter`` through
+  ``stream_dips(video_backend="gstreamer")`` against an engine, and
+  ``perform_dips``'s timestamps read back), else a line saying why;
+  ``python -m dips_tpu_torch.doctor --json`` in a process of its own.
+  The phase's launches are ``ingest_launches`` in the record;
+
 then times kernels (wrapper, and alone for the variants), plain twins and
 every engine with CUDA events (``[time]``), the variants, the slab forms
 and the options included.  Each path's launch counts are set to 0 just
@@ -123,6 +139,7 @@ repository around it, it exits non-zero before printing any result.
 import json
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -2514,9 +2531,11 @@ class HeldRing:
     state and input and is held against it: median maps within
     MEDIAN_TOL, raw maps exact, carried state exact on the true region,
     heatmap and stats within tolerance.  Counts the kernels' launches
-    from 0 (``counts``); the twins count nothing."""
+    from 0 (``counts``); the twins count nothing.  ``tag`` starts its
+    messages."""
 
-    def __init__(self):
+    def __init__(self, tag="[run]"):
+        self.tag = tag
         self.counts = dict.fromkeys(RUN_KERNELS, 0)
         self.held = dict.fromkeys(RUN_KERNELS, 0)
         self.err = dict.fromkeys(RUN_KERNELS, 0.0)
@@ -2531,15 +2550,16 @@ class HeldRing:
         self.px += d.numel()
         if int(d.max()) > (0 if raw else MEDIAN_TOL["lsb"]) or \
                 self.flips > MEDIAN_TOL["flip_frac"] * self.px:
-            raise AssertionError(f"[run] {name} {ptag(props)}: maps differ "
-                                 f"from the plain twin")
+            raise AssertionError(f"{self.tag} {name} {ptag(props)}: maps "
+                                 f"differ from the plain twin")
         for g, e in zip(got[2:-1], exp[2:-1]):
             if not torch.equal(g[..., :h, :w], e[..., :h, :w]):
-                raise AssertionError(f"[run] {name}: carried state differs")
+                raise AssertionError(f"{self.tag} {name}: carried state "
+                                     f"differs")
         self.err[name] = max(self.err[name], _max_err(got[-1], exp[-1]))
         if self.err[name] > MEDIAN_TOL["heat_atol"]:
-            raise AssertionError(f"[run] {name}: heatmap differs")
-        _check_stats(f"[run] {name} {ptag(props)}", got[1], exp[1],
+            raise AssertionError(f"{self.tag} {name}: heatmap differs")
+        _check_stats(f"{self.tag} {name} {ptag(props)}", got[1], exp[1],
                      RAW_TOL["stats_rtol"] if raw
                      else MEDIAN_TOL["stats_rtol"])
         self.held[name] += 1
@@ -2890,6 +2910,292 @@ def phase_run(card):
         f"heatmap max error {held.err})")
     log("[run] " + json.dumps({"cli_wall_s": walls["cli"], "live": live,
                                "card": card}))
+    return held.counts
+
+
+# ---------------------------------------------------------------------------
+# the ingest slice: native framepump, decode workers, pipeline depth,
+# GStreamer, the doctor
+# ---------------------------------------------------------------------------
+
+#: the [ingest] clip's length (the [run] clip and the start of another)
+INGEST_N = 96
+#: (decode_workers, pipeline_depth, input_layout) of the [ingest] runs,
+#: the first the reference the others must equal bit for bit
+INGEST_RUNS = ((1, 1, "hwc"), (4, 1, "hwc"), (1, 2, "hwc"), (4, 2, "hwc"),
+               (4, 2, "planar"))
+
+
+def ingest_clip_frames():
+    """The [run] clip followed by the first 32 frames of another seed's."""
+    return np.concatenate([run_clip_frames(131),
+                           run_clip_frames(137)[:INGEST_N - 64]])
+
+
+def ingest_native(card):
+    """native.planarize / interleave against the plain twin on a 1080p
+    frame, both swaps, and ms a frame of each (median of 9 calls)."""
+    from dips_tpu_torch import native
+    from dips_tpu_torch.ops.reference import pad_geometry, planarize_host
+    if not native.NATIVE_AVAILABLE:
+        raise AssertionError("[ingest] the framepump library did not build "
+                             "or load (NATIVE_AVAILABLE is false)")
+    tier = native.SIMD_NAMES[native.simd_level()]
+    h, w = H1080, W1080
+    hp, wp = pad_geometry(h, w)
+    frame = np.random.default_rng(151).integers(0, 256, (h, w, 3), np.uint8)
+    for swap in (False, True):
+        got = native.planarize(frame, hp, wp, swap_rb=swap)
+        if not np.array_equal(got, planarize_host(frame, hp, wp,
+                                                  swap_rb=swap)):
+            raise AssertionError(f"[ingest] native.planarize (swap {swap}) "
+                                 f"differs from planarize_host")
+        if not np.array_equal(native.interleave(got, h, w, swap_rb=swap),
+                              frame):
+            raise AssertionError(f"[ingest] native.interleave (swap {swap}) "
+                                 f"does not invert planarize")
+
+    def ms(fn):
+        walls = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)) * 1e3
+
+    res = {"simd": tier,
+           "native_ms": ms(lambda: native.planarize(frame, hp, wp,
+                                                    swap_rb=True)),
+           "plain_ms": ms(lambda: planarize_host(frame, hp, wp,
+                                                 swap_rb=True)),
+           "interleave_ms": ms(lambda: native.interleave(got, h, w))}
+    log(f"[ingest] native: NATIVE_AVAILABLE, SIMD tier {tier}; planarize "
+        f"{h}x{w} BGR -> padded planar RGB equals planarize_host (both "
+        f"swaps), interleave inverts it; planarize {res['native_ms']:.3f} "
+        f"ms/frame native, {res['plain_ms']:.3f} ms/frame numpy "
+        f"(planarize_host); interleave {res['interleave_ms']:.3f} ms/frame; "
+        f"median of 9 calls on the host; {card}")
+    return res
+
+
+def _shares(timers, wall):
+    """{stage: share of the run's wall} and decode ms a frame (the mean
+    over the decode workers of each one's ms a call)."""
+    shares = {k: v / wall for k, v in sorted(timers.totals.items())}
+    dec = [timers.totals[k] / timers.counts[k] for k in timers.totals
+           if k.startswith("decode") and timers.counts[k]]
+    return shares, float(np.mean(dec)) * 1e3 if dec else None
+
+
+def _stream(clip, props, workers, depth, layout, inputs):
+    """One stream_dips run: (items, job, wall s); items are (index, input
+    or None, map, stats, pts)."""
+    from dips_tpu_torch.app import DiPsJob, stream_dips
+    job = DiPsJob(properties=props, video_path=clip, batch=B, device="cuda",
+                  decode_workers=workers, pipeline_depth=depth,
+                  input_layout=layout, yield_inputs=inputs, profile=True)
+    t0 = time.perf_counter()
+    items = [(i, inp, out, st) for i, inp, out, st in stream_dips(job)]
+    wall = time.perf_counter() - t0
+    return [it + (p,) for it, p in zip(items, job.frame_pts)], job, wall
+
+
+def _same_items(tag, got, ref):
+    if len(got) != len(ref):
+        raise AssertionError(f"{tag}: {len(got)} frames, the (1, 1) run "
+                             f"{len(ref)}")
+    for g, r in zip(got, ref):
+        if g[0] != r[0] or g[4] != r[4] or not np.array_equal(g[2], r[2]) \
+                or not np.array_equal(g[3], r[3]) or (
+                    g[1] is not None and not np.array_equal(g[1], r[1])):
+            raise AssertionError(f"{tag}: frame {r[0]} differs from the "
+                                 f"(1, 1) run (index, pts, map, stats or "
+                                 f"input)")
+
+
+def ingest_streams(card, clip, held):
+    """stream_dips at each INGEST_RUNS configuration, COLORIZE w3/T4 and
+    ABSDIFF: a held run with the inputs yielded (every launch against its
+    plain twin), then a timed run with the stage timers; each equals the
+    (1, 1) run bit for bit.  The timings are one run each, under a second:
+    a reading of each configuration, too short to rank them."""
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    out = {}
+    n = None
+    for mode, props in (("colorize", DiPsProperties(window_size=3,
+                                                    temporal_size=4)),
+                        ("absdiff", DiPsProperties(
+                            output=OutputMode.ABSDIFF))):
+        ref = None
+        for workers, depth, layout in INGEST_RUNS:
+            tag = f"[ingest] {mode} ({workers}, {depth}) {layout}"
+            with held:
+                items, _, _ = _stream(clip, props, workers, depth, layout,
+                                      True)
+            if ref is None:
+                ref, n = items, len(items)
+            _same_items(tag, items, ref)
+            items, job, wall = _stream(clip, props, workers, depth, layout,
+                                       False)
+            _same_items(tag + " (timed)", items, ref)
+            shares, dec_ms = _shares(job.timers, wall)
+            out[f"{mode} {workers} {depth} {layout}"] = {
+                "wall_s": wall, "fps": n / wall, "decode_ms": dec_ms,
+                "shares": shares}
+            log(f"{tag}: {n} frames at {H1080}x{W1080}, B = {B}, equal to "
+                f"the (1, 1) run bit for bit; one timed run (a reading, "
+                f"not a ranking) {wall:.3f} s, "
+                f"{n / wall:.1f} frames/s, decode {dec_ms:.2f} ms/frame a "
+                f"worker; shares of the wall: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+                + f"; {card}")
+    return out
+
+
+def ingest_cli(card, work, clip, held):
+    """python -m dips_tpu_torch with --decode-workers 4 --pipeline-depth 2
+    --profile, in this process: its video decodes to the default run's
+    frame for frame."""
+    outs, walls = {}, {}
+    for name, extra in (("default", []),
+                        ("w4d2", ["--decode-workers", "4",
+                                  "--pipeline-depth", "2", "--profile"])):
+        path = os.path.join(work, f"cli_{name}.avi")
+        t0 = time.perf_counter()
+        with held:
+            rc, out, err = _cli(["--input", clip, "--output", path,
+                                 "--device", "cuda", "--batch", str(B)]
+                                + extra)
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[ingest] CLI {extra}: exit {rc}: "
+                                 f"{err[-2000:]}")
+        outs[name] = read_rgb(path)
+        if name == "w4d2" and "decode3" not in out:
+            raise AssertionError("[ingest] --profile names no fourth decode "
+                                 "worker")
+    if len(outs["w4d2"]) != INGEST_N or any(
+            not np.array_equal(a, b) for a, b in zip(outs["w4d2"],
+                                                     outs["default"])):
+        raise AssertionError("[ingest] --decode-workers 4 --pipeline-depth "
+                             "2 output differs from the default run's")
+    log(f"[ingest] python -m dips_tpu_torch --decode-workers 4 "
+        f"--pipeline-depth 2 --profile: exit 0 in {walls['w4d2']:.1f} s "
+        f"(default flags {walls['default']:.1f} s); its {INGEST_N} frames "
+        f"decode equal to the default run's; {card}")
+
+
+def ingest_gstreamer(card, work, held):
+    """With the GStreamer C stack: a clip written by GstVideoWriter, run
+    through stream_dips(video_backend="gstreamer") against a DiPsEngine
+    fed the same reader's frames, and perform_dips with a GStreamer
+    writer whose timestamps come back from the file.  Without it, a line
+    says why."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties
+    from dips_tpu_torch.app import DiPsJob, perform_dips, stream_dips
+    from dips_tpu_torch.io import gstreamer as gst
+    if gst._load() is None:
+        log(f"[ingest] gstreamer: not run ({gst._gst_err})")
+        return None
+    n, h, w = 32, H1080, W1080
+    frames = run_clip_frames(139)[RUN_STILL - 8:RUN_STILL - 8 + n]
+    src = os.path.join(work, "gst_in.ogv")
+    wr = gst.GstVideoWriter(src, FPS, w, h)
+    for k, f in enumerate(frames):
+        wr.write(f, pts=k / FPS)
+    wr.close()
+    rd = gst.GstVideoReader(src)
+    t0 = time.perf_counter()
+    decoded = [f for f in rd]
+    dec_ms = (time.perf_counter() - t0) * 1e3 / max(1, len(decoded))
+    rd.close()
+    props = DiPsProperties(window_size=3, temporal_size=4)
+    eng = DiPsEngine(props, h, w, batch=B, device="cuda")
+    exp_maps, exp_stats = eng.process_frames(decoded)
+    job = DiPsJob(properties=props, video_path=src, batch=B, device="cuda",
+                  video_backend="gstreamer", pipeline_depth=2)
+    with held:
+        items = list(stream_dips(job))
+    maps = np.stack([it[2] for it in items])
+    stats = np.stack([it[3] for it in items])
+    if not (np.array_equal(maps, exp_maps)
+            and np.array_equal(stats, exp_stats)):
+        raise AssertionError("[ingest] gstreamer: stream_dips differs from "
+                             "an engine fed the reader's frames")
+    out = os.path.join(work, "gst_out.ogv")
+    with held:
+        perform_dips(DiPsJob(properties=props, video_path=src,
+                             output_path=out, batch=B, device="cuda",
+                             video_backend="gstreamer", retime_vfr=True))
+    rd = gst.GstVideoReader(out)
+    pts = [p for _, p in iter(rd.read_timed, None)]
+    rd.close()
+    if not np.allclose(pts, [k / FPS for k in range(n)], atol=1e-6):
+        raise AssertionError(f"[ingest] gstreamer: timestamps {pts[:4]}... "
+                             f"did not come back from the written file")
+    log(f"[ingest] gstreamer ({gst._gst.version}): {n} frames written by "
+        f"GstVideoWriter, stream_dips(video_backend='gstreamer') equals an "
+        f"engine fed the reader's frames, perform_dips's GStreamer writer "
+        f"kept every timestamp; decode {dec_ms:.2f} ms/frame; {card}")
+    return dec_ms
+
+
+def ingest_doctor(card):
+    """python -m dips_tpu_torch.doctor --json in a process of its own."""
+    import torch
+    res = subprocess.run([sys.executable, "-m", "dips_tpu_torch.doctor",
+                          "--json"], capture_output=True, text=True,
+                         timeout=300)
+    info = json.loads(res.stdout)
+    t = info["torch"]
+    if res.returncode != 0 or not t["ok"] \
+            or t["device_name"] != torch.cuda.get_device_name(0) \
+            or not t["power"] or t["power"] != card \
+            or not info["native"]["ok"] or not info["kernels"]["built"]:
+        raise AssertionError(f"[ingest] doctor: exit {res.returncode}, "
+                             f"{json.dumps(info)[:2000]} {res.stderr[-500:]}")
+    log(f"[ingest] python -m dips_tpu_torch.doctor --json: exit 0; torch "
+        f"{t['version']} cuda {t['cuda']}, {t['devices']} card(s), "
+        f"{t['power']}; native {info['native']['simd']}; kernels built in "
+        f"{info['kernels']['dir']}; gstreamer available "
+        f"{info['gstreamer']['available']}")
+
+
+def phase_ingest(card):
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise AssertionError("[ingest] needs cv2 for its clip")
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "ingest"))
+    os.makedirs(work, exist_ok=True)
+    steps, t0 = {}, time.perf_counter()
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        steps[name] = time.perf_counter() - t
+        return res
+
+    nat = step("native", ingest_native, card)
+    clip = os.path.join(work, "clip.avi")
+    step("clip", lambda: write_avi(clip, ingest_clip_frames()))
+    held = HeldRing("[ingest]")
+    runs = step("streams", ingest_streams, card, clip, held)
+    step("cli", ingest_cli, card, work, clip, held)
+    gst_ms = step("gstreamer", ingest_gstreamer, card, work, held)
+    step("doctor", ingest_doctor, card)
+    for name in RUN_KERNELS:
+        if held.counts[name] <= 0 or held.held[name] != held.counts[name]:
+            raise AssertionError(f"[ingest] {name}: {held.counts[name]} "
+                                 f"launches, {held.held[name]} held")
+    log(f"[ingest] every launch held against its plain twin: {held.held} "
+        f"(maps: {held.flips} of {held.px} values differ by 1 LSB; "
+        f"heatmap max error {held.err})")
+    log("[ingest] " + json.dumps({"native": nat, "runs": runs,
+                                  "gstreamer_decode_ms": gst_ms,
+                                  "wall_s": time.perf_counter() - t0,
+                                  "steps_s": steps,
+                                  "card": card}))
     return held.counts
 
 
@@ -3853,6 +4159,7 @@ def main():
     launches.update(timed(phase_grid, card))
     timed(phase_analysis, card)
     run = timed(phase_run, card)
+    ingest = timed(phase_ingest, card)
     serve = timed(phase_serve, card)
     times = timed(phase_times, card)
     import torch
@@ -3865,6 +4172,7 @@ def main():
          "bound_by": times[name]["bound_by"], "library_ms": None,
          "regs": regs.get(record_instance(name), (None,))[0],
          "run_launches": run.get(name, 0),
+         "ingest_launches": ingest.get(name, 0),
          "serve_launches": serve.get(name, 0)}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:

@@ -4,9 +4,13 @@ Counterpart of ``dips_tpu/app.py``:
 
 * :class:`DiPsJob`, the job builder (pipeline properties, endpoints and
   run options, and the run artifacts it receives);
-* :func:`stream_dips`, the streaming loop: decode runs on one worker
-  thread feeding a bounded ``queue.Queue`` (backpressure) with each frame
-  beside its timestamp, so decode overlaps the device step;
+* :func:`stream_dips`, the streaming loop: decode runs on worker threads
+  that stage each frame in a bounded ``native.FrameRing`` (backpressure),
+  its timestamp in a deque beside it, so decode overlaps the device step;
+  ``decode_workers`` > 1 splits a seekable file into contiguous chunks
+  decoded in parallel and consumed in order, and ``pipeline_depth`` 2
+  keeps one batch in flight on the device while the previous one is
+  collected;
 * :func:`perform_dips` (video in, diff-map video out, per-frame
   statistics back) with event-triggered recording
   (``io/eventrecorder.py``), adaptive baseline refresh
@@ -18,23 +22,25 @@ Counterpart of ``dips_tpu/app.py``:
 
 The engine options ``packed_wire``, ``downscale`` (video written at the
 analysis geometry) and ``input_layout`` ("hwc": the device lays out the
-decoded BGR bytes; "planar": the host does) pass through, and ``profile``
-collects per-stage :class:`~dips_tpu_torch.utils.profiling.StageTimers`.
+decoded bytes; "planar": the decode workers planarize with
+``native.planarize``) pass through, and ``profile`` collects per-stage
+:class:`~dips_tpu_torch.utils.profiling.StageTimers`.
 The post-analysis of ``ops/analysis.py`` runs on the engine's device:
 ``DiPsJob.denoise_radius`` low-passes the maps before the frame callback
 sees them, and ``run_dips_on_files(flicker=)`` returns per-stream flicker
-maps.  Media go through ``io/gstreamer.open_video`` / ``open_writer``
-(OpenCV; the "gstreamer" backend is not ported and raises
-``NotImplementedError``).
+maps.  Media go through ``io/gstreamer.open_video`` / ``open_writer``:
+OpenCV, or GStreamer (``video_backend="gstreamer"``, or "auto" where
+``io.gstreamer.available()``), whose readers decode to RGB and whose
+writer carries each frame's timestamp.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import logging
 import os
-import queue
 import sys
 import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
@@ -45,8 +51,9 @@ import torch
 from .errors import (DecodeError, FrameCallbackError, OutputPathError,
                      VideoPathError)
 from .models import DiPsEngine
+from . import native
 from .models.pipeline import analysis_geometry
-from .ops.reference import NUM_STATS, planarize_host
+from .ops.reference import NUM_STATS
 from .properties import DiPsMethod, DiPsProperties, Encoding
 from .utils.profiling import StageTimers
 
@@ -57,9 +64,8 @@ log = logging.getLogger("dips_tpu_torch")
 FrameCallback = Callable[[int, np.ndarray, np.ndarray, np.ndarray],
                          Optional[np.ndarray]]
 
-_EOS = object()
-#: how long a patient run (``decode_stall_s=None``) waits per poll
-_PATIENT_POLL_S = 30.0
+#: how long a patient run (``decode_stall_s=None``) waits per poll (ms)
+_PATIENT_POLL_MS = 30000
 
 
 @dataclasses.dataclass
@@ -77,11 +83,15 @@ class DiPsJob:
     #: "cuda", "cuda:N" or "cpu"; without a card "cuda" raises
     #: DeviceError
     device: Optional[str] = "cuda"
-    #: media backend for decode and encode: "auto" or "opencv" ("gstreamer"
-    #: is not ported and raises NotImplementedError)
+    #: media backend for decode and encode: "opencv", "gstreamer" or
+    #: "auto" (GStreamer where ``io.gstreamer.available()``, else OpenCV)
     video_backend: str = "auto"
-    #: decoded frames queued ahead of the engine, in batches (at least 2)
+    #: decoded frames staged ahead of the engine, in batches (at least 2)
     queue_depth: int = 4
+    #: parallel decode workers over contiguous chunks of the file, consumed
+    #: in order; needs a seekable reader with a frame count (AVI/MJPG),
+    #: else one worker decodes
+    decode_workers: int = 1
     #: collect per-stage timings (decode, h2d, dispatch, d2h, device,
     #: encode); populated on the job as ``job.timers`` after a run
     profile: bool = False
@@ -111,11 +121,16 @@ class DiPsJob:
     auto_refresh: Optional[dict] = None
     #: run artifact: frame indices where the auto-refresh policy fired
     baseline_refreshes: Optional[list] = None
+    #: batches in flight on the device: 2 dispatches batch k+1 before batch
+    #: k is collected, so the host's decode and encode overlap the device;
+    #: 1 collects each batch as soon as it is dispatched
+    pipeline_depth: int = 1
     #: THRESHOLD only: bit-pack masks on the device before the download
     #: (1/8 of the bytes; ops/wire.py).  Output is unchanged.
     packed_wire: bool = False
-    #: "hwc" (default): the decoded BGR bytes go up as they are and the
-    #: device lays them out; "planar": the host planarizes each frame
+    #: "hwc" (default): the decoded bytes go up as they are and the device
+    #: lays them out (and swaps BGR); "planar": the decode workers
+    #: planarize each frame on the host (``native.planarize``)
     input_layout: str = "hwc"
     #: yield the decoded RGB input frame from :func:`stream_dips`; None =
     #: only when ``frame_callback`` is set (it costs a host pass a frame)
@@ -150,49 +165,140 @@ class DiPsJob:
         return dataclasses.replace(self, video_backend=b)
 
 
-def _decode_worker(reader, q: queue.Queue, stop: threading.Event,
-                   errbox: list, timers: Optional[StageTimers] = None
-                   ) -> None:
-    """Decode thread: (BGR frame, pts) pairs into the bounded queue, then
-    _EOS, so no frame is ever dequeued without its timestamp.  With
-    ``timers``, each decode counts in the "decode" stage (only this thread
-    uses that stage)."""
+def _decode_worker(reader, hp: int, wp: int, ring: native.FrameRing,
+                   stop: threading.Event, errbox: list, pts_q,
+                   timers: Optional[StageTimers] = None,
+                   stage: str = "decode", limit: Optional[int] = None,
+                   own_reader: bool = False, raw_hwc: bool = False) -> None:
+    """Decode thread: each frame into the bounded ring, planarized on the
+    host (``native.planarize``, which swaps BGR to RGB in the same pass)
+    or, with ``raw_hwc``, as the decoder's bytes for the device to lay
+    out.  Its timestamp goes into ``pts_q`` before the push, so no frame
+    is popped without it.  ``limit`` bounds the frames decoded (a chunk
+    of the parallel decode); ``stage`` names this worker's timers (a
+    StageTimers stage is safe only when one thread writes it)."""
+    # readers that decode to RGB (GStreamer) skip the BGR round trip
+    rgb_native = getattr(reader, "native_rgb", False)
+    it = reader.iter_rgb_timed() if rgb_native else reader.iter_bgr_timed()
+    stage_pl = stage.replace("decode", "planarize")
+    done = 0
     try:
-        frames = reader.iter_bgr_timed()
-        while True:
-            if timers:
-                with timers.stage("decode"):
-                    item = next(frames, _EOS)
-            else:
-                item = next(frames, _EOS)
-            if item is _EOS:
-                break
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-            if stop.is_set():
+        while limit is None or done < limit:
+            with timers.stage(stage) if timers else contextlib.nullcontext():
+                item = next(it, None)
+            if item is None or stop.is_set():
                 return
+            frame, pts = item
+            if raw_hwc:
+                payload = np.ascontiguousarray(frame)
+            else:
+                with (timers.stage(stage_pl) if timers
+                      else contextlib.nullcontext()):
+                    payload = native.planarize(frame, hp, wp,
+                                               swap_rb=not rgb_native)
+            pts_q.append(pts)
+            if not ring.push(payload):
+                return
+            done += 1
     except Exception as e:  # reported by the consumer
         errbox.append(e)
     finally:
-        while not stop.is_set():
-            try:
-                q.put(_EOS, timeout=0.1)
-                return
-            except queue.Full:
+        ring.close()
+        if own_reader:
+            reader.close()
+
+
+class _RingChain:
+    """Ordered consumption across the chunk rings: ``pop`` drains ring k
+    (closed and empty) before it moves on to ring k + 1, so frames come
+    out in order while later chunks decode in parallel."""
+
+    def __init__(self, rings, pts_qs):
+        self.rings = rings
+        self.pts_qs = pts_qs
+        self._k = 0
+        self.last_pts = None
+
+    def pop(self, out: np.ndarray, timeout_ms: int) -> int:
+        """0 with the frame in ``out`` (its timestamp in ``last_pts``), -1
+        when every chunk is done, -2 on a timeout."""
+        while self._k < len(self.rings):
+            rc = self.rings[self._k].pop(out, timeout_ms=timeout_ms)
+            if rc == 0:
+                q = self.pts_qs[self._k]
+                self.last_pts = q.popleft() if q else None
+                return 0
+            if rc == -1:  # this chunk is done: on to the next
+                self._k += 1
                 continue
+            return rc
+        return -1
+
+    def close(self) -> None:
+        for r in self.rings:
+            r.close()
+
+
+def _start_decode(job: DiPsJob, reader, hp: int, wp: int, slot_bytes: int,
+                  raw_hwc: bool, stop: threading.Event, errbox: list,
+                  timers: Optional[StageTimers]):
+    """Start the decode workers: (the ring chain to pop from, the worker
+    threads, the readers to close after the join).  ``decode_workers`` > 1
+    over a seekable reader with a frame count closes ``reader`` and opens
+    one reader per contiguous chunk, each owned by its worker."""
+    from .io.gstreamer import open_video
+    slots = max(2, job.queue_depth) * job.batch
+    nw = max(1, int(job.decode_workers))
+    total = getattr(reader, "frame_count", -1)
+    if nw == 1 or not total or total <= 0 or not hasattr(reader,
+                                                         "seek_frame"):
+        ring = native.FrameRing(slots=slots, slot_bytes=slot_bytes)
+        pts_q: collections.deque = collections.deque()
+        worker = threading.Thread(
+            target=_decode_worker, daemon=True,
+            args=(reader, hp, wp, ring, stop, errbox, pts_q, timers,
+                  "decode", None, False, raw_hwc))
+        worker.start()
+        return _RingChain([ring], [pts_q]), [worker], [reader]
+    nw = min(nw, total)
+    reader.close()
+    per = total // nw
+    bounds = [(k * per, per if k < nw - 1 else total - (nw - 1) * per)
+              for k in range(nw)]
+    rings = [native.FrameRing(slots=max(2, slots // nw),
+                              slot_bytes=slot_bytes) for _ in range(nw)]
+    pts_qs = [collections.deque() for _ in range(nw)]
+    workers, opened = [], []
+    try:
+        for k, (start, count) in enumerate(bounds):
+            rd = open_video(job.video_path, job.video_backend)
+            opened.append(rd)
+            rd.seek_frame(start)
+            workers.append(threading.Thread(
+                target=_decode_worker, daemon=True,
+                args=(rd, hp, wp, rings[k], stop, errbox, pts_qs[k], timers,
+                      f"decode{k or ''}", count, True, raw_hwc)))
+    except BaseException:
+        # a later chunk's open or seek failing must not leak the readers
+        # already opened: no worker owns them yet
+        for rd in opened:
+            with contextlib.suppress(Exception):
+                rd.close()
+        raise
+    for wk in workers:
+        wk.start()
+    return _RingChain(rings, pts_qs), workers, []
 
 
 def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
                                                 np.ndarray, np.ndarray]]:
     """Streaming loop: yields (frame_index, input_rgb, output, stats) while
-    a decode thread keeps the engine fed; each frame's timestamp is
+    the decode workers keep the engine fed; each frame's timestamp is
     appended to ``job.frame_pts`` before it is yielded.  ``input_rgb`` is
     the decoded frame when ``job.yield_inputs`` resolves true (explicitly,
-    or because a ``frame_callback`` is set), else None."""
+    or because a ``frame_callback`` is set), else None.  Frames are popped
+    straight into the engine's batch buffer; with ``pipeline_depth`` 2 a
+    batch is collected only after the next one was dispatched."""
     if not job.video_path:
         raise VideoPathError("no video path set (DiPsJob.with_video_path)")
     if job.input_layout not in ("planar", "hwc"):
@@ -200,14 +306,16 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
     from .io.gstreamer import open_video
     reader = (job.reader if job.reader is not None
               else open_video(job.video_path, job.video_backend))
+    # readers that decode to RGB take the "hwc" layout, cv2's BGR "hwc_bgr"
+    rgb_native = getattr(reader, "native_rgb", False)
     try:
-        # the device lays out the decoder's BGR bytes unless the host does
         host_planar = analysis_geometry(reader.height, reader.width,
                                         job.downscale,
                                         job.input_layout)[3] == "planar"
         engine = DiPsEngine(job.properties, reader.height, reader.width,
                             batch=job.batch, device=job.device,
                             input_layout=("planar" if host_planar
+                                          else "hwc" if rgb_native
                                           else "hwc_bgr"),
                             packed_wire=job.packed_wire,
                             downscale=job.downscale)
@@ -220,28 +328,75 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
     job.frame_pts = []
     want_inputs = (job.yield_inputs if job.yield_inputs is not None
                    else job.frame_callback is not None)
-    q: queue.Queue = queue.Queue(maxsize=max(2, job.queue_depth) * job.batch)
+    hp, wp = engine.hp, engine.wp
+    slot_bytes = (3 * hp * wp if host_planar
+                  else reader.height * reader.width * 3)
     stop = threading.Event()
     errbox: list = []
-    worker = threading.Thread(target=_decode_worker,
-                              args=(reader, q, stop, errbox, timers),
-                              daemon=True)
-    worker.start()
+    source, workers, readers = _start_decode(
+        job, reader, hp, wp, slot_bytes, not host_planar, stop, errbox,
+        timers)
     patient = job.decode_stall_s is None
-    wait_s = _PATIENT_POLL_S if patient else max(1e-3, job.decode_stall_s)
+    wait_ms = (_PATIENT_POLL_MS if patient
+               else max(1, int(job.decode_stall_s * 1e3)))
     tr = engine.tail_rows
+    h, w = engine.height, engine.width
     idx = 0
+
+    def device():
+        return timers.stage("device") if timers else contextlib.nullcontext()
+
+    def inputs_of(buf, n):
+        """The batch's RGB inputs, copied out of ``buf`` (None each when
+        nobody reads them)."""
+        if not want_inputs:
+            return [None] * n
+        if host_planar:
+            return [native.interleave(buf[tr + i], h, w) for i in range(n)]
+        if rgb_native:
+            return [buf[i].copy() for i in range(n)]
+        return [np.ascontiguousarray(buf[i][..., ::-1]) for i in range(n)]
+
+    def emit(pending):
+        """Collect a dispatched batch and yield its frames."""
+        nonlocal idx
+        handle, inputs, pts_batch = pending
+        with device():
+            outs, stats = engine.collect(handle)
+        if timers:
+            timers.add_frames(len(inputs))
+        if job.denoise_radius:
+            from .ops.analysis import denoise_frames
+            outs = denoise_frames(
+                torch.from_numpy(outs).to(engine.device),
+                int(job.denoise_radius)).cpu().numpy()
+        for i, inp in enumerate(inputs):
+            out = outs[i]
+            job.frame_pts.append(pts_batch[i])
+            if job.frame_callback is not None:
+                try:
+                    repl = job.frame_callback(idx, inp, out, stats[i])
+                except Exception as e:
+                    raise FrameCallbackError(str(e)) from e
+                if repl is not None:
+                    out = repl
+            yield idx, inp, out, stats[i]
+            idx += 1
+
     try:
+        overlap = int(job.pipeline_depth or 1) > 1
+        pending = None
         eos = False
         while not eos:
             buf = engine.new_batch_buffer()
-            inputs: Optional[list] = [] if want_inputs else None
             pts_batch = []
             n = 0
             while n < job.batch:
-                try:
-                    item = q.get(timeout=wait_s)
-                except queue.Empty:
+                rc = source.pop(buf[tr + n], timeout_ms=wait_ms)
+                if rc == -1:
+                    eos = True
+                    break
+                if rc == -2:
                     if n:
                         break  # a slow decoder: run what we have
                     if patient:  # a sparse live source: silence is normal
@@ -249,56 +404,35 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
                             break
                         continue
                     raise DecodeError(
-                        f"decode stalled (no frame for {wait_s:g} s; "
-                        "decode_stall_s=None waits forever)")
-                if item is _EOS:
-                    eos = True
-                    break
-                frame, pts = item
-                if host_planar:
-                    buf[tr + n] = planarize_host(frame, engine.hp, engine.wp,
-                                                 swap_rb=True)
-                else:
-                    buf[n] = frame
-                if inputs is not None:
-                    inputs.append(np.ascontiguousarray(frame[..., ::-1]))
-                pts_batch.append(pts)
+                        f"decode stalled (no frame for {wait_ms / 1e3:g} "
+                        "s; decode_stall_s=None waits forever)")
+                pts_batch.append(source.last_pts)
                 n += 1
             if errbox:
                 raise DecodeError(str(errbox[0])) from errbox[0]
             if not n:
                 continue
-            if timers:
-                with timers.stage("device"):
-                    outs, stats = engine.collect(engine.dispatch_async(buf,
-                                                                       n))
-                timers.add_frames(n)
-            else:
-                outs, stats = engine.collect(engine.dispatch_async(buf, n))
-            if job.denoise_radius:
-                from .ops.analysis import denoise_frames
-                outs = denoise_frames(
-                    torch.from_numpy(outs).to(engine.device),
-                    int(job.denoise_radius)).cpu().numpy()
-            for i in range(n):
-                inp = inputs[i] if inputs is not None else None
-                out = outs[i]
-                job.frame_pts.append(pts_batch[i])
-                if job.frame_callback is not None:
-                    try:
-                        repl = job.frame_callback(idx, inp, out, stats[i])
-                    except Exception as e:
-                        raise FrameCallbackError(str(e)) from e
-                    if repl is not None:
-                        out = repl
-                yield idx, inp, out, stats[i]
-                idx += 1
+            with device():
+                handle = engine.dispatch_async(buf, n)
+            # nothing reads buf after this: the engine may hand it out
+            # again as soon as its upload is done
+            prev, pending = pending, (handle, inputs_of(buf, n), pts_batch)
+            if prev is not None:
+                yield from emit(prev)
+            if not overlap:
+                yield from emit(pending)
+                pending = None
+        if pending is not None:
+            yield from emit(pending)
     finally:
         stop.set()
-        # join the decode thread before releasing its reader: cv2's
+        source.close()
+        # join the decode threads before releasing their readers: cv2's
         # release() racing a read() on another thread is undefined
-        worker.join(timeout=10.0)
-        reader.close()
+        for wk in workers:
+            wk.join(timeout=10.0)
+        for r in readers:
+            r.close()
 
 
 def _event_recorder(job: DiPsJob, fps: float, h: int, w: int):
@@ -385,7 +519,7 @@ def perform_dips(job: DiPsJob) -> np.ndarray:
         raise OutputPathError("no output path set (DiPsJob.with_output_path)")
     if not job.video_path:
         raise VideoPathError("no video path set")
-    from .io.gstreamer import open_video, open_writer
+    from .io.gstreamer import GstVideoWriter, open_video, open_writer
     from .io.video import CfrRetimer
     reader = (job.reader if job.reader is not None
               else open_video(job.video_path, job.video_backend))
@@ -409,7 +543,9 @@ def perform_dips(job: DiPsJob) -> np.ndarray:
         except Exception:
             reader.close()
             raise
-        if job.retime_vfr:
+        # the GStreamer writer carries each frame's timestamp (VFR kept as
+        # it is); OpenCV's writes a constant rate, retimed onto on request
+        if job.retime_vfr and not isinstance(writer, GstVideoWriter):
             retimer = CfrRetimer(fps)
     try:  # a bad config must not leak the opened reader and writer
         recorder = _event_recorder(job, fps, h, w)
@@ -421,6 +557,9 @@ def perform_dips(job: DiPsJob) -> np.ndarray:
         raise
 
     def encode(out, pts):
+        if isinstance(writer, GstVideoWriter):
+            writer.write(out, pts=pts)
+            return
         for f in ([out] if retimer is None else retimer.feed(out, pts)):
             writer.write(f)
 
@@ -584,12 +723,11 @@ def run_dips_on_files(input_paths: Sequence[str], output_dir: str,
       (S, H_in, W_in) float32 array of amplitude maps at the input
       geometry (zero maps when no frame was decoded).
 
-    The decoders yield cv2's BGR frames: with ``input_layout`` "hwc" the
-    engine swaps them on the device, with "planar" the host planarizes
-    them in RGB order.  ``downscale`` = k decimates every stream on the
-    device and writes the videos at the analysis geometry.  The
-    "gstreamer" video backend is not ported and raises
-    ``NotImplementedError``.  ``mesh`` (``parallel.stream_mesh`` /
+    The readers (OpenCV or GStreamer, ``video_backend``) are read in BGR
+    order: with ``input_layout`` "hwc" the engine swaps the frames on the
+    device, with "planar" the host planarizes them in RGB order.
+    ``downscale`` = k decimates every stream on the device and writes the
+    videos at the analysis geometry.  ``mesh`` (``parallel.stream_mesh`` /
     ``parallel.grid_mesh``) splits the fleet over devices, ``slab_impl``
     ("bands" / "extended") picks a 2-D grid's slab construction; the files
     written do not depend on either.

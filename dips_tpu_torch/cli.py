@@ -9,7 +9,8 @@ fails unless ``--device cpu`` is given):
   --chroma --win_size --approx-median --quirk-compat --roi --colorize
   --method --output-mode --no-maps --sensitivity --temporal --threshold
   --batch --packed-wire --downscale --input-layout --video-backend
-  --retime-vfr --profile --trace-dir, bare integers as refresh markers;
+  (opencv or gstreamer) --decode-workers --pipeline-depth --retime-vfr
+  --profile --trace-dir, bare integers as refresh markers;
   the artifacts --stats-json, --events-json (with the --event-* options),
   --heatmap-png, --record-events DIR (--pre-roll, --post-roll),
   --auto-refresh; the post-analysis flags --denoise R, --dft-json PATH
@@ -27,8 +28,7 @@ fails unless ``--device cpu`` is given):
   --live (a display needed; ``live.py``).
 
 --mesh and --output-dir are refused outside the fleet mode (the JAX CLI
-ignores them there).  Not ported: --decode-workers, --pipeline-depth and
-the XLA --compile-cache.
+ignores them there).  Not ported: the XLA --compile-cache.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
@@ -133,11 +133,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "the upload")
     p.add_argument("--video-backend", default="auto",
                    choices=["auto", "opencv", "gstreamer"],
-                   help="media decode/encode backend (OpenCV; gstreamer "
-                        "is not ported and fails the run)")
+                   help="media decode/encode backend (the reference's "
+                        "primary ingest is GStreamer)")
     p.add_argument("--retime-vfr", action="store_true",
                    help="dup/drop frames onto the CFR writer schedule so "
                         "variable-frame-rate inputs do not drift")
+    p.add_argument("--decode-workers", type=int, default=1, metavar="N",
+                   help="parallel chunked decode threads (order-preserving; "
+                        "needs a seekable container)")
+    p.add_argument("--pipeline-depth", type=int, default=1,
+                   choices=[1, 2],
+                   help="2 = keep one device batch in flight (overlap "
+                        "transfers with compute; helps on PCIe hosts, "
+                        "hurts on serialized links)")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage timings after the run")
     p.add_argument("--trace-dir", metavar="DIR",
@@ -515,7 +523,7 @@ def _run_live(args, props: DiPsProperties, auto_refresh) -> int:
         from .io.gstreamer import open_video
         try:
             reader = open_video(args.input, args.video_backend)
-        except (DiPsError, NotImplementedError) as e:
+        except (DiPsError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
     try:
@@ -551,7 +559,7 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
                                       tau_frames=args.flicker_tau,
                                       chroma=props.chroma, batch=args.batch,
                                       device=args.device)
-        except (DiPsError, NotImplementedError, ValueError) as e:
+        except (DiPsError, ValueError) as e:
             if probed_reader is not None:
                 probed_reader.close()
             print(f"error: {e}", file=sys.stderr)
@@ -563,7 +571,10 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
     job = DiPsJob(properties=props, video_path=args.input,
                   output_path=args.output, encoding=enc, batch=args.batch,
                   device=args.device, video_backend=args.video_backend,
-                  retime_vfr=args.retime_vfr, packed_wire=args.packed_wire,
+                  retime_vfr=args.retime_vfr,
+                  decode_workers=args.decode_workers,
+                  pipeline_depth=args.pipeline_depth,
+                  packed_wire=args.packed_wire,
                   input_layout=args.input_layout, downscale=args.downscale,
                   profile=args.profile, denoise_radius=args.denoise,
                   reader=probed_reader, frame_callback=flicker_cb,
@@ -571,7 +582,7 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
     try:
         with trace(args.trace_dir):
             stats = perform_dips(job)
-    except (DiPsError, NotImplementedError, ValueError) as e:
+    except (DiPsError, ValueError) as e:
         if probed_reader is not None:
             probed_reader.close()
         print(f"error: {e}", file=sys.stderr)

@@ -39,6 +39,7 @@ from typing import Deque, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..errors import DeviceError
 from ..properties import DiPsProperties, OutputMode
 from ..ops import cuda_fused, reference, wire
@@ -49,6 +50,20 @@ _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
 #: pinned upload buffers kept per engine on a card (one can be filling
 #: while the previous one is still being copied)
 _PINNED_BUFFERS = 2
+
+
+def tail_frame_planar(frame: np.ndarray, hp: int, wp: int, downscale: int,
+                      swap_rb: bool) -> np.ndarray:
+    """A checkpoint-tail entry as a planar RGB (3, Hp, Wp) frame at the
+    analysis geometry: a planar frame as it is, an input-layout (H, W, 3)
+    frame pooled (``downscale`` > 1, bit-equal to the device prep) and
+    planarized on the host (``native.planarize``, equal to
+    ``reference.planarize_host``)."""
+    if frame.shape == (3, hp, wp):
+        return frame
+    if downscale > 1:
+        frame = reference.pool_frame_host(frame, downscale)
+    return native.planarize(frame, hp, wp, swap_rb=swap_rb)
 
 
 def resolve_device(device) -> torch.device:
@@ -235,7 +250,7 @@ class DiPsEngine:
     def _planar_tail(self) -> Optional[np.ndarray]:
         if not self._tail:
             return None
-        return np.stack([reference.tail_frame_planar(
+        return np.stack([tail_frame_planar(
             f, self.hp, self.wp, self.downscale, self._swap_rb)
             for f in self._tail])
 
@@ -282,8 +297,8 @@ class DiPsEngine:
                 raise ValueError(f"frame shape {f.shape} != {shape}")
         if self.input_layout == "planar":
             return self.process_planar(
-                [reference.planarize_host(f, self.hp, self.wp)
-                 for f in frames], packed=packed)
+                [native.planarize(f, self.hp, self.wp) for f in frames],
+                packed=packed)
         buf = self.new_batch_buffer()
         for i, f in enumerate(frames):
             buf[i] = f

@@ -60,19 +60,6 @@ def planarize_host(frame: np.ndarray, hp: int, wp: int,
     return out
 
 
-def tail_frame_planar(frame: np.ndarray, hp: int, wp: int, downscale: int,
-                      swap_rb: bool) -> np.ndarray:
-    """A checkpoint-tail entry as a planar RGB (3, Hp, Wp) frame at the
-    analysis geometry: a planar frame as it is, an input-layout (H, W, 3)
-    frame pooled (``downscale`` > 1, bit-equal to the device prep) and
-    planarized on the host."""
-    if frame.shape == (3, hp, wp):
-        return frame
-    if downscale > 1:
-        frame = pool_frame_host(frame, downscale)
-    return planarize_host(frame, hp, wp, swap_rb=swap_rb)
-
-
 def pool_frame_host(frame_u8: np.ndarray, k: int) -> np.ndarray:
     """Host twin of the device decimation in :func:`make_layout_prep`:
     uint8 (H, W, C) -> (H//k, W//k, C) by k x k box mean, rounded

@@ -63,9 +63,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..errors import StreamError
 from ..models.pipeline import (analysis_geometry, check_packed_wire,
-                               resolve_device)
+                               resolve_device, tail_frame_planar)
 from ..ops import reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
@@ -315,7 +316,7 @@ class MultiStreamEngine:
         tl = self._tails[stream]
         if tl is None:
             return None
-        return np.stack([reference.tail_frame_planar(
+        return np.stack([tail_frame_planar(
             f, self.hp, self.wp, self.downscale, self._swap_rb) for f in tl])
 
     def _tail_from_checkpoint(self, tail) -> list:
@@ -569,7 +570,7 @@ class MultiStreamEngine:
             if planar:  # the host lays out each frame, RGB planes
                 new = buf[si, tr:]
                 for i, f in enumerate(frames):
-                    new[i] = reference.planarize_host(f, self.hp, self.wp)
+                    new[i] = native.planarize(f, self.hp, self.wp)
             else:
                 new = buf[si]
                 for i, f in enumerate(frames):

@@ -235,10 +235,21 @@ def test_run_dips_on_files_names_and_checks(clip_paths, tmp_path):
     with pytest.raises(dips_tpu_torch.VideoPathError, match="geometry"):
         dips_tpu_torch.run_dips_on_files([clip_paths[0], other],
                                          str(tmp_path / "x"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        dips_tpu_torch.run_dips_on_files(clip_paths, str(tmp_path / "y"),
-                                         device="cpu",
-                                         video_backend="gstreamer")
+    # the GStreamer backend opens GStreamer readers and writers (the fake
+    # Gst of tests/test_gstreamer.py: every input decodes to 5 frames)
+    import dips_tpu_torch.io.gstreamer as gst
+    from tests.test_gstreamer import FakeGst
+    fake = FakeGst(list(make_clip(n=5, h=FH, w=FW, seed=9)), FW, FH, num=10)
+    gst._set_gst_for_testing(fake)
+    try:
+        counts = dips_tpu_torch.run_dips_on_files(
+            clip_paths, str(tmp_path / "g"), properties=props, batch=4,
+            device="cpu", video_backend="gstreamer")
+    finally:
+        gst._set_gst_for_testing(None)
+    assert list(counts) == [5, 5, 5]
+    assert len(fake.sinks) == len(fake.srcs) == 3
+    assert all(len(src.pushed) == 5 and src.eos for src in fake.srcs)
     # the ported options run (their outputs are held in
     # tests/test_torch_options.py and tests/test_torch_fleet_flicker.py)
     for kw in (dict(downscale=2), dict(input_layout="planar"),

@@ -132,14 +132,34 @@ def test_open_camera_missing_raises():
         tvideo.open_camera(97)
 
 
-@pytest.mark.parametrize("backend,exc", [("auto", None), ("opencv", None),
-                                         ("gstreamer", NotImplementedError),
-                                         ("bogus", ValueError)])
+@pytest.mark.parametrize("backend,exc", [
+    ("auto", None), ("opencv", None),
+    # (the id dates from before the GStreamer backend was ported)
+    pytest.param("gstreamer", "gst", id="gstreamer-NotImplementedError"),
+    ("bogus", ValueError)])
 def test_backend_choice(clip, tmp_path, backend, exc):
-    """"auto" / "opencv" give the OpenCV reader and writer; "gstreamer" is
-    not ported; anything else is a ValueError, as in the JAX factory."""
-    path, _ = clip
+    """"auto" / "opencv" give the OpenCV reader and writer (auto without
+    an auto-selectable GStreamer); "gstreamer" gives the GStreamer reader
+    and writer (here over the fake Gst of tests/test_gstreamer.py);
+    anything else is a ValueError, as in the JAX factory."""
+    from tests.test_gstreamer import FakeGst
+    path, frames = clip
     out = str(tmp_path / "o.avi")
+    if exc == "gst":
+        fake = FakeGst(list(frames), W, H, num=15)
+        tgst._set_gst_for_testing(fake)
+        try:
+            with tgst.open_video(path, backend) as r:
+                assert isinstance(r, tgst.GstVideoReader)
+                np.testing.assert_array_equal(r.read(), frames[0])
+            with tgst.open_writer(out, 10, W, H, tprops.Encoding.MJPG,
+                                  backend) as wr:
+                assert isinstance(wr, tgst.GstVideoWriter)
+                wr.write(frames[1])
+        finally:
+            tgst._set_gst_for_testing(None)
+        assert fake.srcs[0].eos and len(fake.srcs[0].pushed) == 1
+        return
     if exc is None:
         with tgst.open_video(path, backend) as r:
             assert isinstance(r, tvideo.VideoReader) and r.read() is not None

@@ -435,15 +435,25 @@ def test_perform_dips_reuses_caller_reader(scene, tmp_path, monkeypatch):
 
 
 def test_video_backend_choice(scene, tmp_path):
-    """``video_backend`` "opencv" runs; "gstreamer" is not ported
-    (NotImplementedError, as from the fleet run); anything else is a
-    ValueError."""
+    """``video_backend`` "opencv" runs; "gstreamer" decodes and encodes
+    through the GStreamer reader and writer (the fake Gst of
+    tests/test_gstreamer.py, fed the scene's frames: the same stats as
+    the OpenCV run); anything else is a ValueError."""
+    import dips_tpu_torch.io.gstreamer as gst
+    from tests.test_gstreamer import FakeGst
     base = dict(video_path=scene, output_path=str(tmp_path / "o.avi"),
                 batch=8, **CPU)
-    assert tapp.perform_dips(tapp.DiPsJob(video_backend="opencv",
-                                          **base)).shape[0] == 32
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapp.perform_dips(tapp.DiPsJob(video_backend="gstreamer", **base))
+    exp = tapp.perform_dips(tapp.DiPsJob(video_backend="opencv", **base))
+    assert exp.shape[0] == 32
+    fake = FakeGst(scene_clip(), W, H, num=10)
+    gst._set_gst_for_testing(fake)
+    try:
+        got = tapp.perform_dips(tapp.DiPsJob(video_backend="gstreamer",
+                                             **base))
+    finally:
+        gst._set_gst_for_testing(None)
+    np.testing.assert_array_equal(got, exp)
+    assert len(fake.sinks) == 1 and len(fake.srcs[0].pushed) == 32
     with pytest.raises(ValueError, match="unknown video backend"):
         tapp.perform_dips(tapp.DiPsJob(video_backend="vlc", **base))
     got = tapp.run_dips_on_file(scene, str(tmp_path / "f.avi"),
@@ -460,11 +470,13 @@ def test_builders_and_parity_hooks():
     assert job.encoding.name == "HFYU" and job.properties.window_size == 5
     assert job.device == "cuda" and job.queue_depth == 4
     assert job.decode_stall_s == 30.0 and job.yield_inputs is None
+    assert job.decode_workers == job.pipeline_depth == 1
     tapp.init_frame_extractor()
     tapp.init_thumbnail_extractor()
     jfields = {f.name for f in dataclasses.fields(japp.DiPsJob)}
     tfields = {f.name for f in dataclasses.fields(tapp.DiPsJob)}
-    # the port's fields: the reference's, backend spelled device, without
-    # the overlap and decode-worker options
-    assert tfields == (jfields - {"backend", "decode_workers",
-                                  "pipeline_depth"}) | {"device"}
+    # the port's fields: the reference's, backend spelled device
+    assert tfields == (jfields - {"backend"}) | {"device"}
+    assert ["device" if f.name == "backend" else f.name
+            for f in dataclasses.fields(japp.DiPsJob)] == \
+        [f.name for f in dataclasses.fields(tapp.DiPsJob)]

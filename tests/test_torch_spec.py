@@ -34,7 +34,9 @@ ROOT = Path(__file__).resolve().parents[1]
                                  "loadgen.py", "utils/indexing.py",
                                  "io/synthetic.py", "io/datfiles.py",
                                  "io/subsample.py", "io/thumbnail.py",
-                                 "io/eventrecorder.py"])
+                                 "io/eventrecorder.py", "io/gstbind.py",
+                                 "io/gstreamer.py", "utils/__init__.py",
+                                 "native/framepump.cpp", "native/Makefile"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
@@ -67,16 +69,18 @@ def test_serve_analytics_copy_is_verbatim_but_its_device():
 
 @pytest.mark.parametrize("rel", ["serve/server.py", "serve/coalesce.py",
                                  "serve/daemon.py", "serve/__init__.py",
-                                 "report.py", "live.py", "gui.py"])
+                                 "report.py", "live.py", "gui.py",
+                                 "native/__init__.py"])
 def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
     """The port's near-copies of JAX modules (the serving modules, the
-    report, the live preview and the Tk frontend) differ from the
-    originals only by the lines listed in ``tests/forks/<module>.diff``
-    (``difflib.unified_diff`` without context): ``backend`` becoming
-    ``device``, NUM_STATS / STAT_NAMES from ``ops/reference``, the
-    coalescer's mesh on the server's device, the reply's stall deadline,
-    the daemon's error exit, the GUI's card check, the port's command
-    names, and their comments.  A change on either side that the list
+    report, the live preview, the Tk frontend and the framepump binding)
+    differ from the originals only by the lines listed in
+    ``tests/forks/<module>.diff`` (``difflib.unified_diff`` without
+    context): ``backend`` becoming ``device``, NUM_STATS / STAT_NAMES from
+    ``ops/reference``, the coalescer's mesh on the server's device, the
+    reply's stall deadline, the daemon's error exit, the GUI's card check,
+    the port's command and logger names, the framepump build under a
+    directory lock, and their comments.  A change on either side that the list
     does not hold fails here; a deliberate one rewrites the list."""
     orig = (ROOT / "dips_tpu" / rel).read_text().splitlines(keepends=True)
     port = (ROOT / "dips_tpu_torch" / rel).read_text().splitlines(
@@ -164,14 +168,16 @@ def test_network_header_covers_every_window_and_ring():
 
 
 def test_port_imports_without_jax():
-    """Import every module of the port with jax made unimportable."""
+    """Import every module of the port with jax made unimportable
+    (``native/libframepump.so``, which pkgutil lists as a module, is the
+    C library that ``native`` loads with ctypes)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "import dips_tpu_torch\n"
         "for m in pkgutil.walk_packages(dips_tpu_torch.__path__, "
         "'dips_tpu_torch.'):\n"
-        "    if not m.name.endswith('.__main__'):\n"
+        "    if not m.name.endswith(('.__main__', '.libframepump')):\n"
         "        importlib.import_module(m.name)\n"
         "from dips_tpu_torch.parallel.multistream import MultiStreamEngine\n"
         "from dips_tpu_torch.app import run_dips_on_files\n"
@@ -193,10 +199,12 @@ def test_port_imports_without_jax():
     "loadgen.py", "__init__.py", "app.py", "cli.py", "live.py", "gui.py",
     "io/__init__.py", "io/video.py", "io/gstreamer.py", "io/synthetic.py",
     "io/datfiles.py", "io/subsample.py", "io/thumbnail.py",
-    "io/eventrecorder.py", "utils/indexing.py", "utils/profiling.py"])
+    "io/eventrecorder.py", "utils/indexing.py", "utils/profiling.py",
+    "io/gstbind.py", "native/__init__.py", "utils/__init__.py",
+    "doctor.py"])
 def test_module_imports_nothing_of_jax(rel):
-    """The post-analysis, serving and run-path modules import neither jax
-    nor the JAX package."""
+    """The post-analysis, serving, run-path and ingest modules import
+    neither jax nor the JAX package."""
     src = (ROOT / "dips_tpu_torch" / rel).read_text()
     for line in src.splitlines():
         s = line.strip()
@@ -216,8 +224,9 @@ def test_serve_imports_no_jax_module():
             "import dips_tpu_torch.live, dips_tpu_torch.gui\n"
             "import dips_tpu_torch.report, dips_tpu_torch.utils.indexing\n"
             "import dips_tpu_torch.utils.profiling\n"
+            "import dips_tpu_torch.native, dips_tpu_torch.doctor\n"
             "from dips_tpu_torch.io import (video, gstreamer, synthetic,\n"
-            "    datfiles, subsample, thumbnail, eventrecorder)\n"
+            "    datfiles, subsample, thumbnail, eventrecorder, gstbind)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'dips_tpu')))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
