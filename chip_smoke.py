@@ -125,8 +125,28 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
 
 then times kernels (wrapper, and alone for the variants), plain twins and
 every engine with CUDA events (``[time]``), the variants, the slab forms
-and the options included.  Each path's launch counts are set to 0 just
-before it runs and read just after.
+and the options included; then
+
+* the acceptance check (``[validate]``): ``python -m
+  dips_tpu_torch.validate --with-soak 512 --json
+  chiprun_out/validate_torch.json`` in a process of its own, every case
+  against the numpy oracle on both protocols, the seven gates and the
+  512-frame soak on the kernels (the per-case seconds, the soak's frames/s
+  and the launches of each wrapper in the run);
+* the multi-process engine (``[multihost]``): two ranks of
+  ``MultiHostStreamEngine`` in processes of their own (this script with
+  ``--multihost-worker``), 4 cells each, all naming cuda:0, joined by
+  ``init_multihost`` over gloo: 1080p x 8 streams, B = 16, the ring
+  protocol, COLORIZE w3/T4 and STATS_ONLY, four rounds (rank 0 feeds
+  nothing in the second, a per-process save and load before the fourth),
+  every launch held against its plain twin, each rank's maps and stats
+  equal to a single-process fleet on the card bit for bit, the global
+  means within 1e-6, the round walls beside the single-process fleet's.
+  Two processes on one card: this shows the exchange and the lockstep,
+  not scaling across cards.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after.
 
 Phases print on their own lines; any failed check raises, so the exit code
 is non-zero and no result is printed.  The line before the last holds the
@@ -2523,43 +2543,58 @@ RUN_STILL, RUN_MOVING, RUN_LIT = 16, 24, 24
 RUN_SIDE = 320
 
 
+#: the stacked ring kernels, which the fleets launch
+FLEET_KERNELS = ("absdiff_step_ring_stacked", "batch_step_ring_stacked")
+
+
 class HeldRing:
-    """For the duration of the block, every ``batch_step_ring`` /
-    ``absdiff_step_ring`` launch, by whichever engine (the CLI's,
-    ``custom_dips_on_files``'s, ``run_live``'s, ``rebuild_engine``'s
-    rebuild of the ring), also runs the plain twin on copies of its
-    state and input and is held against it: median maps within
-    MEDIAN_TOL, raw maps exact, carried state exact on the true region,
-    heatmap and stats within tolerance.  Counts the kernels' launches
-    from 0 (``counts``); the twins count nothing.  ``tag`` starts its
-    messages."""
+    """For the duration of the block, every launch of the ring wrappers
+    ``names`` (``batch_step_ring`` / ``absdiff_step_ring`` by default, by
+    whichever engine: the CLI's, ``custom_dips_on_files``'s,
+    ``run_live``'s, ``rebuild_engine``'s rebuild of the ring; the stacked
+    ones of a fleet) also runs the plain twin on copies of its state and
+    input and is held against it, stream section by stream section:
+    median maps within MEDIAN_TOL, raw maps exact, carried state exact on
+    the true region, heatmap and stats within tolerance.  Counts the
+    kernels' launches from 0 (``counts``); the twins count nothing.
+    ``tag`` starts its messages; ``seconds`` is the host time spent on the
+    copies, the twins and the comparisons (the kernel synchronised
+    first), which a timed caller takes off its wall."""
 
-    def __init__(self, tag="[run]"):
-        self.tag = tag
-        self.counts = dict.fromkeys(RUN_KERNELS, 0)
-        self.held = dict.fromkeys(RUN_KERNELS, 0)
-        self.err = dict.fromkeys(RUN_KERNELS, 0.0)
+    def __init__(self, tag="[run]", names=RUN_KERNELS):
+        self.tag, self.names = tag, names
+        self.counts = dict.fromkeys(names, 0)
+        self.held = dict.fromkeys(names, 0)
+        self.err = dict.fromkeys(names, 0.0)
         self.flips = self.px = 0
+        self.seconds = 0.0
 
-    def _compare(self, name, props, h, w, got, exp):
+    def _compare(self, name, props, h, w, s, got, exp):
         import torch
-        d = (got[0][..., :h, :w].to(torch.int16)
-             - exp[0][..., :h, :w].to(torch.int16)).abs()
-        raw = name == "absdiff_step_ring"
+
+        def true(x):  # each stream section's true region
+            x = x.view(*x.shape[:-2], s, x.shape[-2] // s, x.shape[-1])
+            return x[..., :h, :w]
+
+        d = (true(got[0]).to(torch.int16)
+             - true(exp[0]).to(torch.int16)).abs()
+        raw = name.startswith("absdiff")
         self.flips += int((d > 0).sum())
         self.px += d.numel()
-        if int(d.max()) > (0 if raw else MEDIAN_TOL["lsb"]) or \
+        worst = int(d.max()) if d.numel() else 0  # no maps: none to hold
+        if worst > (0 if raw else MEDIAN_TOL["lsb"]) or \
                 self.flips > MEDIAN_TOL["flip_frac"] * self.px:
             raise AssertionError(f"{self.tag} {name} {ptag(props)}: maps "
                                  f"differ from the plain twin")
         for g, e in zip(got[2:-1], exp[2:-1]):
-            if not torch.equal(g[..., :h, :w], e[..., :h, :w]):
+            if not torch.equal(true(g), true(e)):
                 raise AssertionError(f"{self.tag} {name}: carried state "
                                      f"differs")
         self.err[name] = max(self.err[name], _max_err(got[-1], exp[-1]))
         if self.err[name] > MEDIAN_TOL["heat_atol"]:
             raise AssertionError(f"{self.tag} {name}: heatmap differs")
-        _check_stats(f"{self.tag} {name} {ptag(props)}", got[1], exp[1],
+        _check_stats(f"{self.tag} {name} {ptag(props)}",
+                     got[1].reshape(-1, 4), exp[1].reshape(-1, 4),
                      RAW_TOL["stats_rtol"] if raw
                      else MEDIAN_TOL["stats_rtol"])
         self.held[name] += 1
@@ -2567,18 +2602,25 @@ class HeldRing:
     def _wrap(self, name):
         from dips_tpu_torch.ops import cuda_fused as cf
         kernel, plain = getattr(cf, name), getattr(cf, name + "_plain")
+        stacked = name.endswith("_stacked")
 
-        def held(props, h, w, raw, *state_and_flags):
+        def held(props, h, w, *args, **kw):
+            import torch
+            t0 = time.perf_counter()
             # the plain twin gets copies of every tensor argument
-            copies = [a.clone() if hasattr(a, "clone") else a
-                      for a in (raw,) + state_and_flags]
+            copies = [a.clone() if hasattr(a, "clone") else a for a in args]
+            t1 = time.perf_counter()
             setattr(cf, name, kernel)  # the wrapper counts itself
             try:
-                got = kernel(props, h, w, raw, *state_and_flags)
+                got = kernel(props, h, w, *args, **kw)
             finally:
                 setattr(cf, name, held)
-            exp = plain(props, h, w, *copies)
-            self._compare(name, props, h, w, got, exp)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            exp = plain(props, h, w, *copies, **kw)
+            self._compare(name, props, h, w, args[0] if stacked else 1,
+                          got, exp)
+            self.seconds += (t1 - t0) + (time.perf_counter() - t2)
             return got
 
         return kernel, held
@@ -2587,7 +2629,7 @@ class HeldRing:
         from dips_tpu_torch.ops import cuda_fused as cf
         cf.reset_launch_counts()
         self._saved = {}
-        for name in RUN_KERNELS:
+        for name in self.names:
             self._saved[name], held = self._wrap(name)
             setattr(cf, name, held)
         return self
@@ -2599,7 +2641,7 @@ class HeldRing:
             setattr(cf, name, kernel)
         torch.cuda.synchronize()
         counts = cf.launch_counts()
-        for name in RUN_KERNELS:
+        for name in self.names:
             self.counts[name] += counts[name]
 
 
@@ -3625,6 +3667,238 @@ def phase_serve(card):
 
 
 # ---------------------------------------------------------------------------
+# the acceptance and scale-out slice: validate and the multi-host engine
+# ---------------------------------------------------------------------------
+
+#: gates that follow validate's case matrix in a full run, and its soak
+VALIDATE_GATES, VALIDATE_SOAK = 7, 512
+
+
+def phase_validate(card):
+    """``python -m dips_tpu_torch.validate --with-soak 512 --json`` in a
+    process of its own: every case against the numpy oracle on both
+    protocols, the seven gates and the soak, on the kernels."""
+    from dips_tpu_torch import validate
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "validate_torch.json")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dips_tpu_torch.validate",
+                          "--with-soak", str(VALIDATE_SOAK), "--json", path],
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"[validate] exit {res.returncode}:\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    with open(path) as f:
+        doc = json.load(f)
+    want = 2 * len(validate.CASES) + VALIDATE_GATES + 1
+    if not doc["ok"] or doc["failed"] or doc["passed"] != want or \
+            len(doc["cases"]) != want:
+        raise AssertionError(f"[validate] {doc['passed']} passed, "
+                             f"{doc['failed']} failed, {want} expected")
+    import torch
+    if doc["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"[validate] ran on {doc['device']}")
+    launches = {k: doc["launches"].get(k, 0) for k in KERNELS}
+    unused = [k for k in KERNELS if ":" not in k and not launches[k]]
+    if unused:  # every wrapper's kernel ran: nothing fell to the twins
+        raise AssertionError(f"[validate] never launched: {unused}")
+    soak = doc["cases"][-1]
+    log(f"[validate] {doc['passed']} of {want} passed ({len(validate.CASES)}"
+        f" cases x 2 protocols, {VALIDATE_GATES} gates, the "
+        f"{VALIDATE_SOAK}-frame soak: frames/s {soak['fps']}) on {card}; "
+        f"wall {wall:.1f} s, {doc['elapsed_s']} s inside")
+    log("[validate] seconds a case: " + json.dumps(
+        {c["case"]: c["seconds"] for c in doc["cases"]}) + f" ({card})")
+    log(f"[validate] launches: {launches}")
+    return launches
+
+
+#: the [multihost] cluster: 2 ranks of MH_CELLS cells each, every cell
+#: naming cuda:0; frames fed per (round, rank), round 1 the lockstep round
+#: (rank 0's cameras all stalled); a per-process save and load, then one
+#: more round of B frames each
+MH_RANKS, MH_CELLS = 2, 4
+MH_ROUNDS = ({0: B, 1: B}, {0: 0, 1: B}, {0: B, 1: B}, {0: B, 1: B})
+MH_RESUME = 3  # the round before which each rank saves and reloads
+MH_SEED = 151
+
+
+def mh_fleets():
+    from dips_tpu_torch import DiPsProperties, OutputMode
+    return (("COLORIZE w3/T4", DiPsProperties()),
+            ("STATS_ONLY", DiPsProperties(output=OutputMode.STATS_ONLY)))
+
+
+def mh_rank_of(si):
+    return si // (FLEET // MH_RANKS)
+
+
+def mh_digest(maps):
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(maps).data).hexdigest()
+
+
+def multihost_worker(rank, port, work):
+    """One rank of the [multihost] cluster: both fleets over MH_ROUNDS,
+    every launch held against its plain twin; writes each round's map
+    digests, stats, global mean and wall to ``work``/rank<r>.json."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.parallel import (MultiHostStreamEngine,
+                                         init_multihost, stream_mesh)
+    info = init_multihost(f"127.0.0.1:{port}", MH_RANKS, rank)
+    frame = FleetFrames(MH_SEED)
+    doc = {"rank": rank, "info": [info.process_index, info.process_count],
+           "fleets": {}}
+    held = HeldRing(f"[multihost] rank {rank}", FLEET_KERNELS)
+    with held:
+        for label, props in mh_fleets():
+            def engine():
+                return MultiHostStreamEngine(
+                    props, H1080, W1080, FLEET, batch=B,
+                    mesh=stream_mesh(devices=["cuda:0"] * MH_CELLS),
+                    device="cuda:0", ring_carry=True)
+            eng = engine()
+            ids = eng.local_stream_ids
+            if ids != [si for si in range(FLEET) if mh_rank_of(si) == rank]:
+                raise AssertionError(f"rank {rank} owns {ids}")
+            cursor, rounds = 0, []
+            for rnd, plan in enumerate(MH_ROUNDS):
+                if rnd == MH_RESUME:
+                    ck = os.path.join(work, f"ckpt_{rank}.npz")
+                    eng.save(ck)
+                    eng = engine()
+                    eng.load(ck)
+                n = plan[rank]
+                feed = eng.local_frames_template()
+                for si in ids:
+                    feed[si] = [frame(si, cursor + k) for k in range(n)]
+                torch.cuda.synchronize()
+                t0, twins = time.perf_counter(), held.seconds
+                maps, stats, gmean = eng.process_batch(feed)
+                # the round's wall without its held twins
+                wall = time.perf_counter() - t0 - (held.seconds - twins)
+                if maps.shape[:2] != (len(ids), n):
+                    raise AssertionError(f"rank {rank} maps {maps.shape}")
+                rounds.append({"n": n, "wall_s": wall, "gmean": gmean,
+                               "stats": stats.tolist(),
+                               "digests": [mh_digest(m) for m in maps]})
+                cursor += n
+            doc["fleets"][label] = rounds
+    for name in FLEET_KERNELS:
+        if held.held[name] != held.counts[name]:
+            raise AssertionError(f"rank {rank} {name}: {held.counts[name]} "
+                                 f"launches, {held.held[name]} held")
+    doc.update(launches=held.counts, flips=held.flips, px=held.px,
+               heat_err=held.err)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def mh_reference(label, props, frame):
+    """The single-process fleet on cuda:0 (no mesh) fed what the ranks fed
+    (rank 0's streams nothing in round 1), uninterrupted: per round the map
+    digests, stats, global mean and wall."""
+    import torch
+    from dips_tpu_torch import MultiStreamEngine
+    eng = MultiStreamEngine(props, H1080, W1080, FLEET, batch=B,
+                            device="cuda:0", input_layout="planar")
+    cursors, rounds = [0] * FLEET, []
+    for plan in MH_ROUNDS:
+        feed = []
+        for si in range(FLEET):
+            n = plan[mh_rank_of(si)]
+            feed.append([frame(si, cursors[si] + k) for k in range(n)])
+            cursors[si] += n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps, stats, gmean = eng.process_batch(feed)
+        wall = time.perf_counter() - t0
+        rounds.append({"wall_s": wall, "gmean": gmean, "stats": stats,
+                       "digests": [mh_digest(m[:len(f)])
+                                   for m, f in zip(maps, feed)]})
+    return rounds
+
+
+def phase_multihost(card):
+    """Two ranks of ``MultiHostStreamEngine`` (processes of their own,
+    4 cells each, all on cuda:0, joined by ``init_multihost`` over gloo)
+    against one single-process fleet on the same card."""
+    import socket
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "multihost"))
+    os.makedirs(work, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(r), str(port), work], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MH_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=420)  # a hang fails the phase
+            if p.returncode != 0:
+                raise AssertionError(f"[multihost] rank {r} exit "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cluster_s = time.perf_counter() - t0
+    docs = []
+    for r in range(MH_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    frame = FleetFrames(MH_SEED)
+    walls = {}
+    for label, props in mh_fleets():
+        ref = mh_reference(label, props, frame)
+        for r, doc in enumerate(docs):
+            ids = [si for si in range(FLEET) if mh_rank_of(si) == r]
+            for rnd, (got, exp) in enumerate(zip(doc["fleets"][label], ref)):
+                n = got["n"]
+                if got["digests"] != [exp["digests"][si] for si in ids]:
+                    raise AssertionError(f"[multihost] {label} rank {r} "
+                                         f"round {rnd}: maps differ")
+                if not np.array_equal(
+                        np.asarray(got["stats"], np.float32).reshape(
+                            len(ids), n, 4), exp["stats"][ids, :n]):
+                    raise AssertionError(f"[multihost] {label} rank {r} "
+                                         f"round {rnd}: stats differ")
+                if abs(got["gmean"] - exp["gmean"]) > 1e-6:
+                    raise AssertionError(
+                        f"[multihost] {label} rank {r} round {rnd}: global "
+                        f"mean {got['gmean']} != {exp['gmean']}")
+        walls[label] = {
+            "ranks_s": [[rd["wall_s"] for rd in d["fleets"][label]]
+                        for d in docs],
+            "single_process_s": [rd["wall_s"] for rd in ref]}
+    launches = {k: sum(d["launches"][k] for d in docs)
+                for k in FLEET_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"[multihost] launches {launches}")
+    log(f"[multihost] 2 ranks x {MH_CELLS} cells, all on cuda:0 (two "
+        f"processes on ONE card: this shows the all-reduce and the "
+        f"lockstep round, not scaling across cards): 1080p x {FLEET} "
+        f"streams, B={B}, ring protocol, COLORIZE w3/T4 and STATS_ONLY, "
+        f"{len(MH_ROUNDS)} rounds (rank 0 idle in round 1, a per-process "
+        f"save and load before round {MH_RESUME}): each rank's maps and "
+        f"stats equal the single-process fleet bit for bit, global means "
+        f"within 1e-6; every launch held against its plain twin "
+        f"({sum(d['flips'] for d in docs)} of {sum(d['px'] for d in docs)} "
+        f"map values differ by 1 LSB)")
+    log("[multihost] " + json.dumps({"round_walls": walls,
+                                     "cluster_s": cluster_s,
+                                     "launches": launches, "card": card}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -4143,6 +4417,9 @@ def timed(fn, *args):
 
 
 def main():
+    if sys.argv[1:2] == ["--multihost-worker"]:  # a rank of [multihost]
+        multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     card = phase_card()
     regs = timed(phase_build)
     errs = timed(phase_kernels)
@@ -4162,6 +4439,8 @@ def main():
     ingest = timed(phase_ingest, card)
     serve = timed(phase_serve, card)
     times = timed(phase_times, card)
+    validate = timed(phase_validate, card)
+    multihost = timed(phase_multihost, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null
     record = {"kernels": [
@@ -4173,7 +4452,9 @@ def main():
          "regs": regs.get(record_instance(name), (None,))[0],
          "run_launches": run.get(name, 0),
          "ingest_launches": ingest.get(name, 0),
-         "serve_launches": serve.get(name, 0)}
+         "serve_launches": serve.get(name, 0),
+         "validate_launches": validate.get(name, 0),
+         "multihost_launches": multihost.get(name, 0)}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:
         if k["launches"] <= 0:

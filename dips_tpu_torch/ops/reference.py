@@ -28,7 +28,7 @@ from ..properties import (ChromaFilter, DiPsFilter, DiPsMethod,
 from . import networks
 
 #: Per-frame statistic order: mean_diff, mean_abs_diff, max_abs_diff,
-#: changed_count (``dips_tpu/ops/oracle.py`` STAT_NAMES).
+#: changed_count (``ops/oracle.py`` STAT_NAMES).
 STAT_NAMES = ("mean_diff", "mean_abs_diff", "max_abs_diff", "changed_count")
 NUM_STATS = len(STAT_NAMES)
 #: inverse sigmoid input is clipped this far inside (-0.5, 0.5)

@@ -136,6 +136,12 @@ class MultiStreamEngine:
         validated on every mesh, used only by a grid's median modes.
     """
 
+    #: the multi-process engine (``multihost.py``) sets this: every process
+    #: must enter the global-mean all-reduce of every ``process_batch`` and
+    #: the same launches, so the "nothing to do here" shortcuts (an
+    #: all-empty round, no tail to rebuild) are taken only when it is False
+    _lockstep_collectives = False
+
     def __init__(self, props: DiPsProperties, height: int, width: int,
                  n_streams: int, batch: int = 8, device="cuda",
                  input_layout: str = "hwc",
@@ -165,7 +171,7 @@ class MultiStreamEngine:
             downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
         self.mesh, self.slab_impl = mesh, slab_impl
-        self._layout = Layout(mesh, self.n_streams, self.hp, self.wp,
+        self._layout = Layout(mesh, self._stage_rows(), self.hp, self.wp,
                               device=self.device)
         #: the cells' body: the (slab) kernels, or, for CPU cells whose
         #: slabs are not 8-row aligned, their plain twins at that height
@@ -187,7 +193,7 @@ class MultiStreamEngine:
                 f"(8-row-aligned slabs): padded height {self.hp} / "
                 f"{mesh.shape['rows']} row shards")
         self.ring_carry = bool(ring_carry)
-        s, b = self.n_streams, self.batch
+        s, b = self._stage_rows(), self.batch
         if self._prep is None:  # planar: tail rows staged on the host too
             frames = (s, self._tail_len + b, 3, self.hp, self.wp)
         else:
@@ -220,10 +226,32 @@ class MultiStreamEngine:
         """Rows of raw tail ahead of the new frames in a launch."""
         return 0 if self.ring_carry else self.props.temporal_size
 
+    # -- the streams staged here --------------------------------------------
+    # The multi-process engine (``multihost.py``) overrides these three: its
+    # device state and staging hold only this process's streams.  Host
+    # bookkeeping (cursors, tails, failures) stays indexed by stream.
+    def _stage_rows(self) -> int:
+        """Streams whose state lives here: the row sections of the
+        row-stacked input and state."""
+        return self.n_streams
+
+    def _stage_index(self, si: int) -> int:
+        """Row section of stream ``si``; -1: not staged here."""
+        return si
+
+    def _stage_gather(self, seq) -> np.ndarray:
+        """Per-stream host values -> row-section order."""
+        return np.asarray(seq)
+
+    def _global_sums(self, total: torch.Tensor, count: torch.Tensor):
+        """The valid-weighted sum of mean |diff| and the valid count over
+        every process (here: this one's)."""
+        return total, count
+
     # -- state ------------------------------------------------------------
-    def _rows(self, stream: int) -> slice:
-        """Stream ``stream``'s rows of the row-stacked input."""
-        return slice(stream * self.hp, (stream + 1) * self.hp)
+    def _rows(self, row: int) -> slice:
+        """Row section ``row`` of the row-stacked input."""
+        return slice(row * self.hp, (row + 1) * self.hp)
 
     def _state(self) -> dict:
         """The carried state, each entry the cells of a row-stacked
@@ -257,7 +285,7 @@ class MultiStreamEngine:
             self._baseline = self._layout.zeros((), torch.float32)
         self._heatmap = self._layout.zeros((), torch.float32)
         self._zero_carry()
-        self._drop_tails(range(s))
+        self._drop_tails(range(self._stage_rows()))
         self._ring_offs = [0] * s
         self._snap_pending = [False] * s
         self.failed: Dict[int, StreamError] = {}
@@ -295,18 +323,18 @@ class MultiStreamEngine:
                     slab.zero_()
         self._drop_tails([stream])
 
-    def _drop_tails(self, streams) -> None:
-        """Zero the tail rows of ``streams`` in the planar input (tail
-        protocol); their tails go back up from the host bookkeeping when
-        they are staged again."""
-        for si in set(streams) & self._tail_live:
-            self._planar[:self._tail_len, :, self._rows(si)] = 0
-            self._tail_live.discard(si)
+    def _drop_tails(self, rows) -> None:
+        """Zero the tail rows of row sections ``rows`` in the planar input
+        (tail protocol); their tails go back up from the host bookkeeping
+        when they are staged again."""
+        for row in set(rows) & self._tail_live:
+            self._planar[:self._tail_len, :, self._rows(row)] = 0
+            self._tail_live.discard(row)
 
     def heatmaps(self) -> np.ndarray:
         """(S, H, W) accumulated |diff| heatmaps, cropped."""
         hm = self._layout.gather(self._heatmap, self.device).view(
-            self.n_streams, self.hp, self.wp)
+            self._stage_rows(), self.hp, self.wp)
         return _to_host(hm[:, :self.height, :self.width])
 
     def _planar_tail(self, stream: int) -> Optional[np.ndarray]:
@@ -336,7 +364,7 @@ class MultiStreamEngine:
         """The cells of row-stacked state (3, S*Hp, Wp) or (S*Hp, Wp) ->
         the JAX engine's per-stream (S, 3, Hp, Wp) or (S, Hp, Wp), on the
         host."""
-        s, hp, wp = self.n_streams, self.hp, self.wp
+        s, hp, wp = self._stage_rows(), self.hp, self.wp
         x = self._layout.gather(cells, self.device)
         if x.dim() == 3:
             x = x.view(3, s, hp, wp).permute(1, 0, 2, 3)
@@ -350,7 +378,7 @@ class MultiStreamEngine:
         t = torch.from_numpy(np.array(a))  # a private copy
         if t.dim() == 4:
             t = t.permute(1, 0, 2, 3)
-        rows = (self.n_streams * self.hp, self.wp)
+        rows = (self._stage_rows() * self.hp, self.wp)
         return self._layout.scatter(
             t.reshape(t.shape[:-3] + rows).to(self.device))
 
@@ -402,26 +430,28 @@ class MultiStreamEngine:
         that has a tail, and a scratch heatmap; outputs are discarded.
         Streams without a tail keep zero state and seed on their first
         frame.  The tail protocol has no ring: nothing to do."""
-        s, t, hp = self.n_streams, self.props.temporal_size, self.hp
-        self._ring_offs = [0] * s
+        sh, t, hp = self._stage_rows(), self.props.temporal_size, self.hp
+        self._ring_offs = [0] * self.n_streams
         self._zero_carry()
         if not self.ring_carry:
             return
         has = np.asarray([tl is not None for tl in self._tails])
-        if not has.any():
+        if not has.any() and not self._lockstep_collectives:
             return
-        tail = np.zeros((t, 3, s * hp, self.wp), np.uint8)
+        tail = np.zeros((t, 3, sh * hp, self.wp), np.uint8)
         for si in np.flatnonzero(has):
-            tail[:, :, self._rows(si)] = self._planar_tail(si)
+            tail[:, :, self._rows(self._stage_index(si))] = \
+                self._planar_tail(si)
         raw = self._layout.scatter(torch.from_numpy(tail).to(self.device))
-        flags = np.zeros((s, t), np.bool_)
+        has = self._stage_gather(has)
+        flags = np.zeros((sh, t), np.bool_)
         valid = np.repeat(has[:, None], t, axis=1)
         seeds = has.astype(np.int32)
         state = dict(self._state(),
                      heatmap=self._layout.zeros((), torch.float32))
         run_grid_ring_step(self.props, self.height, self.width,
                            self._layout, raw, state, flags, valid,
-                           np.zeros((s,), np.int32), seeds, self.slab_impl,
+                           np.zeros((sh,), np.int32), seeds, self.slab_impl,
                            self.device)
 
     # -- per-stream checkpoints (DiPsEngine's format) -----------------------
@@ -534,12 +564,13 @@ class MultiStreamEngine:
         valid slots).  A stream given a frame of the wrong shape is
         isolated into ``failed`` (a :class:`StreamError`); the others run.
         """
-        s, t, b = self.n_streams, self.props.temporal_size, self.batch
+        t, b = self.props.temporal_size, self.batch
         h, w, c = self.height, self.width, self.props.out_channels
-        if len(frames_per_stream) != s:
-            raise ValueError(f"expected {s} streams")
+        s = self._stage_rows()
+        if len(frames_per_stream) != self.n_streams:
+            raise ValueError(f"expected {self.n_streams} streams")
         n = max((len(f) for f in frames_per_stream), default=0)
-        if n == 0:
+        if n == 0 and not self._lockstep_collectives:
             return (np.zeros((s, 0, h, w, c), np.uint8),
                     np.zeros((s, 0, NUM_STATS), np.float32), 0.0)
         if n > b:
@@ -551,14 +582,15 @@ class MultiStreamEngine:
         flags = np.zeros((s, b), np.bool_)
         valid = np.zeros((s, b), np.bool_)
         seeds = np.zeros((s,), np.int32)
-        offsets = np.asarray(self._ring_offs, np.int32)
-        written: Dict[int, int] = {}  # stream -> frames staged
-        # tail protocol: streams whose tail rows must be filled before the
-        # launch, from frame 0 (a fresh stream) or from the host tail
+        offsets = self._stage_gather(self._ring_offs).astype(np.int32)
+        written: Dict[int, int] = {}  # row section -> frames staged
+        # tail protocol: row sections whose tail rows must be filled before
+        # the launch, from frame 0 (a fresh stream) or from the host tail
         fresh, resumed = [], {}
         for si, frames in enumerate(frames_per_stream):
-            if si in self.failed:
-                continue  # dead stream: nothing to stage
+            row = self._stage_index(si)
+            if row < 0 or si in self.failed:
+                continue  # another process's or a dead stream: not staged
             bad = [np.shape(f) for f in frames if np.shape(f) != shape]
             if bad:  # isolate the stream; its siblings run on
                 self.failed[si] = StreamError(si, ValueError(
@@ -568,42 +600,42 @@ class MultiStreamEngine:
             if not n_si:
                 continue
             if planar:  # the host lays out each frame, RGB planes
-                new = buf[si, tr:]
+                new = buf[row, tr:]
                 for i, f in enumerate(frames):
                     new[i] = native.planarize(f, self.hp, self.wp)
             else:
-                new = buf[si]
+                new = buf[row]
                 for i, f in enumerate(frames):
                     new[i] = f
             # slots past n_si hold replicas of the last frame; the kernel
             # reads them as invalid and leaves the carried state alone
             new[n_si:] = new[n_si - 1]
             if self._tails[si] is None:
-                fresh.append(si)
+                fresh.append(row)
                 self._tails[si] = [new[0].copy()] * t
-                seeds[si] = 1
+                seeds[row] = 1
             elif not (self.ring_carry or planar
-                      or si in self._tail_live):
-                resumed[si] = self._planar_tail(si)
+                      or row in self._tail_live):
+                resumed[row] = self._planar_tail(si)
             if planar and tr:  # the tail rows go up with the frames
-                buf[si, :t] = self._planar_tail(si)
+                buf[row, :t] = self._planar_tail(si)
             self._tails[si] = (self._tails[si] + [
                 new[i].copy() for i in range(max(0, n_si - t), n_si)
             ])[-t:]
-            valid[si, :n_si] = True
+            valid[row, :n_si] = True
             # markers fire on each stream's own cursor
             cursor = self.frame_cursors[si]
             for i in range(n_si):
-                flags[si, i] = (cursor + i == 0 or
-                                cursor + i in self.props.refresh_markers)
+                flags[row, i] = (cursor + i == 0 or
+                                 cursor + i in self.props.refresh_markers)
             if self._snap_pending[si]:
-                flags[si, 0] = True
+                flags[row, 0] = True
                 self._snap_pending[si] = False
             self.frame_cursors[si] = cursor + n_si
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
-            written[si] = n_si
-        for si in self._stage_written - set(written):
-            buf[si] = 0  # stale frames of a stream that went quiet or died
+            written[row] = n_si
+        for row in self._stage_written - set(written):
+            buf[row] = 0  # stale frames of a stream that went quiet or died
         self._stage_written = set(written)
 
         if self._dev_stage is not self._host:
@@ -638,8 +670,9 @@ class MultiStreamEngine:
         # mean |diff| over valid slots only: padding replicas and dead
         # streams stay out of the aggregate
         vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
-        gmean = float((stats_t[..., 1] * vw).sum()
-                      / torch.clamp(vw.sum(), min=1.0))
+        total, count = self._global_sums((stats_t[..., 1] * vw).sum(),
+                                         vw.sum())
+        gmean = float(total / torch.clamp(count, min=1.0))
         return maps, stats_t.numpy(), gmean
 
     def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):
@@ -656,18 +689,18 @@ class MultiStreamEngine:
                      written: Dict[int, int], fresh: List[int],
                      resumed: Dict[int, np.ndarray]):
         """One stacked tail launch (one per cell of the mesh) over the
-        (T+B)-row planar input.  Before
-        it, every staged stream's rows [0, T) hold its tail and every other
-        stream's are zero; after it, each staged stream's next tail is its
-        rows [n_si, n_si + T)."""
-        s, t = self.n_streams, self.props.temporal_size
+        (T+B)-row planar input; ``written`` / ``fresh`` / ``resumed`` are
+        keyed by row section.  Before it, every staged stream's rows [0, T)
+        hold its tail and every other stream's are zero; after it, each
+        staged stream's next tail is its rows [n_si, n_si + T)."""
+        s, t = self._stage_rows(), self.props.temporal_size
         h, w = self.height, self.width
         self._drop_tails(set(range(s)) - set(written))
-        for si in fresh:  # the tail starts as T copies of frame 0
-            r = self._rows(si)
+        for row in fresh:  # the tail starts as T copies of frame 0
+            r = self._rows(row)
             raw[:t, :, r] = raw[t, :, r]
-        for si, tail in resumed.items():
-            raw[:t, :, self._rows(si)] = torch.from_numpy(tail)
+        for row, tail in resumed.items():
+            raw[:t, :, self._rows(row)] = torch.from_numpy(tail)
         lay = self._layout
         outs, stats = run_grid_step(
             self.props, h, w, lay, lay.scatter(raw, out=self._raw_cells),
@@ -678,7 +711,8 @@ class MultiStreamEngine:
         if len(written) == s and len(set(written.values())) == 1:
             spans = [(next(iter(written.values())), slice(None))]
         else:
-            spans = [(n_si, self._rows(si)) for si, n_si in written.items()]
+            spans = [(n_si, self._rows(row))
+                     for row, n_si in written.items()]
         for n_si, r in spans:
             raw[:t, :, r] = raw[n_si:n_si + t, :, r].clone()
         self._tail_live = set(written)

@@ -36,7 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
                                  "io/subsample.py", "io/thumbnail.py",
                                  "io/eventrecorder.py", "io/gstbind.py",
                                  "io/gstreamer.py", "utils/__init__.py",
-                                 "native/framepump.cpp", "native/Makefile"])
+                                 "native/framepump.cpp", "native/Makefile",
+                                 "ops/oracle.py"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
@@ -201,10 +202,11 @@ def test_port_imports_without_jax():
     "io/datfiles.py", "io/subsample.py", "io/thumbnail.py",
     "io/eventrecorder.py", "utils/indexing.py", "utils/profiling.py",
     "io/gstbind.py", "native/__init__.py", "utils/__init__.py",
-    "doctor.py"])
+    "doctor.py", "ops/oracle.py", "validate.py", "parallel/multihost.py",
+    "_dryrun.py"])
 def test_module_imports_nothing_of_jax(rel):
-    """The post-analysis, serving, run-path and ingest modules import
-    neither jax nor the JAX package."""
+    """The post-analysis, serving, run-path, ingest, acceptance and
+    multi-host modules import neither jax nor the JAX package."""
     src = (ROOT / "dips_tpu_torch" / rel).read_text()
     for line in src.splitlines():
         s = line.strip()
@@ -513,12 +515,10 @@ def test_retimer_copy_is_verbatim(name):
 
 
 def test_exports_cover_the_jax_package():
-    """The package exports the JAX package's names, but the multi-host
-    engine (not ported yet) and the version."""
+    """The package exports the JAX package's names, but the version."""
     import dips_tpu
     import dips_tpu_torch
     missing = set(dips_tpu.__all__) - set(dips_tpu_torch.__all__)
-    assert missing == {"MultiHostStreamEngine", "init_multihost",
-                       "__version__"}
+    assert missing == {"__version__"}
     for name in dips_tpu_torch.__all__:
         assert getattr(dips_tpu_torch, name) is not None, name
