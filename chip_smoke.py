@@ -143,7 +143,15 @@ and the options included; then
   equal to a single-process fleet on the card bit for bit, the global
   means within 1e-6, the round walls beside the single-process fleet's.
   Two processes on one card: this shows the exchange and the lockstep,
-  not scaling across cards.
+  not scaling across cards;
+* the examples (``[examples]``, untimed): ``dips_tpu_torch.examples``'
+  first eight in this process with no flag (the card), each through
+  ``runpy`` in a working directory of its own, under one ``HeldRing``
+  (every ring launch, the servers' threads' too, held against its plain
+  twin), and ``multi_host`` as its own two ranks on cuda:0; each card
+  run's stdout held against the same example's ``--cpu`` run, made in
+  processes beside them, through ``examples._compare``
+  (``examples_launches`` in the record).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
@@ -2547,27 +2555,78 @@ RUN_SIDE = 320
 FLEET_KERNELS = ("absdiff_step_ring_stacked", "batch_step_ring_stacked")
 
 
+class _Held:
+    """Stands in for ring wrapper ``kernel`` in ``cuda_fused`` while a
+    :class:`HeldRing` block lasts.  The wrapper finds its launch counters
+    through its module name (``_count_launch``), so this object's
+    counters are the kernel's own: callers in several threads (servers,
+    coalescers) all go through it, and none of their launches escapes the
+    hold."""
+
+    def __init__(self, ring, name, kernel, plain):
+        self.ring, self.name = ring, name
+        self.kernel, self.plain = kernel, plain
+        self.stacked = name.endswith("_stacked")
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.kernel.launches = value
+
+    @property
+    def mode_launches(self):
+        return self.kernel.mode_launches
+
+    @property
+    def form_launches(self):
+        return self.kernel.form_launches
+
+    def __call__(self, props, h, w, *args, **kw):
+        import torch
+        ring = self.ring
+        t0 = time.perf_counter()
+        # the plain twin gets copies of every tensor argument
+        copies = [a.clone() if hasattr(a, "clone") else a for a in args]
+        t1 = time.perf_counter()
+        got = self.kernel(props, h, w, *args, **kw)
+        torch.cuda.synchronize()
+        with ring.lock:
+            t2 = time.perf_counter()
+            exp = self.plain(props, h, w, *copies, **kw)
+            ring._compare(self.name, props, h, w,
+                          args[0] if self.stacked else 1, got, exp)
+            ring.seconds += (t1 - t0) + (time.perf_counter() - t2)
+        return got
+
+
 class HeldRing:
     """For the duration of the block, every launch of the ring wrappers
     ``names`` (``batch_step_ring`` / ``absdiff_step_ring`` by default, by
     whichever engine: the CLI's, ``custom_dips_on_files``'s,
     ``run_live``'s, ``rebuild_engine``'s rebuild of the ring; the stacked
-    ones of a fleet) also runs the plain twin on copies of its state and
-    input and is held against it, stream section by stream section:
-    median maps within MEDIAN_TOL, raw maps exact, carried state exact on
-    the true region, heatmap and stats within tolerance.  Counts the
-    kernels' launches from 0 (``counts``); the twins count nothing.
-    ``tag`` starts its messages; ``seconds`` is the host time spent on the
-    copies, the twins and the comparisons (the kernel synchronised
-    first), which a timed caller takes off its wall."""
+    ones of a fleet; from any thread) also runs the plain twin on copies
+    of its state and input and is held against it, stream section by
+    stream section: median maps within MEDIAN_TOL, raw maps exact, carried
+    state exact on the true region, heatmap and stats within tolerance.
+    Counts the kernels' launches from 0 (``counts``); the twins count
+    nothing.  A name with a form (``name:dyn_rows``) is counted, and held
+    through its wrapper.  ``tag`` starts its messages; ``seconds`` is the
+    host time spent on the copies, the twins and the comparisons (the
+    kernel synchronised first), which a timed caller takes off its
+    wall."""
 
     def __init__(self, tag="[run]", names=RUN_KERNELS):
+        import threading
         self.tag, self.names = tag, names
         self.counts = dict.fromkeys(names, 0)
         self.held = dict.fromkeys(names, 0)
         self.err = dict.fromkeys(names, 0.0)
         self.flips = self.px = 0
         self.seconds = 0.0
+        self.lock = threading.Lock()
 
     def _compare(self, name, props, h, w, s, got, exp):
         import torch
@@ -2599,39 +2658,16 @@ class HeldRing:
                      else MEDIAN_TOL["stats_rtol"])
         self.held[name] += 1
 
-    def _wrap(self, name):
-        from dips_tpu_torch.ops import cuda_fused as cf
-        kernel, plain = getattr(cf, name), getattr(cf, name + "_plain")
-        stacked = name.endswith("_stacked")
-
-        def held(props, h, w, *args, **kw):
-            import torch
-            t0 = time.perf_counter()
-            # the plain twin gets copies of every tensor argument
-            copies = [a.clone() if hasattr(a, "clone") else a for a in args]
-            t1 = time.perf_counter()
-            setattr(cf, name, kernel)  # the wrapper counts itself
-            try:
-                got = kernel(props, h, w, *args, **kw)
-            finally:
-                setattr(cf, name, held)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            exp = plain(props, h, w, *copies, **kw)
-            self._compare(name, props, h, w, args[0] if stacked else 1,
-                          got, exp)
-            self.seconds += (t1 - t0) + (time.perf_counter() - t2)
-            return got
-
-        return kernel, held
-
     def __enter__(self):
         from dips_tpu_torch.ops import cuda_fused as cf
         cf.reset_launch_counts()
         self._saved = {}
         for name in self.names:
-            self._saved[name], held = self._wrap(name)
-            setattr(cf, name, held)
+            if ":" in name:  # a form: held through its wrapper
+                continue
+            kernel = self._saved[name] = getattr(cf, name)
+            setattr(cf, name, _Held(self, name, kernel,
+                                    getattr(cf, name + "_plain")))
         return self
 
     def __exit__(self, *exc):
@@ -3899,6 +3935,114 @@ def phase_multihost(card):
 
 
 # ---------------------------------------------------------------------------
+# the examples: dips_tpu_torch.examples on the card against their --cpu runs
+# ---------------------------------------------------------------------------
+
+#: the examples run in this process (the ninth, multi_host, runs its own
+#: two ranks)
+EXAMPLES = ("single_video", "multi_stream", "fleet_telemetry",
+            "scene_analysis", "pod_fleet_grid", "serving", "motion_alerts",
+            "camera_fleet")
+#: the wrappers the examples must launch: PERF.md §6 rows 1, 2, 6 and 7
+#: (pod_fleet_grid's raw slabs have no roi, so no row window: row 2's
+#: kernel at slab shapes, not row 5's form)
+EXAMPLE_KERNELS = ("absdiff_step_ring", "absdiff_step_ring_stacked",
+                   "batch_step_ring", "batch_step_ring_stacked")
+
+
+def run_example(name, work):
+    """``python -m dips_tpu_torch.examples.<name>`` (no flag: the card) in
+    this process, in its own working directory: (exit code, stdout)."""
+    import contextlib
+    import io
+    import runpy
+    os.makedirs(work, exist_ok=True)
+    here, saved_argv = os.getcwd(), sys.argv
+    out, rc = io.StringIO(), 0
+    os.chdir(work)
+    sys.argv = [name]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(f"dips_tpu_torch.examples.{name}",
+                             run_name="__main__")
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (e.code is not None)
+    finally:
+        os.chdir(here)
+        sys.argv = saved_argv
+    return rc, out.getvalue()
+
+
+def phase_examples(card):
+    """The nine examples on the card: eight in this process under one
+    :class:`HeldRing` (every ring launch held against its plain twin, the
+    servers' threads included), ``multi_host`` as its own two ranks on
+    cuda:0; each card run's stdout held against the same example's
+    ``--cpu`` run, made here in processes of their own, through
+    ``examples._compare``.  Untimed: the seconds printed are the phase's
+    own, no speed."""
+    from dips_tpu_torch.examples import _compare
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "examples"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.abspath("."), os.environ.get("PYTHONPATH", "")]))
+
+    def start(name, argv, where):
+        os.makedirs(where, exist_ok=True)
+        return subprocess.Popen(
+            [sys.executable, "-m", f"dips_tpu_torch.examples.{name}"]
+            + argv, cwd=where, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    # the --cpu runs and the card's multi_host, beside the in-process runs
+    names = EXAMPLES + ("multi_host",)
+    cpu = {n: start(n, ["--cpu"], os.path.join(work, "cpu", n))
+           for n in names}
+    mh = start("multi_host", [], os.path.join(work, "card", "multi_host"))
+    card_out, secs = {}, {}
+    try:
+        with HeldRing("[examples]", SERVE_KERNELS) as held:
+            for name in EXAMPLES:
+                t0 = time.perf_counter()
+                rc, card_out[name] = run_example(
+                    name, os.path.join(work, "card", name))
+                secs[name] = round(time.perf_counter() - t0, 1)
+                if rc != 0:
+                    raise AssertionError(f"[examples] {name} exit {rc}:\n"
+                                         f"{card_out[name][-3000:]}")
+        outs = {}
+        for name, p in list(cpu.items()) + [("multi_host card", mh)]:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"[examples] {name} --cpu exit "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            outs[name] = out
+    finally:
+        for p in list(cpu.values()) + [mh]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    card_out["multi_host"] = outs.pop("multi_host card")
+    log("[examples] " + json.dumps({"seconds": secs,
+                                    "launches": held.counts}))
+    for name in names:
+        _compare.check(name, card_out[name], outs[name])
+    for name in EXAMPLE_KERNELS:
+        if held.counts[name] <= 0:
+            raise AssertionError(f"[examples] {name} never launched")
+    for name in held.names:
+        if ":" not in name and held.held[name] != held.counts[name]:
+            raise AssertionError(f"[examples] {name}: {held.counts[name]} "
+                                 f"launches, {held.held[name]} held")
+    log(f"[examples] the nine examples on {card}: each card run's stdout "
+        f"equals its --cpu run's under examples._compare; every launch of "
+        f"the eight in this process held against its plain twin "
+        f"({held.flips} of {held.px} map values differ by 1 LSB); "
+        f"multi_host's two ranks on cuda:0")
+    return held.counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -4441,6 +4585,7 @@ def main():
     times = timed(phase_times, card)
     validate = timed(phase_validate, card)
     multihost = timed(phase_multihost, card)
+    examples = timed(phase_examples, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null
     record = {"kernels": [
@@ -4454,7 +4599,8 @@ def main():
          "ingest_launches": ingest.get(name, 0),
          "serve_launches": serve.get(name, 0),
          "validate_launches": validate.get(name, 0),
-         "multihost_launches": multihost.get(name, 0)}
+         "multihost_launches": multihost.get(name, 0),
+         "examples_launches": examples.get(name, 0)}
         for name, (src, rep) in KERNELS.items()]}
     for k in record["kernels"]:
         if k["launches"] <= 0:

@@ -70,7 +70,8 @@ from ..models.pipeline import (analysis_geometry, check_packed_wire,
 from ..ops import reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
-from .grid2d import run_grid_ring_step, run_grid_step, slab_rows_ok
+from .grid2d import (make_grid_ring_step, make_grid_step,
+                     run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
@@ -91,6 +92,61 @@ def stream_mesh(n_devices: Optional[int] = None,
                     f"{len(devices)} available")
             devices = devices[:n_devices]
     return Mesh(list(devices), ("stream",))
+
+
+def _check_stream_mesh(mesh: Mesh) -> None:
+    if mesh.axis_names != ("stream",):
+        raise ValueError(
+            f"a sharded step runs on a ('stream',) mesh (stream_mesh), got "
+            f"axes {mesh.axis_names}; a (stream, rows) grid runs "
+            f"grid2d.make_grid_step / make_grid_ring_step")
+
+
+def make_sharded_step(props: DiPsProperties, h: int, w: int, mesh: Mesh,
+                      backend: Optional[str] = None):
+    """A multi-stream step over the cells of a 1-D stream mesh
+    (:func:`stream_mesh`), tail protocol, with the JAX function's call
+    signature.
+
+    The returned function maps raw u8 (S, T+B, 3, Hp, Wp), baseline (S,
+    Hp, Wp) f32 (median modes) or (S, 3, Hp, Wp) u8 (raw modes), flags (S,
+    B), heatmap (S, Hp, Wp), valid (S, B) -> (out (S, B, C, Hp, Wp) u8,
+    stats (S, B, 4) f32, baseline, heatmap, global mean |diff| over the
+    valid slots).  Each cell runs one stacked launch over its S / cells
+    streams.  Where the JAX step donates baseline and heatmap, this one
+    updates them in place and returns them.
+
+    ``backend``: "kernel" (the default; None means the same) = the stacked
+    CUDA kernels on a card, their plain twins on CPU cells; "plain" = the
+    plain twins, for CPU tensors only.  The JAX package's "pallas" /
+    "xla" / "auto" raise ``ValueError``.  A 1-D mesh is a grid with one
+    row cell, so this is ``grid2d.make_grid_step`` on it."""
+    _check_stream_mesh(mesh)
+    backend = "kernel" if backend is None else backend
+    if backend not in ("kernel", "plain"):
+        raise ValueError(f"unknown backend {backend!r}: the port's are "
+                         f"'kernel' and 'plain' (None means 'kernel')")
+    return make_grid_step(props, h, w, mesh, backend=backend)
+
+
+def make_sharded_ring_step(props: DiPsProperties, h: int, w: int,
+                           mesh: Mesh):
+    """Ring-carry twin of :func:`make_sharded_step`: the carried state
+    (filtered ring / previous frame, baseline, heatmap) comes in per
+    stream, the input is only the B new frames per stream.
+
+    Median modes map raw u8 (S, B, 3, Hp, Wp), ring f32 (S, T, Hp, Wp),
+    prev / baseline / heatmap f32 (S, Hp, Wp), flags / valid (S, B),
+    offsets / seeds (S,) -> (out, stats, ring, prev, baseline, heatmap,
+    global mean |diff|).  Raw modes carry prev and baseline as u8 (S, 3,
+    Hp, Wp) and have no ring or offsets: (raw, prev, baseline, flags,
+    heatmap, valid, seeds) -> (out, stats, prev, baseline, heatmap, global
+    mean).  Where the JAX step donates the state, this one updates the
+    state arguments in place and returns them.  The stacked ring kernels
+    on a card, their plain twins on CPU cells (``grid2d.
+    make_grid_ring_step`` on a grid with one row cell)."""
+    _check_stream_mesh(mesh)
+    return make_grid_ring_step(props, h, w, mesh)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

@@ -192,21 +192,15 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("rel", [
-    "ops/analysis.py", "report.py", "serve/__init__.py", "serve/__main__.py",
-    "serve/analytics.py", "serve/client.py", "serve/coalesce.py",
-    "serve/daemon.py", "serve/metrics.py", "serve/protocol.py",
-    "serve/server.py", "serve/sessions.py", "utils/webhook.py",
-    "loadgen.py", "__init__.py", "app.py", "cli.py", "live.py", "gui.py",
-    "io/__init__.py", "io/video.py", "io/gstreamer.py", "io/synthetic.py",
-    "io/datfiles.py", "io/subsample.py", "io/thumbnail.py",
-    "io/eventrecorder.py", "utils/indexing.py", "utils/profiling.py",
-    "io/gstbind.py", "native/__init__.py", "utils/__init__.py",
-    "doctor.py", "ops/oracle.py", "validate.py", "parallel/multihost.py",
-    "_dryrun.py"])
+#: every module of the port, its examples included (one case each)
+PORT_MODULES = sorted(p.relative_to(ROOT / "dips_tpu_torch").as_posix()
+                      for p in (ROOT / "dips_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", PORT_MODULES)
 def test_module_imports_nothing_of_jax(rel):
-    """The post-analysis, serving, run-path, ingest, acceptance and
-    multi-host modules import neither jax nor the JAX package."""
+    """No module of the port, examples included, imports jax or the JAX
+    package."""
     src = (ROOT / "dips_tpu_torch" / rel).read_text()
     for line in src.splitlines():
         s = line.strip()
@@ -515,10 +509,21 @@ def test_retimer_copy_is_verbatim(name):
 
 
 def test_exports_cover_the_jax_package():
-    """The package exports the JAX package's names, but the version."""
+    """The package exports the JAX package's names, but the version; its
+    ``parallel`` has every name that ``dips_tpu/parallel/__init__.py``
+    imports."""
+    import ast
+
     import dips_tpu
     import dips_tpu_torch
+    import dips_tpu_torch.parallel
     missing = set(dips_tpu.__all__) - set(dips_tpu_torch.__all__)
     assert missing == {"__version__"}
     for name in dips_tpu_torch.__all__:
         assert getattr(dips_tpu_torch, name) is not None, name
+    tree = ast.parse((ROOT / "dips_tpu/parallel/__init__.py").read_text())
+    names = {a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert {"make_sharded_step", "make_sharded_ring_step"} <= names
+    for name in sorted(names):
+        assert callable(getattr(dips_tpu_torch.parallel, name, None)), name
