@@ -151,7 +151,17 @@ and the options included; then
   twin), and ``multi_host`` as its own two ranks on cuda:0; each card
   run's stdout held against the same example's ``--cpu`` run, made in
   processes beside them, through ``examples._compare``
-  (``examples_launches`` in the record).
+  (``examples_launches`` in the record);
+* the block geometry (``[autotune]``, untimed): two non-default tiles of
+  the exact w3 median ring kernel and two non-default blocks of the raw
+  ABSDIFF ring kernel, each built for its unit alone, held at 1080p, B =
+  16 over two batches against the default geometry's launch (bit for
+  bit; median stats within 1e-5) and the plain twin; ``python -m
+  dips_tpu_torch.autotune --windows 3 --dry-run`` in a process of its own
+  with the store pointed at a scratch file (its probe times printed
+  beside this card's line); one engine batch per kernel with a store that
+  names a non-default geometry, whose launches must use it and whose
+  outputs must equal the default engine's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
@@ -2584,6 +2594,10 @@ class _Held:
     def form_launches(self):
         return self.kernel.form_launches
 
+    @property
+    def geometry_launches(self):
+        return self.kernel.geometry_launches
+
     def __call__(self, props, h, w, *args, **kw):
         import torch
         ring = self.ring
@@ -4043,6 +4057,222 @@ def phase_examples(card):
 
 
 # ---------------------------------------------------------------------------
+# phase: the block geometry (a build parameter) and the tuner
+# ---------------------------------------------------------------------------
+
+#: the non-default geometries [autotune] builds and holds (1080p: a tile's
+#: rows divide 1080)
+AUTOTUNE_TILES = ((24, 2, 2), (8, 1, 4))
+AUTOTUNE_BLOCKS = ((512, 32), (128, 16))
+
+
+def _geometry_batches(kind, props, geometry, plain=False):
+    """Two consecutive 1080p batches (``_two_batches``) through the exact
+    ring (``kind`` "median") or the raw ring kernel at ``geometry`` (None:
+    the default), or through its plain twin; each batch's results
+    cloned."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.ops.reference import pad_geometry
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(H1080, W1080)
+    t = props.temporal_size
+    if kind == "median":
+        st = [torch.zeros((t, hp, wp), device=dev)] + [
+            torch.zeros((hp, wp), device=dev) for _ in range(3)]
+    else:
+        st = [torch.zeros((3, hp, wp), dtype=torch.uint8, device=dev)
+              for _ in range(2)] + [torch.zeros((hp, wp), device=dev)]
+    runs = []
+    for x, flags, valid, off, seed in _two_batches(hp, wp, H1080, W1080,
+                                                    21, dev):
+        if kind == "median" and plain:
+            res = cuda_fused.batch_step_ring_plain(
+                props, H1080, W1080, x, *st[:3], flags, st[3], valid,
+                off % t, seed)
+        elif kind == "median":
+            res, used = cuda_fused._launch_median(
+                "batch_step_ring", props, H1080, W1080, 1, x, *st[:3],
+                flags.reshape(1, B), st[3], valid.reshape(1, B),
+                [off % t], [seed], tile=geometry)
+        elif plain:
+            res = cuda_fused.absdiff_step_ring_plain(
+                props, H1080, W1080, x, *st[:2], flags, st[2], valid, seed)
+        else:
+            res, used = cuda_fused._launch_raw(
+                "absdiff_step_ring", props, H1080, W1080, 1, x, *st[:2],
+                flags.reshape(1, B), st[2], valid.reshape(1, B), [seed],
+                block=geometry)
+        if not plain and geometry is not None and used != geometry:
+            raise AssertionError(f"[autotune] launched {used}, asked for "
+                                 f"{geometry}")
+        runs.append([r.clone() for r in res])
+    torch.cuda.synchronize()
+    return runs
+
+
+def _hold_geometry(tag, kind, got, dflt, plain):
+    """A geometry's two batches against the default geometry's (maps and
+    state bit for bit, stats within 1e-5 for the median kernel, bit for
+    bit for the raw one) and the plain twin's (the [check] tolerances)."""
+    import torch
+    from dips_tpu_torch.autotune import _stats_agree
+    for b, (g, d, p) in enumerate(zip(got, dflt, plain)):
+        for i, (x, y) in enumerate(zip(g, d)):
+            same = (_stats_agree(x.reshape(-1, 4), y.reshape(-1, 4))
+                    if i == 1 and kind == "median" else torch.equal(x, y))
+            if not same:
+                raise AssertionError(f"{tag}: output {i} of batch {b} "
+                                     f"differs from the default geometry's")
+        if kind == "median":
+            dd = (g[0][..., :H1080, :W1080].to(torch.int16)
+                  - p[0][..., :H1080, :W1080].to(torch.int16)).abs()
+            flips = int((dd > 0).sum())
+            if int(dd.max()) > MEDIAN_TOL["lsb"] or \
+                    flips > MEDIAN_TOL["flip_frac"] * dd.numel():
+                raise AssertionError(f"{tag}: maps differ from the plain "
+                                     f"twin")
+            state, tol = zip(g[2:5], p[2:5]), MEDIAN_TOL
+        else:
+            if not torch.equal(g[0], p[0]):
+                raise AssertionError(f"{tag}: maps differ from the plain "
+                                     f"twin")
+            state, tol = zip(g[2:4], p[2:4]), RAW_TOL
+        for x, y in state:
+            if not torch.equal(x[..., :H1080, :W1080],
+                               y[..., :H1080, :W1080]):
+                raise AssertionError(f"{tag}: carried state differs from "
+                                     f"the plain twin")
+        if _max_err(g[-1], p[-1]) > tol["heat_atol"]:
+            raise AssertionError(f"{tag}: heatmap differs from the plain "
+                                 f"twin")
+        _check_stats(tag, g[1].reshape(-1, 4), p[1].reshape(-1, 4),
+                     tol["stats_rtol"])
+
+
+def _engine_with_store(props, frames, store):
+    """One 1080p batch through a ``DiPsEngine`` with the tuning store at
+    ``store`` -> (maps, stats, launches per wrapper and geometry)."""
+    from dips_tpu_torch import DiPsEngine
+    from dips_tpu_torch.ops import cuda_fused, tuning
+    old = os.environ.get("DIPS_TPU_TORCH_AUTOTUNE_CACHE")
+    os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = store
+    tuning.invalidate()
+    try:
+        eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda")
+        cuda_fused.reset_launch_counts()
+        out, stats = eng.process_batch(frames)
+        return out, stats, cuda_fused.geometry_counts()
+    finally:
+        if old is None:
+            del os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"]
+        else:
+            os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = old
+        tuning.invalidate()
+
+
+def phase_autotune(card):
+    """The kernels' block geometry as a build parameter, and the tuner:
+    two non-default tiles of the exact w3 ring kernel and two non-default
+    blocks of the raw ABSDIFF ring kernel, built for their units alone (in
+    parallel), each held at 1080p, B = 16 over two batches against the
+    default geometry's launch and the plain twin; ``python -m
+    dips_tpu_torch.autotune --windows 3 --dry-run`` in a process of its
+    own with the store pointed at a scratch file (its probe times printed
+    here, with this card's line); one engine batch with a store that names
+    a non-default tile and block, which its launches must use, and whose
+    outputs must equal the default engine's.  Equality, not timing: the
+    tuner's times are its own."""
+    import torch
+    from dips_tpu_torch import autotune
+    from dips_tpu_torch.ops import _build, tuning
+    from dips_tpu_torch.ops._build import Geometry, MedianTile, RawBlock
+    from dips_tpu_torch.properties import DiPsProperties, OutputMode
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "autotune"))
+    os.makedirs(work, exist_ok=True)
+    tiles = [MedianTile(*t) for t in AUTOTUNE_TILES]
+    blocks = [RawBlock(*b) for b in AUTOTUNE_BLOCKS]
+    t0 = time.perf_counter()
+    autotune._build_all(
+        [(Geometry(tile=t), (_build.median_unit(False, 3),)) for t in tiles]
+        + [(Geometry(block=b), (_build.RAW_UNIT,)) for b in blocks])
+    log(f"[autotune] built {len(tiles) + len(blocks)} geometries, one unit "
+        f"each, in {time.perf_counter() - t0:.1f} s")
+    cases = (("median", DiPsProperties(), tiles),
+             ("raw", DiPsProperties(output=OutputMode.ABSDIFF), blocks))
+    for kind, props, geoms in cases:
+        dflt = _geometry_batches(kind, props, None)
+        plain = _geometry_batches(kind, props, None, plain=True)
+        for g in geoms:
+            got = _geometry_batches(kind, props, g)
+            _hold_geometry(f"[autotune] {kind} {g.name()}", kind, got, dflt,
+                           plain)
+            log(f"[autotune] {kind} {g.name()} 1080p B={B}: equal to the "
+                f"default geometry's launch and within the plain twin's "
+                f"tolerance over two batches")
+
+    store = os.path.join(work, "autotune.json")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, DIPS_TPU_TORCH_AUTOTUNE_CACHE=store,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.abspath("."), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dips_tpu_torch.autotune",
+                          "--windows", "3", "--dry-run"], env=env,
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(work, "tuner.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"[autotune] the tuner exit {res.returncode}:"
+                             f"\n{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("[autotune]")]
+    if not any("dry run" in ln for ln in lines) or os.path.exists(store):
+        raise AssertionError("[autotune] the dry run wrote the store or "
+                             "did not say it was one")
+    log(f"[autotune] {card}")
+    for ln in lines:
+        log(ln)
+    log(f"[autotune] the tuner, --windows 3 --dry-run: {secs:.1f} s")
+
+    frames = moving_square_frames(B, H1080, W1080, 31)
+    kind_name = torch.cuda.get_device_name(0)
+    for props, name, geom in (
+            (DiPsProperties(), "batch_step_ring", tiles[0]),
+            (DiPsProperties(output=OutputMode.ABSDIFF), "absdiff_step_ring",
+             blocks[0])):
+        out0, stats0, geo0 = _engine_with_store(props, frames, store)
+        path = os.path.join(work, f"store-{name}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = path
+        try:
+            if name == "batch_step_ring":
+                tuning.save(kind_name, ring_tiles={3: geom})
+            else:
+                tuning.save(kind_name, raw_block=geom)
+        finally:
+            del os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"]
+            tuning.invalidate()
+        out1, stats1, geo1 = _engine_with_store(props, frames, path)
+        dname = (_build.DEFAULT.tile if name == "batch_step_ring"
+                 else _build.DEFAULT.block).name()
+        if geo0 != {name: {dname: 1}} or geo1 != {name: {geom.name(): 1}}:
+            raise AssertionError(f"[autotune] engine launches {geo0} "
+                                 f"without the store, {geo1} with it")
+        if not np.array_equal(out0, out1):
+            raise AssertionError(f"[autotune] {name}: engine maps differ "
+                                 f"with the stored geometry")
+        _check_stats(f"[autotune] {name} engine", stats1, stats0,
+                     MEDIAN_TOL["stats_rtol"])
+        log(f"[autotune] engine {name} with a store naming {geom.name()}: "
+            f"launched it ({geo1[name]}), outputs equal to the default "
+            f"engine's")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times on this card
 # ---------------------------------------------------------------------------
 
@@ -4586,6 +4816,7 @@ def main():
     validate = timed(phase_validate, card)
     multihost = timed(phase_multihost, card)
     examples = timed(phase_examples, card)
+    timed(phase_autotune, card)
     import torch
     # no single PyTorch call computes any of these steps: library_ms null
     record = {"kernels": [

@@ -177,6 +177,11 @@ def run(n_devices: int) -> None:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    # the JAX dry run turns its compile cache on here; the cells run the
+    # plain twins and build no kernel, so only $DIPS_COMPILE_CACHE moves
+    # the build directory, as it does for every entry point
+    from .utils.compilecache import apply_compile_cache_flag
+    apply_compile_cache_flag(None)
     run(int(args[0]) if args else 8)
     print("DRYRUN-OK")
     return 0

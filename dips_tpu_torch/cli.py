@@ -28,7 +28,9 @@ fails unless ``--device cpu`` is given):
   --live (a display needed; ``live.py``).
 
 --mesh and --output-dir are refused outside the fleet mode (the JAX CLI
-ignores them there).  Not ported: the XLA --compile-cache.
+ignores them there).  --compile-cache [DIR] keeps the built CUDA kernels
+under DIR (``utils/compilecache.py``) where the JAX CLI keeps XLA's
+executables.
 
     python -m dips_tpu_torch --input in.avi --output out.avi [--device cuda]
     python -m dips_tpu_torch --inputs a.avi b.avi --output-dir out/
@@ -257,6 +259,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "of a video file")
     p.add_argument("--dat-geometry", default="273x640",
                    help="WIDTHxHEIGHT of raw dumps (default 273x640)")
+    from .utils.compilecache import add_compile_cache_flag
+    add_compile_cache_flag(p)
     return p
 
 
@@ -607,6 +611,8 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.compilecache import apply_compile_cache_flag
+    apply_compile_cache_flag(args)
     stats_only = args.output_mode == "stats_only" or args.no_maps
     msg = _refused(args, stats_only)
     if msg:

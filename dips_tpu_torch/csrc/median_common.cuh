@@ -6,10 +6,11 @@
 // GRAYSCALE maps) -- the counterparts of _intensity_i, _filtered_plane and
 // _emit_median_frame in dips_tpu/ops/pallas_fused.py.
 //
-// The tile: a block of 8 warps owns 8 rows x 128 columns of one stream
-// (grid z), warp r row r, lane l the 4 adjacent pixels at columns 4l..4l+3,
-// so each thread moves its maps as one u32 per plane and its state as one
-// float4.  The block steps through its frames in order:
+// The tile (its geometry is a build parameter, see below; the defaults
+// are given here): a block of 8 warps owns 8 rows x 128 columns of one
+// stream (grid z), warp r row r, lane l the 4 adjacent pixels at columns
+// 4l..4l+3, so each thread moves its maps as one u32 per plane and its
+// state as one float4.  The block steps through its frames in order:
 //
 // * staging: one thread keeps kStages frames in flight -- each stage is
 //   filled by TMA (cp.async.bulk.tensor, 4-D maps over the u8 frames) and
@@ -33,13 +34,14 @@
 //   memory, shared by the W pixels whose windows hold that column;
 // * spatial filter: each pixel runs only the merge plan over its W sorted
 //   columns (the quirk pick reads the strip directly);
-// * emit: the statistic partials are reduced over the thread's 4 pixels,
+// * emit: the statistic partials are reduced over the thread's pixels,
 //   then the warp, and leave as one partial per (frame, stream, tile,
 //   warp): no block barrier and no serial tail on the frame's path.
 //
 // Strip and column buffers store column c (tile-local c - 4) at
-// (c & 3) * kSQ + (c >> 2): the 32 lanes of a warp then read 32 adjacent
-// 16-bit words for any tap of their 4 adjacent pixels (no bank conflict).
+// (c & 3) * kSQ + (c >> 2): with 4 pixels a thread, the 32 lanes of a warp
+// then read 32 adjacent 16-bit words for any tap of their 4 adjacent
+// pixels (no bank conflict).
 // The temporal ring lives in shared memory, slot k of the thread's pixel
 // j at float (k * 4 + j) * kThreads + tid, read and written by that thread
 // only (adjacent threads, adjacent words).
@@ -57,19 +59,47 @@
 
 #include "median_networks.cuh"
 
+// The tile geometry, a build parameter (ops/_build.py passes -D flags for
+// a geometry other than these defaults; ops/tuning.py stores measured
+// ones): tile rows, adjacent pixels a thread, frames staged ahead.
+#ifndef DIPS_TILE_ROWS
+#define DIPS_TILE_ROWS 8
+#endif
+#ifndef DIPS_PX
+#define DIPS_PX 4
+#endif
+#ifndef DIPS_STAGES
+#define DIPS_STAGES 3
+#endif
+
 namespace dips_median {
 
-constexpr int kRows = 8;                // tile rows, one warp each
-constexpr int kPx = 4;                  // adjacent pixels per thread
+constexpr int kRows = DIPS_TILE_ROWS;   // tile rows, one warp each
+constexpr int kPx = DIPS_PX;            // adjacent pixels per thread
 constexpr int kCols = 32 * kPx;         // tile columns
 constexpr int kThreads = 32 * kRows;
 constexpr int kWarps = kRows;
 constexpr int kBand = 8;                // rows of a slab band (>= P)
-constexpr int kStages = 3;              // frames staged ahead
+constexpr int kStages = DIPS_STAGES;    // frames staged ahead
 constexpr int kLead = 16;               // staged columns left of the tile
 constexpr int kBoxW = kCols + 2 * kLead;  // a TMA box row: 160 bytes
 constexpr int kSC = kCols + 8;          // strip columns: tile-local -4..131
 constexpr int kSQ = kSC / 4;
+constexpr int kMaxP = 3;                // halo rows of the widest window
+
+static_assert(kRows >= 1 && kThreads <= 1024,
+              "a tile row is a warp: at most 32 rows (1024 threads)");
+static_assert(kPx == 1 || kPx == 2 || kPx == 4,
+              "a thread's pixels move as one float, float2 or float4");
+static_assert(kStages >= 1, "at least one frame in flight");
+static_assert(kBoxW <= 256 && kBoxW % 16 == 0 && kCols % 16 == 0 &&
+                  kLead % 16 == 0,
+              "a TMA box row is at most 256 bytes, a multiple of 16, and "
+              "starts on a 16-byte column");
+static_assert(kRows + 2 * kMaxP <= 256, "a TMA box has at most 256 rows");
+static_assert(kBand >= kMaxP, "a band must hold the widest halo");
+static_assert(3 * kRows * kBoxW % 128 == 0,
+              "each staged box starts 128-byte aligned");
 
 // One launch's arguments.  The tail kernel leaves ring, prev, offs and
 // seeds null; raw then holds the T tail frames ahead of the B new ones.
@@ -207,7 +237,7 @@ template <int P>
 struct Stage {
   static constexpr int kHalo = 3 * P * kBoxW;
   static constexpr int kHaloPad = (kHalo + 127) / 128 * 128;
-  static constexpr int kMidBytes = 3 * kRows * kBoxW;  // 30 x 128
+  static constexpr int kMidBytes = 3 * kRows * kBoxW;  // 30 x 128 at 8 x 4
   static constexpr int kTop = 0;
   static constexpr int kMid = kHaloPad;
   static constexpr int kBot = kHaloPad + kMidBytes;
@@ -269,7 +299,7 @@ struct Tile {
     tile = blockIdx.y * gridDim.x + blockIdx.x;
     const long long sec = (long long)a.Hp * a.Wp;
     plane = sec * S;
-    pix = si * sec + (long long)(by + warp) * a.Wp + bx + 4 * lane;
+    pix = si * sec + (long long)(by + warp) * a.Wp + bx + kPx * lane;
   }
 
   // ring slot k of the thread's pixel j
@@ -380,8 +410,8 @@ struct Tile {
     for (int k = 0; k < kPx; ++k) {
       // the strip / column buffer index of offset d from pixel k
       const auto at = [&](int d) {
-        const int e = k + d + 4;
-        return (e & 3) * kSQ + lane + (e >> 2);
+        const int e = kPx * lane + k + d + 4;
+        return (e & 3) * kSQ + (e >> 2);
       };
       if constexpr (M == kQuirk) {
         float v;
@@ -436,16 +466,35 @@ struct Tile {
   }
 };
 
-// the thread's 4 pixels of a float plane, as one float4
-__device__ __forceinline__ void ld4(const float* p, float (&v)[kPx]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+// the thread's kPx pixels of a float plane, as one float4 (float2, float)
+__device__ __forceinline__ void ldp(const float* p, float (&v)[kPx]) {
+  if constexpr (kPx == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (kPx == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
 }
-__device__ __forceinline__ void st4(float* p, const float (&v)[kPx]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void stp(float* p, const float (&v)[kPx]) {
+  if constexpr (kPx == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (kPx == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
 }
 
-// The temporal median of each of the thread's 4 pixels over ring slots
+// the thread's kPx bytes of a u8 plane, packed low byte first
+__device__ __forceinline__ void stb(uint8_t* p, uint32_t v) {
+  if constexpr (kPx == 4) *reinterpret_cast<uint32_t*>(p) = v;
+  else if constexpr (kPx == 2) *reinterpret_cast<uint16_t*>(p) = (uint16_t)v;
+  else *p = (uint8_t)v;
+}
+
+// The temporal median of each of the thread's kPx pixels over ring slots
 // [0, T).  The pixel loop stays rolled: the 16 generated networks hold 604
 // min/max, and a copy per pixel made them most of the compiled code (and
 // of the build's time); call it from one site per kernel.
@@ -461,11 +510,11 @@ __device__ __forceinline__ void ring_median(const Tl& t, int T,
   }
 }
 
-// Emit output frame f of the thread's 4 pixels from their temporal medians
+// Emit output frame f of the thread's kPx pixels from their temporal medians
 // `cur` and integer diffs `diff`: masked statistic partials, the heatmap
 // (+ |diff| * valid), and the maps (a capture frame renders the new
-// baseline gray), each plane as one u32.  The partials are summed over the
-// 4 pixels in order, then over the warp with shuffles; lane 0 writes the
+// baseline gray), each plane as one store.  The partials are summed over
+// the kPx pixels in order, then over the warp with shuffles; lane 0 writes the
 // warp's partial (no block barrier).
 template <class Tl>
 __device__ __forceinline__ void emit(const MedianArgs& a, const Tl& t, int f,
@@ -473,7 +522,7 @@ __device__ __forceinline__ void emit(const MedianArgs& a, const Tl& t, int f,
                                      const float (&diff)[kPx], bool capture,
                                      int v, float (&heat)[kPx]) {
   const int C = a.out_mode == 1 ? 3 : (a.out_mode == 2 ? 1 : 0);
-  const int y = t.by + t.warp, x0 = t.bx + 4 * t.lane;
+  const int y = t.by + t.warp, x0 = t.bx + kPx * t.lane;
   const bool row_in = y >= a.y0 && y < a.y1;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   uint32_t o0 = 0, o1 = 0, o2 = 0;
@@ -514,10 +563,10 @@ __device__ __forceinline__ void emit(const MedianArgs& a, const Tl& t, int f,
   }
   if (C > 0) {
     uint8_t* dst = a.out + (long long)f * C * t.plane + t.pix;
-    *reinterpret_cast<uint32_t*>(dst) = o0;
+    stb(dst, o0);
     if (C == 3) {
-      *reinterpret_cast<uint32_t*>(dst + t.plane) = o1;
-      *reinterpret_cast<uint32_t*>(dst + 2 * t.plane) = o2;
+      stb(dst + t.plane, o1);
+      stb(dst + 2 * t.plane, o2);
     }
   }
   // fixed-order warp reduction: sum dm, sum |dm|, max |dm|, count
@@ -637,44 +686,39 @@ __host__ inline int launch_bands(cudaStream_t s, const MedianArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The instances of each window live in a compile unit of their own, so
-// that they compile in parallel: the build compiles median_ring.cu and
-// median_tail.cu once per window (-DDIPS_WINDOW=W); each unit defines
-// instance<W, M>(Ring or Tail, ...) for its window and every mode, and the
-// window-1 unit the entry points.
-struct Ring {};
-struct Tail {};
-template <int W, int M>
-int instance(Ring, cudaStream_t s, const MedianArgs& a);
-template <int W, int M>
-int instance(Tail, cudaStream_t s, const MedianArgs& a);
+// Each compile unit holds one window's instances: the build compiles
+// median_ring.cu and median_tail.cu once per window (-DDIPS_WINDOW=W), so
+// that the units compile in parallel, and every unit exports its own entry
+// points, named by kernel and window, so that a library may hold any set
+// of units (a tuning probe builds one).
 
-template <class Kind, int W>
-__host__ inline int launch_window(int mode, cudaStream_t s,
-                                  const MedianArgs& a) {
+// Launch K's instance <W, mode> for a runtime mode (every instance is
+// compiled).
+template <class K, int W>
+__host__ inline int launch_mode(int mode, cudaStream_t s,
+                                const MedianArgs& a) {
   switch (mode) {
-    case kExact: return instance<W, kExact>(Kind{}, s, a);
-    case kApprox: return instance<W, kApprox>(Kind{}, s, a);
-    case kQuirk: return instance<W, kQuirk>(Kind{}, s, a);
+    case kExact: return launch_bands<K, W, kExact>(s, a);
+    case kApprox: return launch_bands<K, W, kApprox>(s, a);
+    case kQuirk: return launch_bands<K, W, kQuirk>(s, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Launch the instance for the runtime window W (1, 3, 5 or 7) and mode.
-template <class Kind>
-__host__ inline int launch(int W, int mode, cudaStream_t s,
-                           const MedianArgs& a) {
-  switch (W) {
-    case 1: return launch_window<Kind, 1>(mode, s, a);
-    case 3: return launch_window<Kind, 3>(mode, s, a);
-    case 5: return launch_window<Kind, 5>(mode, s, a);
-    case 7: return launch_window<Kind, 7>(mode, s, a);
-    default: return (int)cudaErrorInvalidValue;
+// Dynamic shared memory of a launch of instance <W, mode> with T ring
+// slots (the same in both kernels and both band forms); -1 for a bad mode.
+template <int W>
+__host__ inline int smem_bytes(int mode, int T) {
+  switch (mode) {
+    case kExact: return (int)Tile<W, kExact, false>::smem_bytes(T);
+    case kApprox: return (int)Tile<W, kApprox, false>::smem_bytes(T);
+    case kQuirk: return (int)Tile<W, kQuirk, false>::smem_bytes(T);
+    default: return -1;
   }
 }
 
 // The argument checks shared by both entry points: sections of whole
-// 8 x 128 tiles.
+// kRows x kCols tiles.
 __host__ inline bool valid_launch(int S, int B, int Hp, int Wp, int T,
                                   int mode, int out_mode, int chroma) {
   return S >= 1 && S <= 65535 && B >= 1 && Hp >= kRows && Hp % kRows == 0 &&
@@ -683,4 +727,22 @@ __host__ inline bool valid_launch(int S, int B, int Hp, int Wp, int T,
          chroma >= 0 && chroma <= 3;
 }
 
+// Statistic partials per (frame, section) of both median kernels: one per
+// warp of each tile; 0 when the section is not whole tiles.
+__host__ inline int parts(int Hp, int Wp) {
+  if (Hp < kRows || Hp % kRows != 0 || Wp < kCols || Wp % kCols != 0)
+    return 0;
+  return (Hp / kRows) * (Wp / kCols) * kWarps;
+}
+
 }  // namespace dips_median
+
+// the per-window entry point names: DIPS_CAT(dips_median_ring_w, 3)
+#define DIPS_CAT2(a, b) a##b
+#define DIPS_CAT(a, b) DIPS_CAT2(a, b)
+
+// cudaGetErrorString for the wrappers' messages.  Every unit defines it,
+// weak, so that a library of any set of units holds exactly one.
+extern "C" __attribute__((weak)) const char* dips_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

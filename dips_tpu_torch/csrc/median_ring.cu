@@ -34,13 +34,14 @@
 // of the stack -- so a tap never reads the neighbouring stream, and the roi
 // mask tests the row within the stream.
 //
-// Design: a block owns an 8 x 128 tile (median_common.cuh) and loops over
-// the batch's frames in order with three frames staged ahead by TMA.  The
+// Design: a block owns a tile, 8 x 128 by default (median_common.cuh; the
+// geometry is a build parameter), and loops over the batch's frames in
+// order with three frames (by default) staged ahead by TMA.  The
 // carried state is read from HBM once and written once: baseline or prev
 // and the heatmap in registers, the T ring slots in shared memory.  Each
 // frame the block turns its staged frame into intensities, sorts each
 // column once for the whole tile, and each thread merges the sorted
-// columns of its 4 pixels (the selection networks generated from
+// columns of its pixels (the selection networks generated from
 // ops/networks.py, median_networks.cuh).  Statistic partials leave per
 // (frame, tile, warp), reduced in a fixed order (no atomics); the sum over
 // the partials runs outside, in plain torch.
@@ -58,7 +59,11 @@
 
 #include "median_common.cuh"
 
-// Built once per window: -DDIPS_WINDOW=W compiles that window's instances.
+// Built once per window: -DDIPS_WINDOW=W compiles that window's instances
+// and its entry points.
+#ifndef DIPS_WINDOW
+#error "build with -DDIPS_WINDOW=1, 3, 5 or 7"
+#endif
 
 namespace {
 
@@ -76,13 +81,13 @@ __global__ void __launch_bounds__(kThreads)
   // carried state: the ring into shared memory, the rest into registers
   for (int k = 0; k < a.T; ++k) {
     float s[kPx];
-    ld4(a.ring + k * t.plane + t.pix, s);
+    ldp(a.ring + k * t.plane + t.pix, s);
     t.put(k, s);
   }
-  float prev[kPx] = {0.f, 0.f, 0.f, 0.f}, base[kPx], heat[kPx];
-  if (!a.overall) ld4(a.prev + t.pix, prev);
-  ld4(a.base + t.pix, base);
-  ld4(a.heat + t.pix, heat);
+  float prev[kPx] = {}, base[kPx], heat[kPx];
+  if (!a.overall) ldp(a.prev + t.pix, prev);
+  ldp(a.base + t.pix, base);
+  ldp(a.heat + t.pix, heat);
 
   t.run(a, m, a.B, [&](int f, const float (&phi)[kPx]) {
     const int v = valid[f];
@@ -113,11 +118,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < a.T; ++k) {
     float s[kPx];
     t.get(k, s);
-    st4(a.ring + k * t.plane + t.pix, s);
+    stp(a.ring + k * t.plane + t.pix, s);
   }
-  if (a.overall) st4(a.base + t.pix, base);
-  else st4(a.prev + t.pix, prev);
-  st4(a.heat + t.pix, heat);
+  if (a.overall) stp(a.base + t.pix, base);
+  else stp(a.prev + t.pix, prev);
+  stp(a.heat + t.pix, heat);
 }
 
 struct RingKernel {
@@ -127,36 +132,27 @@ struct RingKernel {
 
 }  // namespace
 
-namespace dips_median {
-template <int W, int M>
-int instance(Ring, cudaStream_t s, const MedianArgs& a) {
-  return launch_bands<RingKernel, W, M>(s, a);
-}
-template int instance<DIPS_WINDOW, kExact>(Ring, cudaStream_t,
-                                           const MedianArgs&);
-template int instance<DIPS_WINDOW, kApprox>(Ring, cudaStream_t,
-                                            const MedianArgs&);
-template int instance<DIPS_WINDOW, kQuirk>(Ring, cudaStream_t,
-                                           const MedianArgs&);
-}  // namespace dips_median
-
-#if DIPS_WINDOW == 1  // the window-1 unit also holds the entry points
 
 using namespace dips_median;
 
-// Hp is one section's height (a stream's padded height, or a row slab's);
-// [y0, y1) x [x0, x1) is the statistics / heatmap window in section-local
-// rows; btop / bbot are the slab bands (B, 3, S*8, Wp), or both null; parts
-// is float (B, S, dips_median_parts(Hp, Wp), 4); the caller keeps every
-// offset in [0, T).
-extern "C" int dips_median_ring(
-    const void* raw, const void* btop, const void* bbot, void* ring, void* prev, void* base, void* heat,
-    void* out, void* parts, const void* flags, const void* valid,
-    const void* offs, const void* seeds, int S, int B, int Hp, int Wp, int T,
-    int W, int mode, int overall, int out_mode, int chroma, int filter,
-    float k, float sens, float lo_clip, float hi_clip, float scale, float thr,
-    int y0, int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
+// This window's entry points: dips_median_ring_w<W>, the launch (W must be
+// DIPS_WINDOW); dips_median_ring_parts_w<W>, the statistic partials a
+// frame and section; dips_median_ring_smem_w<W>, a launch's dynamic shared
+// memory.  Hp is one section's height (a stream's padded height, or a row
+// slab's); [y0, y1) x [x0, x1) is the statistics / heatmap window in
+// section-local rows; btop / bbot are the slab bands (B, 3, S*8, Wp), or
+// both null; parts is float (B, S, parts(Hp, Wp), 4); the caller keeps
+// every offset in [0, T).
+extern "C" int DIPS_CAT(dips_median_ring_w, DIPS_WINDOW)(
+    const void* raw, const void* btop, const void* bbot, void* ring,
+    void* prev, void* base, void* heat, void* out, void* parts,
+    const void* flags, const void* valid, const void* offs, const void* seeds,
+    int S, int B, int Hp, int Wp, int T, int W, int mode, int overall,
+    int out_mode, int chroma, int filter, float k, float sens, float lo_clip,
+    float hi_clip, float scale, float thr, int y0, int x0, int y1, int x1,
+    void* stream) {
+  if (W != DIPS_WINDOW ||
+      !valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
       (btop == nullptr) != (bbot == nullptr) || (btop != nullptr && W == 1))
     return (int)cudaErrorInvalidValue;
   MedianArgs a{(const uint8_t*)raw, (const uint8_t*)btop,
@@ -166,15 +162,15 @@ extern "C" int dips_median_ring(
                (const int*)seeds, S, B, B, Hp, Wp, T, overall, out_mode,
                chroma, filter, k, sens, lo_clip, hi_clip, scale, thr, y0, x0,
                y1, x1};
-  return launch<Ring>(W, mode, (cudaStream_t)stream, a);
+  return launch_mode<RingKernel, DIPS_WINDOW>(mode, (cudaStream_t)stream, a);
 }
 
-// Statistic partials per (frame, section) of both median kernels: one per
-// warp of each 8 x 128 tile; 0 when the section is not whole tiles.
-extern "C" int dips_median_parts(int Hp, int Wp) {
-  if (Hp < kRows || Hp % kRows != 0 || Wp < kCols || Wp % kCols != 0)
-    return 0;
-  return (Hp / kRows) * (Wp / kCols) * kWarps;
+extern "C" int DIPS_CAT(dips_median_ring_parts_w, DIPS_WINDOW)(int Hp,
+                                                               int Wp) {
+  return parts(Hp, Wp);
 }
 
-#endif  // DIPS_WINDOW == 1
+extern "C" int DIPS_CAT(dips_median_ring_smem_w, DIPS_WINDOW)(int mode,
+                                                              int T) {
+  return smem_bytes<DIPS_WINDOW>(mode, T);
+}

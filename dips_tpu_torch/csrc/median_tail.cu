@@ -39,7 +39,11 @@
 
 #include "median_common.cuh"
 
-// Built once per window: -DDIPS_WINDOW=W compiles that window's instances.
+// Built once per window: -DDIPS_WINDOW=W compiles that window's instances
+// and its entry points.
+#ifndef DIPS_WINDOW
+#error "build with -DDIPS_WINDOW=1, 3, 5 or 7"
+#endif
 
 namespace {
 
@@ -52,9 +56,9 @@ __global__ void __launch_bounds__(kThreads)
   const int* flags = a.flags + (long long)t.si * a.B;
   const int* valid = a.valid + (long long)t.si * a.B;
 
-  float prev[kPx] = {0.f, 0.f, 0.f, 0.f}, base[kPx], heat[kPx];
-  ld4(a.base + t.pix, base);
-  ld4(a.heat + t.pix, heat);
+  float prev[kPx] = {}, base[kPx], heat[kPx];
+  ldp(a.base + t.pix, base);
+  ldp(a.heat + t.pix, heat);
 
   t.run(a, m, a.T + a.B, [&](int g, const float (&phi)[kPx]) {
     const int f = g - a.T;
@@ -81,8 +85,8 @@ __global__ void __launch_bounds__(kThreads)
     emit(a, t, f, cur, diff, capture, valid[f], heat);
   });
 
-  if (a.overall) st4(a.base + t.pix, base);
-  st4(a.heat + t.pix, heat);
+  if (a.overall) stp(a.base + t.pix, base);
+  stp(a.heat + t.pix, heat);
 }
 
 struct TailKernel {
@@ -92,34 +96,23 @@ struct TailKernel {
 
 }  // namespace
 
-namespace dips_median {
-template <int W, int M>
-int instance(Tail, cudaStream_t s, const MedianArgs& a) {
-  return launch_bands<TailKernel, W, M>(s, a);
-}
-template int instance<DIPS_WINDOW, kExact>(Tail, cudaStream_t,
-                                           const MedianArgs&);
-template int instance<DIPS_WINDOW, kApprox>(Tail, cudaStream_t,
-                                            const MedianArgs&);
-template int instance<DIPS_WINDOW, kQuirk>(Tail, cudaStream_t,
-                                           const MedianArgs&);
-}  // namespace dips_median
-
-#if DIPS_WINDOW == 1  // the window-1 unit also holds the entry points
 
 using namespace dips_median;
 
-// raw is (T+B, 3, S*Hp, Wp); Hp is one section's height (a stream's padded
-// height, or a row slab's); the slab bands btop / bbot are (T+B, 3, S*8,
-// Wp), frame for frame with raw, or both null; parts is float
-// (B, S, dips_median_parts(Hp, Wp), 4).
-extern "C" int dips_median_tail(
-    const void* raw, const void* btop, const void* bbot, void* base, void* heat, void* out, void* parts,
-    const void* flags, const void* valid, int S, int B, int Hp, int Wp,
-    int T, int W, int mode, int overall, int out_mode, int chroma,
-    int filter, float k, float sens, float lo_clip, float hi_clip,
-    float scale, float thr, int y0, int x0, int y1, int x1, void* stream) {
-  if (!valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
+// This window's entry points, as median_ring.cu's: dips_median_tail_w<W>,
+// dips_median_tail_parts_w<W>, dips_median_tail_smem_w<W>.  raw is (T+B,
+// 3, S*Hp, Wp); Hp is one section's height (a stream's padded height, or a
+// row slab's); the slab bands btop / bbot are (T+B, 3, S*8, Wp), frame for
+// frame with raw, or both null; parts is float (B, S, parts(Hp, Wp), 4).
+extern "C" int DIPS_CAT(dips_median_tail_w, DIPS_WINDOW)(
+    const void* raw, const void* btop, const void* bbot, void* base,
+    void* heat, void* out, void* parts, const void* flags, const void* valid,
+    int S, int B, int Hp, int Wp, int T, int W, int mode, int overall,
+    int out_mode, int chroma, int filter, float k, float sens, float lo_clip,
+    float hi_clip, float scale, float thr, int y0, int x0, int y1, int x1,
+    void* stream) {
+  if (W != DIPS_WINDOW ||
+      !valid_launch(S, B, Hp, Wp, T, mode, out_mode, chroma) ||
       (btop == nullptr) != (bbot == nullptr) || (btop != nullptr && W == 1))
     return (int)cudaErrorInvalidValue;
   MedianArgs a{(const uint8_t*)raw, (const uint8_t*)btop,
@@ -128,7 +121,15 @@ extern "C" int dips_median_tail(
                (const int*)flags, (const int*)valid, nullptr, nullptr, S,
                T + B, B, Hp, Wp, T, overall, out_mode, chroma, filter, k,
                sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1};
-  return launch<Tail>(W, mode, (cudaStream_t)stream, a);
+  return launch_mode<TailKernel, DIPS_WINDOW>(mode, (cudaStream_t)stream, a);
 }
 
-#endif  // DIPS_WINDOW == 1
+extern "C" int DIPS_CAT(dips_median_tail_parts_w, DIPS_WINDOW)(int Hp,
+                                                               int Wp) {
+  return parts(Hp, Wp);
+}
+
+extern "C" int DIPS_CAT(dips_median_tail_smem_w, DIPS_WINDOW)(int mode,
+                                                              int T) {
+  return smem_bytes<DIPS_WINDOW>(mode, T);
+}

@@ -38,14 +38,18 @@
 // mask: Hp is the slab's height and [y0, y1) the roi's rows inside the slab
 // (empty when the slab misses the roi), launch arguments like the columns.
 //
-// Design: one thread owns 16 consecutive bytes of one row (uint4 loads and
-// stores, a warp touches 512 contiguous bytes per plane) and loops over the
-// batch's frames in order, so the carried state (ref and the heatmap) is
-// read from HBM once, kept in registers for the whole batch, and written
-// once.  A block of 256 threads is one statistics tile; per-tile sums stay
-// in int32 (a tile's abs sum is at most 4096 * 765) and are reduced in a
-// fixed order with warp shuffles and shared memory (no atomics).  The final
-// reduction over tiles runs outside, in plain torch.
+// Design: one thread owns kBytes consecutive bytes of one row (16 by
+// default: uint4 loads and stores, a warp touches 512 contiguous bytes per
+// plane) and loops over the batch's frames in order, so the carried state
+// (ref and the heatmap) is read from HBM once, kept in registers for the
+// whole batch, and written once.  A block of kThreads threads (256 by
+// default) is one statistics tile; per-tile sums stay in int32 (a tile's
+// abs sum is at most kThreads * kBytes * 765) and are reduced in a fixed
+// order with warp shuffles and shared memory (no atomics).  The final
+// reduction over tiles runs outside, in plain torch, in int64, so the
+// statistics do not depend on the block geometry, a build parameter
+// (ops/_build.py passes -D flags for one other than the defaults;
+// ops/tuning.py stores measured ones).
 //
 // Bound: device memory.  Per frame and stream it reads 3*Hp*Wp bytes and
 // writes C*Hp*Wp bytes (C = 3, 1 or 0); at 1080p (Hp=1080, Wp=2048) ABSDIFF
@@ -57,22 +61,43 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef DIPS_RAW_THREADS
+#define DIPS_RAW_THREADS 256
+#endif
+#ifndef DIPS_RAW_BYTES
+#define DIPS_RAW_BYTES 16
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBytes = 16;  // bytes of one row owned by a thread
+constexpr int kThreads = DIPS_RAW_THREADS;  // a block: one statistics tile
+constexpr int kBytes = DIPS_RAW_BYTES;  // bytes of one row owned by a thread
+constexpr int kWords = kBytes / 4;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ void load16(const uint8_t* p, uint32_t (&w)[4]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "a block is whole warps, at most 1024 threads");
+static_assert(kBytes % 16 == 0 && kBytes <= 32,
+              "a thread moves whole uint4s; the roi mask has 32 bits");
+
+__device__ __forceinline__ void load_row(const uint8_t* p,
+                                         uint32_t (&w)[kWords]) {
+#pragma unroll
+  for (int i = 0; i < kWords; i += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p + 4 * i);
+    w[i] = v.x; w[i + 1] = v.y; w[i + 2] = v.z; w[i + 3] = v.w;
+  }
 }
 
-__device__ __forceinline__ void store16(uint8_t* p, const uint32_t (&w)[4]) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+__device__ __forceinline__ void store_row(uint8_t* p,
+                                          const uint32_t (&w)[kWords]) {
+#pragma unroll
+  for (int i = 0; i < kWords; i += 4)
+    *reinterpret_cast<uint4*>(p + 4 * i) =
+        make_uint4(w[i], w[i + 1], w[i + 2], w[i + 3]);
 }
 
-__device__ __forceinline__ int byte_at(const uint32_t (&w)[4], int k) {
+__device__ __forceinline__ int byte_at(const uint32_t (&w)[kWords], int k) {
   return (w[k >> 2] >> ((k & 3) * 8)) & 0xff;
 }
 
@@ -114,8 +139,8 @@ __global__ void __launch_bounds__(kThreads) raw_step_kernel(
       if (col0 + k >= x0 && col0 + k < x1) mask |= 1u << k;
   }
 
-  // carried state: ref (3 channels x 16 bytes) and the heatmap
-  uint32_t ref[3][4] = {};
+  // carried state: ref (3 channels x kBytes bytes) and the heatmap
+  uint32_t ref[3][kWords] = {};
   float h[kBytes];
 #pragma unroll
   for (int k = 0; k < kBytes; ++k) h[k] = 0.f;
@@ -124,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) raw_step_kernel(
     const uint8_t* src =
         overall ? base : (kTail ? raw + (long long)(T - 1) * 3 * plane : prev);
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) load16(src + ch * plane + off, ref[ch]);
+    for (int ch = 0; ch < 3; ++ch) load_row(src + ch * plane + off, ref[ch]);
 #pragma unroll
     for (int k = 0; k < kBytes; k += 4) {
       const float4 v = *reinterpret_cast<const float4*>(heat + off + k);
@@ -136,28 +161,28 @@ __global__ void __launch_bounds__(kThreads) raw_step_kernel(
   for (int f = 0; f < B; ++f) {
     const int v = va[f];
     const float vf = (float)v;
-    uint32_t cur[3][4] = {};
+    uint32_t cur[3][kWords] = {};
     if (live) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
-        load16(frames + ((long long)f * 3 + ch) * plane + off, cur[ch]);
+        load_row(frames + ((long long)f * 3 + ch) * plane + off, cur[ch]);
     }
     if (!kTail && !overall && seed && f == 0) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ref[ch][i] = cur[ch][i];
+        for (int i = 0; i < kWords; ++i) ref[ch][i] = cur[ch][i];
     }
     // baseline capture; the ring form skips invalid frames
     if (overall && fl[f] != 0 && (kTail || v != 0)) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ref[ch][i] = cur[ch][i];
+        for (int i = 0; i < kWords; ++i) ref[ch][i] = cur[ch][i];
     }
 
     int s_sg = 0, s_ad = 0, s_mx = 0, s_cnt = 0;
-    uint32_t o[3][4] = {};
+    uint32_t o[3][kWords] = {};
 #pragma unroll
     for (int k = 0; k < kBytes; ++k) {
       const int d0 = byte_at(ref[0], k) - byte_at(cur[0], k);
@@ -187,12 +212,13 @@ __global__ void __launch_bounds__(kThreads) raw_step_kernel(
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ref[ch][i] = cur[ch][i];
+        for (int i = 0; i < kWords; ++i) ref[ch][i] = cur[ch][i];
     }
     if (live) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
-        if (ch < C) store16(out + ((long long)f * C + ch) * plane + off, o[ch]);
+        if (ch < C)
+          store_row(out + ((long long)f * C + ch) * plane + off, o[ch]);
     }
 
     // fixed-order block reduction of the four partials
@@ -229,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) raw_step_kernel(
   if (overall || !kTail) {
     uint8_t* dst = overall ? base : prev;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) store16(dst + ch * plane + off, ref[ch]);
+    for (int ch = 0; ch < 3; ++ch) store_row(dst + ch * plane + off, ref[ch]);
   }
 #pragma unroll
   for (int k = 0; k < kBytes; k += 4)
@@ -284,6 +310,13 @@ extern "C" int dips_raw_tail(
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* dips_error_string(int code) {
+// Statistics tiles per stream (parts is (B, S, dips_raw_tiles(Hp, Wp), 4)).
+extern "C" int dips_raw_tiles(int Hp, int Wp) {
+  return (int)raw_grid(1, Hp, Wp).x;
+}
+
+// cudaGetErrorString for the wrappers' messages; weak, as the median
+// units' (median_common.cuh), so that a library holds exactly one.
+extern "C" __attribute__((weak)) const char* dips_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

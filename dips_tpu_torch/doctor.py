@@ -8,7 +8,10 @@ exit codes but for the card: ``torch`` (version, CUDA, the card's name,
 count and power limit), ``native`` (the framepump host module: SIMD
 layout kernels or the numpy fallback), ``opencv``, ``gstreamer``,
 ``kernels`` (the nvcc that builds the CUDA kernels, and whether the
-library for the current sources is built) and ``report`` (matplotlib).
+library for the current sources is built), ``autotune`` (the tuning
+store's path and this card's entry), ``compile_cache`` (the kernel build
+directory, whether ``DIPS_COMPILE_CACHE`` moves it, and whether the
+default library is built there) and ``report`` (matplotlib).
 Each line names the knob to fix it.  Exit code 1 when a section is not
 ok (no card, no native module, neither nvcc nor a built library).
 """
@@ -142,6 +145,49 @@ def collect(timeout_s: float = 60.0) -> dict:
         }
 
     section("kernels", _kernels)
+
+    def _autotune():
+        from .ops import tuning
+        card_ok = info["torch"].get("ok", False)
+        kind = info["torch"].get("device_name")
+        entry = tuning.device_entry(kind) if card_ok else {}
+        return {
+            "cache_path": tuning.cache_path(),
+            "device_kind": kind,
+            "entry_present": bool(entry),
+            "ok": True,
+            "hint": None if (entry or not card_ok) else
+                f"no autotune entry for {kind!r}: baked-in default geometry "
+                f"in use (run python -m dips_tpu_torch.autotune once)",
+        }
+
+    section("autotune", _autotune)
+
+    def _compile_cache():
+        import os
+
+        from .ops import _build
+        from .utils import compilecache
+        enabled = bool(os.environ.get("DIPS_COMPILE_CACHE"))
+        root = (os.path.abspath(os.path.expanduser(
+            compilecache.default_cache_dir())) if enabled
+            else str(_build.BUILD_ROOT))
+        try:
+            entries = len(os.listdir(root))
+        except OSError:
+            entries = 0
+        key = _build.build_key(_build.network_header())
+        built = os.path.exists(os.path.join(root, key, _build.LIB_NAME))
+        return {
+            "dir": root, "env_enabled": enabled, "entries": entries,
+            "built": built, "ok": True,
+            "hint": None if enabled else
+                "kernel builds live in the checkout's build/ by default: "
+                "set DIPS_COMPILE_CACHE or pass --compile-cache to keep "
+                "them across checkouts and skip the nvcc build",
+        }
+
+    section("compile_cache", _compile_cache)
 
     def _report():
         try:

@@ -6,12 +6,25 @@ PyTorch headers in the build, so it takes seconds, not minutes).  Each
 compile unit runs in its own ``nvcc`` process, all started together, and
 one more ``nvcc`` links the objects: the raw kernel's source, and each
 median kernel's source once per spatial window (``-DDIPS_WINDOW=w``): 9
-processes for the 42 median instances and the raw kernel.  The build
-runs at first use, from the package's own sources only, into
-``build/dips_tpu_torch/<key>/`` at the repository root, where ``<key>`` is a
-hash of the sources, of the generated network header and of the compiler
-flags: a changed source builds anew, an unchanged one loads the cached
-library.
+processes for the 42 median instances and the raw kernel.  Every unit
+exports its own entry points (``dips_median_ring_w3``, ...), so a library
+may hold any set of units.  The build runs at first use, from the
+package's own sources only, into ``BUILD_ROOT/<key>/``
+(``build/dips_tpu_torch/`` at the repository root, or the directory that
+``utils/compilecache.py`` names), where ``<key>`` is a hash of the sources,
+of the generated network header, of the compiler flags, of the units, and
+of the toolchain (nvcc's version and the card's compute capability): a
+changed source builds anew, an unchanged one loads the cached library.
+The build holds an exclusive lock on its directory, so processes sharing a
+cache directory never write the same files at once.
+
+The kernels' block geometry is a build parameter (:class:`Geometry`: the
+median kernels' :class:`MedianTile`, the raw kernel's :class:`RawBlock`),
+passed as ``-D`` flags; the default geometry adds none and builds the
+library above.  Another geometry is built per unit, only for the kernel
+that launches it (``ops/cuda_fused.py`` asks for it when
+``ops/tuning.py``'s store names one; ``autotune.py`` builds its
+candidates so).
 
 The median kernels' selection networks are generated here from
 ``ops/networks.py`` (the column sort and the merge plan of the
@@ -32,15 +45,18 @@ multiply-adds).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass, field, fields
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 from . import networks
 
@@ -56,37 +72,180 @@ WINDOWS = (1, 3, 5, 7)
 #: fixed cost of a few CPU-seconds.
 UNITS = (("raw_ring.cu", None),) + tuple(
     (src, w) for src in SOURCES[1:] for w in WINDOWS)
+RAW_UNIT = UNITS[0]
 LIB_NAME = "libdips_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 #: largest temporal ring the median kernels carry (in shared memory)
 MAX_T = 16
 
+
+
+@dataclass(frozen=True)
+class MedianTile:
+    """The median kernels' tile (``csrc/median_common.cuh``): ``rows`` tile
+    rows, a warp each; ``px`` adjacent pixels a thread (so 32 * px tile
+    columns); ``stages`` frames staged ahead by TMA.  Raises
+    ``ValueError`` outside what the kernels take: rows a multiple of 8 up
+    to 32 (32 * rows threads), px 1, 2 or 4 (the TMA box is 32 * px + 32
+    columns, starting on a 16-byte column), stages 1 to 8."""
+
+    rows: int = 8
+    px: int = 4
+    stages: int = 3
+
+    def __post_init__(self):
+        for f in fields(self):
+            if type(getattr(self, f.name)) is not int:
+                raise ValueError(f"tile {f.name} must be an int")
+        if self.rows % 8 or not 8 <= self.rows <= 32:
+            raise ValueError(f"tile rows {self.rows}: a multiple of 8 up "
+                             f"to 32")
+        if self.px not in (1, 2, 4):
+            raise ValueError(f"tile px {self.px}: 1, 2 or 4")
+        if not 1 <= self.stages <= 8:
+            raise ValueError(f"tile stages {self.stages}: 1 to 8")
+
+    @property
+    def cols(self) -> int:
+        return 32 * self.px
+
+    def name(self) -> str:
+        return f"{self.rows}x{self.cols}/s{self.stages}"
+
+    def smem_bytes(self, window: int, mode: int, t: int) -> int:
+        """Dynamic shared memory of a launch with window ``window``,
+        spatial mode ``mode`` (0 exact, 1 approx, 2 quirk) and ``t`` ring
+        slots: ``Tile<W, M, kBands>::smem_bytes`` of median_common.cuh,
+        which the library reports too (``dips_median_*_smem_w<W>``)."""
+        p = window // 2
+        box_w = self.cols + 32
+        halo_pad = -(-3 * p * box_w // 128) * 128
+        stage = 2 * halo_pad + 3 * self.rows * box_w
+        sort = mode == 0 and window > 1
+        colmed = mode == 1 and window > 1
+        strips = 1 if sort or colmed else 2
+        strip_rows = self.rows + 2 * p
+        sc = self.cols + 8
+        col_rows = self.rows * window if sort else (self.rows if colmed
+                                                    else 0)
+        strip_off = self.stages * stage + 8 * self.stages
+        col_off = strip_off + 2 * strips * strip_rows * sc
+        ring_off = -(-(col_off + 2 * col_rows * sc) // 16) * 16
+        return 128 + ring_off + t * self.px * 32 * self.rows * 4
+
+
+@dataclass(frozen=True)
+class RawBlock:
+    """The raw kernel's block (``csrc/raw_ring.cu``): ``threads`` threads,
+    one statistics tile; ``bytes`` bytes of a row a thread.  Raises
+    ``ValueError`` outside what the kernel takes: threads a multiple of 32
+    up to 1024, bytes 16 or 32 (whole uint4s, a 32-bit roi mask)."""
+
+    threads: int = 256
+    bytes: int = 16
+
+    def __post_init__(self):
+        for f in fields(self):
+            if type(getattr(self, f.name)) is not int:
+                raise ValueError(f"block {f.name} must be an int")
+        if self.threads % 32 or not 32 <= self.threads <= 1024:
+            raise ValueError(f"block threads {self.threads}: a multiple "
+                             f"of 32 up to 1024")
+        if self.bytes not in (16, 32):
+            raise ValueError(f"block bytes {self.bytes}: 16 or 32")
+
+    def name(self) -> str:
+        return f"{self.threads}x{self.bytes}"
+
+    def tiles(self, hp: int, wp: int) -> int:
+        """Statistics tiles per stream of an Hp x Wp section
+        (``dips_raw_tiles``)."""
+        return -(-(hp * wp // self.bytes) // self.threads)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The kernels' block geometry, a build parameter."""
+
+    tile: MedianTile = field(default_factory=MedianTile)
+    block: RawBlock = field(default_factory=RawBlock)
+
+    def defines(self) -> Tuple[str, ...]:
+        """The ``-D`` flags of the fields that differ from the defaults
+        (none for the default geometry)."""
+        macros = {("tile", "rows"): "DIPS_TILE_ROWS",
+                  ("tile", "px"): "DIPS_PX",
+                  ("tile", "stages"): "DIPS_STAGES",
+                  ("block", "threads"): "DIPS_RAW_THREADS",
+                  ("block", "bytes"): "DIPS_RAW_BYTES"}
+        out = []
+        for (part, name), macro in macros.items():
+            v = getattr(getattr(self, part), name)
+            if v != getattr(getattr(DEFAULT, part), name):
+                out.append(f"-D{macro}={v}")
+        return tuple(out)
+
+
+DEFAULT = Geometry()
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signatures: every pointer and the stream as c_void_p
-SIGNATURES = {
+RAW_SIGNATURES = {
     # raw, prev, base, heat, out, parts, flags, valid, seeds,
     # S, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
     "dips_raw_ring": [_P] * 9 + [_I] * 11 + [_F, _P],
-    # raw, btop, bbot, ring, prev, base, heat, out, parts, flags, valid,
-    # offs, seeds,
-    # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
-    # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_ring": [_P] * 13 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
     # raw, base, heat, out, parts, flags, valid,
     # S, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
     # heat_scale, stream
     "dips_raw_tail": [_P] * 7 + [_I] * 12 + [_F, _P],
+    # Hp, Wp -> statistics tiles per stream
+    "dips_raw_tiles": [_I, _I],
+}
+MEDIAN_SIGNATURES = {
+    # raw, btop, bbot, ring, prev, base, heat, out, parts, flags, valid,
+    # offs, seeds,
+    # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
+    # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
+    "ring": [_P] * 13 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
     # raw, btop, bbot, base, heat, out, parts, flags, valid,
     # S, B, Hp, Wp, T, W, spatial mode, overall, out_mode, chroma, filter,
     # k, sens, lo_clip, hi_clip, scale, thr, y0, x0, y1, x1, stream
-    "dips_median_tail": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
-    # Hp, Wp -> statistic partials per (frame, section), 0: not whole tiles
-    "dips_median_parts": [_I, _I],
+    "tail": [_P] * 9 + [_I] * 11 + [_F] * 6 + [_I] * 4 + [_P],
 }
+
+
+def median_unit(tail: bool, window: int) -> Tuple[str, int]:
+    """The compile unit that holds one median kernel's window."""
+    return ("median_tail.cu" if tail else "median_ring.cu", window)
+
+
+def median_symbol(tail: bool, window: int, what: str = "") -> str:
+    """A median unit's entry point: the launch (``what`` ""), ``parts``
+    (statistic partials a frame and section) or ``smem`` (a launch's
+    dynamic shared memory)."""
+    kind = "tail" if tail else "ring"
+    return f"dips_median_{kind}{'_' + what if what else ''}_w{window}"
+
+
+def unit_signatures(unit: Tuple[str, Optional[int]]) -> dict:
+    """The entry points a compile unit exports, with their C signatures."""
+    src, w = unit
+    if src == RAW_UNIT[0]:
+        return dict(RAW_SIGNATURES)
+    tail = src == "median_tail.cu"
+    return {median_symbol(tail, w): MEDIAN_SIGNATURES["tail" if tail
+                                                      else "ring"],
+            median_symbol(tail, w, "parts"): [_I, _I],
+            median_symbol(tail, w, "smem"): [_I, _I]}
+
+
+#: every entry point of the default library
+SIGNATURES = {name: sig for unit in UNITS
+              for name, sig in unit_signatures(unit).items()}
 
 _lib: Optional[ctypes.CDLL] = None
 #: held while one thread builds and loads the library: the object files
@@ -94,8 +253,13 @@ _lib: Optional[ctypes.CDLL] = None
 #: process (a server's sessions at their first launch) must not build at
 #: once
 _lib_lock = threading.Lock()
+#: libraries of other geometries and unit sets, and a lock for each
+_libs: Dict[tuple, ctypes.CDLL] = {}
+_key_locks: Dict[tuple, threading.Lock] = {}
 #: what the last build or load did: directory, seconds, ptxas report
 build_info: Dict[str, object] = {}
+#: nvcc path -> its version line
+_nvcc_versions: Dict[str, str] = {}
 
 
 def _cmpx(i: int, j: int, need_min: bool, need_max: bool, v: str) -> str:
@@ -220,24 +384,99 @@ def _nvcc() -> str:
     return found
 
 
-def build_key(header: str) -> str:
+def toolchain() -> str:
+    """What else a built library depends on: nvcc's version line and the
+    first card's compute capability ("none" for either that is absent)."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        nvcc = None
+    version = "none"
+    if nvcc is not None:
+        if nvcc not in _nvcc_versions:
+            try:
+                out = subprocess.run([nvcc, "--version"],
+                                     capture_output=True, text=True,
+                                     timeout=60).stdout.strip()
+                _nvcc_versions[nvcc] = out.splitlines()[-1] if out \
+                    else "unknown"
+            except (OSError, subprocess.SubprocessError):
+                _nvcc_versions[nvcc] = "none"
+        version = _nvcc_versions[nvcc]
+    capability = "none"
+    import torch
+    try:
+        if torch.cuda.is_available():
+            capability = "sm_%d%d" % torch.cuda.get_device_capability(0)
+    except (RuntimeError, AssertionError):
+        pass
+    return f"nvcc {version}; device {capability}"
+
+
+def _units(units) -> tuple:
+    return UNITS if units is None else tuple(units)
+
+
+def build_key(header: str, geometry: Optional[Geometry] = None,
+              units=None) -> str:
+    """Hash of what a library is built from: the sources, the network
+    header, the compiler flags (the geometry's ``-D`` flags among them),
+    the compile units and :func:`toolchain`."""
+    geometry = geometry or DEFAULT
     h = hashlib.sha256()
     for name in sorted(p.name for p in CSRC.iterdir()
                        if p.suffix in (".cu", ".cuh")):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(header.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(UNITS).encode())
+    h.update(" ".join(NVCC_FLAGS + geometry.defines()).encode())
+    h.update(repr(_units(units)).encode())
+    h.update(toolchain().encode())
     return h.hexdigest()[:16]
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernels unless the cached library for these sources
+def compile_commands(nvcc: str, out_dir: Path, tag: object,
+                     geometry: Optional[Geometry] = None,
+                     units=None) -> list:
+    """[(nvcc command, object file)] of each compile unit."""
+    geometry = geometry or DEFAULT
+    out = []
+    for src, w in _units(units):
+        obj = out_dir / f"{Path(src).stem}.w{w or 0}.{tag}.o"
+        out.append(([nvcc, *NVCC_FLAGS, *geometry.defines(), "-I",
+                     str(out_dir), "-I", str(CSRC)]
+                    + ([] if w is None else [f"-DDIPS_WINDOW={w}"])
+                    + ["-c", "-o", str(obj), str(CSRC / src)], obj))
+    return out
+
+
+@contextlib.contextmanager
+def _dir_lock(out_dir: Path) -> Iterator[None]:
+    """An exclusive lock on a build directory (released when the process
+    ends, so a killed build leaves no stale lock)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd = os.open(out_dir / ".lock", os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def build(force: bool = False, geometry: Optional[Geometry] = None,
+          units=None) -> Path:
+    """Compile the kernels of ``geometry`` (default: :data:`DEFAULT`) in
+    ``units`` (default: all of :data:`UNITS`) unless the cached library
     exists; returns the library path.  Raises with nvcc's output when the
     build fails."""
     header = network_header()
-    out_dir = BUILD_ROOT / build_key(header)
+    out_dir = BUILD_ROOT / build_key(header, geometry, units)
+    with _dir_lock(out_dir):
+        return _build_locked(out_dir, header, force, geometry, units)
+
+
+def _build_locked(out_dir: Path, header: str, force: bool,
+                  geometry: Optional[Geometry], units) -> Path:
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "ptxas.log"
     if lib_path.exists() and not force:
@@ -245,23 +484,20 @@ def build(force: bool = False) -> Path:
                           ptxas=log_path.read_text() if log_path.exists()
                           else "")
         return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "median_networks.cuh").write_text(header)
-    nvcc, tag = _nvcc(), os.getpid()
-    objs = [out_dir / f"{Path(src).stem}.w{w or 0}.{tag}.o"
-            for src, w in UNITS]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.{threading.get_ident()}"
+    cmds = compile_commands(nvcc, out_dir, tag, geometry, units)
+    objs = [obj for _, obj in cmds]
     t0 = time.perf_counter()
     # one nvcc per compile unit, all running at once; then one link
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
-             for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-I",
-                          str(CSRC)]
-                         + ([] if w is None else [f"-DDIPS_WINDOW={w}"])
-                         + ["-c", "-o", str(obj), str(CSRC / src)]
-                         for (src, w), obj in zip(UNITS, objs))]
+             for cmd, _ in cmds]
+    # wait for every unit before raising, so that no nvcc outlives a
+    # failed build
+    done = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
     report = []
-    for cmd, proc in procs:
-        out, err = proc.communicate()
+    for cmd, proc, out, err in done:
         report.append(err + out)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -285,27 +521,55 @@ def build(force: bool = False) -> Path:
     return lib_path
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use, by one thread while
-    any others wait for it)."""
+def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.dips_error_string.argtypes = [ctypes.c_int]
+    handle.dips_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def lib(geometry: Optional[Geometry] = None, units=None) -> ctypes.CDLL:
+    """The loaded kernel library of ``geometry`` and ``units`` (default:
+    the default geometry, every unit), built at first use by one thread
+    while any others wait for it."""
     global _lib
-    if _lib is not None:
+    if (geometry is None or geometry == DEFAULT) and units is None:
+        if _lib is not None:
+            return _lib
+        with _lib_lock:
+            if _lib is None:
+                _lib = _bind(build(), SIGNATURES)
         return _lib
+    key = (geometry or DEFAULT, _units(units))
+    if key in _libs:
+        return _libs[key]
     with _lib_lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.dips_error_string.argtypes = [ctypes.c_int]
-            handle.dips_error_string.restype = ctypes.c_char_p
-            _lib = handle
-    return _lib
+        lock = _key_locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _libs:
+            signatures = {name: sig for unit in key[1]
+                          for name, sig in unit_signatures(unit).items()}
+            _libs[key] = _bind(build(geometry=key[0], units=key[1]),
+                               signatures)
+    return _libs[key]
 
 
-def check(rc: int, name: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+def kernel_lib(geometry: Geometry, unit) -> ctypes.CDLL:
+    """The library a launch of ``unit``'s kernel in ``geometry`` uses: the
+    default library for the default geometry, else one built of that unit
+    alone."""
+    if geometry == DEFAULT:
+        return lib()
+    return lib(geometry, (unit,))
+
+
+def check(rc: int, name: str, handle: Optional[ctypes.CDLL] = None) -> None:
+    """Raise when a C entry point of ``handle`` (default: the default
+    library) returned a CUDA error code."""
     if rc != 0:
-        why = lib().dips_error_string(rc).decode()
+        why = (handle or lib()).dips_error_string(rc).decode()
         raise RuntimeError(f"{name} failed: CUDA error {rc} ({why})")

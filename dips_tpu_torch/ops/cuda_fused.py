@@ -55,6 +55,16 @@ tile of the raw kernel, one per warp of each tile of the median kernels
 (the counterpart of ``_reduce_stats``) runs here in plain torch.  The raw
 path keeps its partials in integers and sums them in int64 before the one
 float conversion.
+
+Block geometry: each launch asks :func:`median_tile` / :func:`raw_block`
+which geometry to build and launch (``ops/_build.py``): the entry that
+``ops/tuning.py``'s store holds for this card and this launch (kernel,
+window, stacked or not, slab bands and the owned height), else the
+default geometry (``_build.DEFAULT``), whose library holds every kernel.
+Without a store file every launch uses the default.  A geometry that
+fails to build or to launch raises; nothing falls back to the default.
+Each wrapper counts its launches per geometry (``fn.geometry_launches``,
+by ``MedianTile.name()`` / ``RawBlock.name()``).
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ import torch
 
 from ..properties import (ChromaFilter, DiPsFilter, DiPsMethod,
                           DiPsProperties, OutputMode)
+from . import _build, tuning
 from . import reference as ref
 
 _CHROMA_CODE = {ChromaFilter.ALL: 0, ChromaFilter.RED: 1,
@@ -226,6 +237,66 @@ def _route(name: str, raw: torch.Tensor) -> bool:
     if raw.device.type == "cpu":
         return False
     raise ValueError(f"{name}: no kernel or plain path for {raw.device}")
+
+
+# ---------------------------------------------------------------------------
+# Block geometry of a launch (counterpart of _ring_geometry / _raw_block_rows)
+# ---------------------------------------------------------------------------
+
+def _smem_limit(device: torch.device) -> int:
+    """Dynamic shared memory a block may opt in to on ``device``."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def median_tile(props: DiPsProperties, hp: int, s: int, tail: bool,
+                bands: bool, device: torch.device) -> _build.MedianTile:
+    """The tile of a median launch on ``device``: the store's entry for
+    this card and this launch -- ``tail_tiles`` (the tail kernel),
+    ``slab_ring_tiles`` at owned height ``hp`` (the ring kernel with
+    bands), ``stacked_ring_tiles`` (s > 1, else ``ring_tiles``) or
+    ``ring_tiles`` -- else the default tile.  The store's tiles are
+    measured in the exact median, so the approx and quirk launches keep
+    the default (a w7 tail tile that won by 18% there lost 6-14% in
+    them).  A stored height that does not divide ``hp``, or whose shared
+    memory at this window and ring length exceeds what a block may use,
+    falls to the largest multiple of 8 below it that does (8 divides
+    every padded height)."""
+    if spatial_mode(props) != "exact":
+        return _build.DEFAULT.tile
+    w = props.window_size
+    kind = tuning._device_kind(device)
+    if tail:
+        stored = tuning.tail_tile(w, kind)
+    elif bands:
+        stored = tuning.slab_ring_tile(w, hp, kind)
+    else:
+        stored = ((tuning.stacked_ring_tile(w, kind) if s > 1 else None)
+                  or tuning.ring_tile(w, kind))
+    if stored is None:
+        return _build.DEFAULT.tile
+    limit = _smem_limit(device)
+    for rows in range(stored.rows, 8, -8):
+        tile = _build.MedianTile(rows, stored.px, stored.stages)
+        if hp % rows == 0 and tile.smem_bytes(
+                w, 0, props.temporal_size) <= limit:
+            return tile
+    return _build.MedianTile(8, stored.px, stored.stages)
+
+
+def raw_block(s: int, wp: int, device: torch.device) -> _build.RawBlock:
+    """The block of a raw launch on ``device``: the store's
+    ``stacked_raw_block`` (s > 1; else, or when it has none,
+    ``raw_block``) for this card, else the default block; a stored width
+    that does not divide the row falls to 16 bytes."""
+    kind = tuning._device_kind(device)
+    stored = ((tuning.stacked_raw_block(kind) if s > 1 else None)
+              or tuning.raw_block(kind))
+    if stored is None:
+        return _build.DEFAULT.block
+    if wp % stored.bytes:
+        return _build.RawBlock(stored.threads, 16)
+    return stored
 
 
 # ---------------------------------------------------------------------------
@@ -406,13 +477,17 @@ def _new_frames(name: str, props: DiPsProperties, raw: torch.Tensor) -> int:
 def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
                 raw: torch.Tensor, prev, baseline_raw: torch.Tensor,
                 snap_flags, heatmap: torch.Tensor, valid, seeds,
-                row_bounds=None):
+                row_bounds=None, block: Optional[_build.RawBlock] = None,
+                reps: int = 1):
     """One launch of ``csrc/raw_ring.cu`` over s row-stacked streams: the
     ring step, or the tail step when ``prev`` is None (raw then starts with
     the T tail frames, and there are no seeds).  ``row_bounds``: the
     sections are row slabs and the roi mask's rows are that window of each
-    (the ``dyn_rows`` form); the statistics keep the full image's scale."""
-    from . import _build
+    (the ``dyn_rows`` form); the statistics keep the full image's scale.
+    ``block``: the geometry to launch (default :func:`raw_block`'s);
+    ``reps``: launches back to back on the same tensors (the tuner times
+    the kernel alone so), the result being the last one's.  Returns (the
+    step's result, the block launched)."""
     rows = _raw_row_window(name, props, row_bounds)
     tail = prev is None
     t_in = props.temporal_size if tail else 0
@@ -429,11 +504,15 @@ def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
     _check_cuda(name, dev, **tensors)
     if wp % 16:
         raise ValueError(f"{name}: Wp={wp} is not a multiple of 16")
+    block = block or raw_block(s, wp, dev)
+    if wp % block.bytes:
+        raise ValueError(f"{name}: Wp={wp} is not a multiple of the "
+                         f"{block.name()} block's {block.bytes} bytes")
     scalars = _stream_i32(name, dev, [
         ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
         + ([] if tail else [("seeds", seeds, (s,))]))
     mode, c = _raw_out_mode(props)
-    n_tiles = -(-(hp * wp // 16) // 256)
+    n_tiles = block.tiles(hp, wp)
     out = torch.empty((b, c, s * hp, wp), dtype=torch.uint8, device=dev)
     parts = torch.empty((b, s, n_tiles, 4), dtype=torch.int32, device=dev)
     y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
@@ -446,21 +525,24 @@ def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
     # the launch goes to the CURRENT device: make it the tensors' own (a
     # mesh cell on another card than the process's current one)
     with torch.cuda.device(dev):
-        if tail:
-            rc = _build.lib().dips_raw_tail(
-                _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
-                _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp,
-                *common)
-        else:
-            rc = _build.lib().dips_raw_ring(
-                _ptr(raw), _ptr(prev), _ptr(baseline_raw), _ptr(heatmap),
-                _ptr(out), _ptr(parts), *map(_ptr, scalars), s, b, hp, wp,
-                *common)
-        _build.check(rc, name)
+        lib = _build.kernel_lib(_build.Geometry(block=block),
+                                _build.RAW_UNIT)
+        for _ in range(reps):
+            if tail:
+                rc = lib.dips_raw_tail(
+                    _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
+                    _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp,
+                    *common)
+            else:
+                rc = lib.dips_raw_ring(
+                    _ptr(raw), _ptr(prev), _ptr(baseline_raw),
+                    _ptr(heatmap), _ptr(out), _ptr(parts),
+                    *map(_ptr, scalars), s, b, hp, wp, *common)
+            _build.check(rc, f"{name} ({block.name()} block)", lib)
     stats = reduce_raw_stats(parts, props, h, w)
     if tail:
-        return out, stats, baseline_raw, heatmap
-    return out, stats, prev, baseline_raw, heatmap
+        return (out, stats, baseline_raw, heatmap), block
+    return (out, stats, prev, baseline_raw, heatmap), block
 
 
 def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
@@ -483,9 +565,9 @@ def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
                                                baseline_raw, snap_flags,
                                                heatmap, valid, seeds,
                                                row_bounds)
-    res = _launch_raw(name, props, h, w, s, raw, prev, baseline_raw,
-                      snap_flags, heatmap, valid, seeds, row_bounds)
-    _count_launch(absdiff_step_ring_stacked, row_bounds=row_bounds)
+    res, block = _launch_raw(name, props, h, w, s, raw, prev, baseline_raw,
+                             snap_flags, heatmap, valid, seeds, row_bounds)
+    _count_launch(absdiff_step_ring_stacked, block, row_bounds=row_bounds)
     return res
 
 
@@ -510,8 +592,8 @@ def absdiff_step_ring(props: DiPsProperties, h: int, w: int,
     if not _route(name, raw):
         out, stats, *state = absdiff_step_ring_stacked_plain(*args)
     else:
-        out, stats, *state = _launch_raw(name, *args)
-        _count_launch(absdiff_step_ring)
+        (out, stats, *state), block = _launch_raw(name, *args)
+        _count_launch(absdiff_step_ring, block)
     return (out, stats[0], *state)
 
 
@@ -550,11 +632,14 @@ def spatial_mode(props: DiPsProperties) -> str:
     return "approx_median" if props.approx_median else "exact"
 
 
-def _count_launch(fn, props: Optional[DiPsProperties] = None,
+def _count_launch(fn, geometry, props: Optional[DiPsProperties] = None,
                   row_bounds=None, bands=None) -> None:
-    """One launch of wrapper ``fn``: its total, its spatial mode's count
-    (the median wrappers pass ``props``) and its row-slab form's."""
+    """One launch of wrapper ``fn`` in ``geometry`` (a ``MedianTile`` or
+    ``RawBlock``): its total, its geometry's count, its spatial mode's (the
+    median wrappers pass ``props``) and its row-slab form's."""
     fn.launches += 1
+    key = geometry.name()
+    fn.geometry_launches[key] = fn.geometry_launches.get(key, 0) + 1
     if props is not None:
         fn.mode_launches[spatial_mode(props)] += 1
     if bands is not None:
@@ -707,17 +792,21 @@ def batch_step_ring_stacked_plain(props: DiPsProperties, h: int, w: int,
 def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
                    raw: torch.Tensor, ring, prev, baseline: torch.Tensor,
                    snap_flags, heatmap: torch.Tensor, valid, offsets, seeds,
-                   row_bounds=None, bands=None):
+                   row_bounds=None, bands=None,
+                   tile: Optional[_build.MedianTile] = None,
+                   reps: int = 1):
     """One launch over s row-stacked streams of ``csrc/median_ring.cu``,
     or of ``csrc/median_tail.cu`` when ``ring`` is None (raw then starts
     with the T tail frames; there is no ring, prev, offset or seed).
     ``row_bounds`` / ``bands``: the sections are row slabs (the
     ``dyn_rows`` and ``slab_bands`` forms); the statistics keep the full
-    image's scale.  Raises ``ValueError`` unless a section's padded
-    geometry is a whole number of the kernels' 8 x 128 tiles (they have no
-    ragged tile; ``pad_geometry`` gives whole tiles)."""
+    image's scale.  ``tile``: the geometry to launch (default
+    :func:`median_tile`'s); ``reps``: as in :func:`_launch_raw`.  Raises ``ValueError`` unless a section's
+    padded geometry is a whole number of the tile's rows x columns (8 x
+    128 by default: the kernels have no ragged tile; ``pad_geometry``
+    gives whole 8 x 128 tiles).  Returns (the step's result, the tile
+    launched)."""
     _check_median_props(name, props)
-    from . import _build
     rows = _row_window(name, row_bounds)
     tail = ring is None
     t = props.temporal_size
@@ -739,11 +828,16 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
         tensors.update(top_band=(bands[0], torch.uint8, band),
                        bottom_band=(bands[1], torch.uint8, band))
     _check_cuda(name, dev, **tensors)
-    n_parts = _build.lib().dips_median_parts(hp, wp)
+    tile = tile or median_tile(props, hp, s, tail, bands is not None, dev)
+    unit = _build.median_unit(tail, props.window_size)
+    lib = _build.kernel_lib(_build.Geometry(tile=tile), unit)
+    fn = _build.median_symbol(tail, props.window_size)
+    n_parts = getattr(lib, _build.median_symbol(
+        tail, props.window_size, "parts"))(hp, wp)
     if n_parts < 1:
         raise ValueError(f"{name}: padded geometry {hp}x{wp} is not a whole "
-                         f"number of the kernels' 8 x 128 tiles "
-                         f"(pad_geometry's is)")
+                         f"number of the kernels' {tile.rows} x {tile.cols} "
+                         f"tiles (pad_geometry's is of 8 x 128)")
     items = [("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
     if not tail:
         offsets = offsets % t if isinstance(offsets, torch.Tensor) \
@@ -767,20 +861,21 @@ def _launch_median(name: str, props: DiPsProperties, h: int, w: int, s: int,
               _f32(0.5 - ref.INV_SIGMOID_EPS), ref.INTENSITY_SCALE,
               _change_thr(props), y0, x0, y1, x1, _stream_ptr(dev))
     with torch.cuda.device(dev):  # see _launch_raw
-        if tail:
-            rc = _build.lib().dips_median_tail(
-                _ptr(raw), *band_ptrs, _ptr(baseline), _ptr(heatmap),
-                _ptr(out), _ptr(parts), *map(_ptr, scalars), *common)
-        else:
-            rc = _build.lib().dips_median_ring(
-                _ptr(raw), *band_ptrs, _ptr(ring), _ptr(prev),
-                _ptr(baseline), _ptr(heatmap), _ptr(out), _ptr(parts),
-                *map(_ptr, scalars), *common)
-        _build.check(rc, name)
+        for _ in range(reps):
+            if tail:
+                rc = getattr(lib, fn)(
+                    _ptr(raw), *band_ptrs, _ptr(baseline), _ptr(heatmap),
+                    _ptr(out), _ptr(parts), *map(_ptr, scalars), *common)
+            else:
+                rc = getattr(lib, fn)(
+                    _ptr(raw), *band_ptrs, _ptr(ring), _ptr(prev),
+                    _ptr(baseline), _ptr(heatmap), _ptr(out), _ptr(parts),
+                    *map(_ptr, scalars), *common)
+            _build.check(rc, f"{name} ({tile.name()} tile)", lib)
     stats = reduce_median_stats(parts, props, h, w)
     if tail:
-        return out, stats, baseline, heatmap
-    return out, stats, ring, prev, baseline, heatmap
+        return (out, stats, baseline, heatmap), tile
+    return (out, stats, ring, prev, baseline, heatmap), tile
 
 
 def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
@@ -810,10 +905,10 @@ def batch_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,
                                              baseline, snap_flags, heatmap,
                                              valid, offsets, seeds,
                                              row_bounds, bands)
-    res = _launch_median(name, props, h, w, s, raw, ring, prev, baseline,
-                         snap_flags, heatmap, valid, offsets, seeds,
-                         row_bounds, bands)
-    _count_launch(batch_step_ring_stacked, props, row_bounds, bands)
+    res, tile = _launch_median(name, props, h, w, s, raw, ring, prev,
+                               baseline, snap_flags, heatmap, valid, offsets,
+                               seeds, row_bounds, bands)
+    _count_launch(batch_step_ring_stacked, tile, props, row_bounds, bands)
     return res
 
 
@@ -838,8 +933,8 @@ def batch_step_ring(props: DiPsProperties, h: int, w: int,
     if not _route(name, raw):
         out, stats, *state = batch_step_ring_stacked_plain(*args)
     else:
-        out, stats, *state = _launch_median(name, *args)
-        _count_launch(batch_step_ring, props)
+        (out, stats, *state), tile = _launch_median(name, *args)
+        _count_launch(batch_step_ring, tile, props)
     return (out, stats[0], *state)
 
 
@@ -914,9 +1009,9 @@ def absdiff_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
         return absdiff_step_stacked_plain(props, h, w, s, raw, baseline_raw,
                                           snap_flags, heatmap, valid,
                                           row_bounds)
-    res = _launch_raw(name, props, h, w, s, raw, None, baseline_raw,
-                      snap_flags, heatmap, valid, None, row_bounds)
-    _count_launch(absdiff_step_stacked, row_bounds=row_bounds)
+    res, block = _launch_raw(name, props, h, w, s, raw, None, baseline_raw,
+                             snap_flags, heatmap, valid, None, row_bounds)
+    _count_launch(absdiff_step_stacked, block, row_bounds=row_bounds)
     return res
 
 
@@ -939,10 +1034,10 @@ def absdiff_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
         out, stats, *state = absdiff_step_stacked_plain(
             props, h, w, 1, raw, baseline_raw, flags, heatmap, vals)
     else:
-        out, stats, *state = _launch_raw(name, props, h, w, 1, raw, None,
-                                         baseline_raw, flags, heatmap, vals,
-                                         None)
-        _count_launch(absdiff_step)
+        (out, stats, *state), block = _launch_raw(
+            name, props, h, w, 1, raw, None, baseline_raw, flags, heatmap,
+            vals, None)
+        _count_launch(absdiff_step, block)
     return (out, stats[0], *state)
 
 
@@ -1028,10 +1123,10 @@ def batch_step_stacked(props: DiPsProperties, h: int, w: int, s: int,
         return batch_step_stacked_plain(props, h, w, s, raw, baseline,
                                         snap_flags, heatmap, valid,
                                         row_bounds, bands)
-    res = _launch_median(name, props, h, w, s, raw, None, None, baseline,
-                         snap_flags, heatmap, valid, None, None, row_bounds,
-                         bands)
-    _count_launch(batch_step_stacked, props, row_bounds, bands)
+    res, tile = _launch_median(name, props, h, w, s, raw, None, None,
+                               baseline, snap_flags, heatmap, valid, None,
+                               None, row_bounds, bands)
+    _count_launch(batch_step_stacked, tile, props, row_bounds, bands)
     return res
 
 
@@ -1054,10 +1149,10 @@ def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
         out, stats, *state = batch_step_stacked_plain(
             props, h, w, 1, raw, baseline, flags, heatmap, vals)
     else:
-        out, stats, *state = _launch_median(name, props, h, w, 1, raw, None,
-                                            None, baseline, flags, heatmap,
-                                            vals, None, None)
-        _count_launch(batch_step, props)
+        (out, stats, *state), tile = _launch_median(
+            name, props, h, w, 1, raw, None, None, baseline, flags, heatmap,
+            vals, None, None)
+        _count_launch(batch_step, tile, props)
     return (out, stats[0], *state)
 
 
@@ -1076,10 +1171,11 @@ _SLAB_KERNELS = {absdiff_step_ring_stacked: SLAB_FORMS[:1],
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0, per spatial mode
-    too."""
+    """Set every kernel wrapper's launch count to 0, per geometry, form and
+    spatial mode too."""
     for fn in _KERNELS:
         fn.launches = 0
+        fn.geometry_launches = {}
     for fn in _SLAB_KERNELS:
         fn.form_launches = dict.fromkeys(SLAB_FORMS, 0)
     for fn in _MEDIAN_KERNELS:
@@ -1100,6 +1196,13 @@ def launch_counts() -> dict:
         for mode in SPATIAL_MODES[1:]:
             counts[f"{fn.__name__}:{mode}"] = fn.mode_launches[mode]
     return counts
+
+
+def geometry_counts() -> dict:
+    """Launches per wrapper and geometry: {name: {geometry name: n}}, for
+    the wrappers that launched."""
+    return {fn.__name__: dict(fn.geometry_launches) for fn in _KERNELS
+            if fn.geometry_launches}
 
 
 reset_launch_counts()

@@ -4,8 +4,9 @@ Counterpart of ``dips_tpu/serve/daemon.py`` with the same flags, messages
 and exit codes (2 for a usage error), on the port's CLI parser: its
 ``--device`` (default "cuda"; without a card the daemon exits 1, as the
 run CLI does, unless ``--device cpu`` is given) takes the place of
-``--backend``.  The JAX daemon's XLA compile-cache flag has no counterpart:
-the CUDA kernels are built once per source hash (``ops/_build.py``)."""
+``--backend``.  ``--compile-cache [DIR]`` keeps the built CUDA kernels under
+DIR (``utils/compilecache.py``) where the JAX daemon keeps XLA's
+executables."""
 
 from __future__ import annotations
 
@@ -114,6 +115,9 @@ def main(argv=None) -> int:
                          "unattended fleet cameras.  The fired reply "
                          "carries 'baseline_refresh' (frame index); "
                          "fires count in the auto_refreshes metric")
+    from ..utils.compilecache import (add_compile_cache_flag,
+                                     apply_compile_cache_flag)
+    add_compile_cache_flag(ap)
     args = ap.parse_args(argv)
     if args.event_webhook and not args.events:
         print("error: --event-webhook requires --events", file=sys.stderr)
@@ -133,6 +137,9 @@ def main(argv=None) -> int:
                   "(want FRAC[:PERSIST[:COOLDOWN]], e.g. 0.6:3:64)",
                   file=sys.stderr)
             return 2
+    cache_dir = apply_compile_cache_flag(args)
+    if cache_dir:
+        print(f"compile cache: {cache_dir}", flush=True)
     try:
         props = props_from_args(args)
     except ValueError as e:  # e.g. a malformed/inverted --roi rectangle

@@ -676,7 +676,11 @@ def main(argv=None) -> int:
                     default=None, metavar="N",
                     help="ALSO run the N-frame soak after the case matrix "
                          "(one artifact covering both)")
+    from .utils.compilecache import (add_compile_cache_flag,
+                                     apply_compile_cache_flag)
+    add_compile_cache_flag(ap)
     args = ap.parse_args(argv)
+    apply_compile_cache_flag(args)
     try:
         device = resolve_device(args.device)
     except DeviceError as e:

@@ -714,3 +714,174 @@ def test_fft_ops_on_the_card_match_the_cpu(cuda):
     assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
     with pytest.raises(ValueError, match="was asked for"):
         analysis.fft_denoise(torch.from_numpy(img), 9, device="cuda")
+
+
+# -- the block geometry, a build parameter ------------------------------------
+
+#: a height every tile height divides (8, 16, 24, 32 rows)
+GH = 96
+GEOMETRY_TILES = [(24, 2, 2), (16, 1, 4)]
+GEOMETRY_BLOCKS = [(512, 32), (128, 16), (1024, 32)]
+#: a tile whose shared memory at w7 and T = 16 exceeds an H100's
+TOO_BIG = (32, 4, 4)
+
+
+@pytest.fixture(scope="module")
+def geometry_libs():
+    """Build every library the geometry tests launch at once, one nvcc a
+    unit (one at a time, they would take minutes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dips_tpu_torch import autotune
+    from dips_tpu_torch.ops import _build
+    from dips_tpu_torch.ops._build import Geometry, MedianTile, RawBlock
+    units = [_build.median_unit(tail, w) for tail in (False, True)
+             for w in (1, 3, 7)]
+    specs = [(Geometry(tile=MedianTile(*t)), (u,))
+             for t in GEOMETRY_TILES for u in units]
+    specs += [(Geometry(tile=MedianTile(*TOO_BIG)),
+               (_build.median_unit(False, 7),))]
+    specs += [(Geometry(block=RawBlock(*b)), (_build.RAW_UNIT,))
+              for b in GEOMETRY_BLOCKS]
+    autotune._build_all([(Geometry(), None)] + specs)
+
+
+def _geometry_runs(props, cuda, tail, tile, s=2):
+    """Two batches of the median ring (tail) kernel at s stacked sections
+    of GH x W, launched with ``tile`` (None: the default)."""
+    from dips_tpu_torch.ops import _build  # noqa: F401
+    t = props.temporal_size
+    hp, wp = pad_geometry(GH, W)
+    b = 6
+    frames = (t if tail else 0) + b
+    raw = torch.from_numpy(np.concatenate(
+        [make_raw(frames, GH, W, 40 + si) for si in range(s)],
+        axis=2)).to(cuda)
+    flags = np.zeros((s, b), bool)
+    flags[:, [0, 4]] = True
+    valid = np.ones((s, b), bool)
+    valid[-1, 3] = False
+    st = [None if tail else torch.zeros((t, s * hp, wp), device=cuda),
+          None if tail else torch.zeros((s * hp, wp), device=cuda),
+          torch.zeros((s * hp, wp), device=cuda),
+          torch.zeros((s * hp, wp), device=cuda)]
+    runs = []
+    for seeded in (1, 0):
+        res, used = cuda_fused._launch_median(
+            "test", props, GH, W, s, raw, st[0], st[1], st[2], flags, st[3],
+            valid, None if tail else np.arange(s) % t,
+            None if tail else np.full(s, seeded), tile=tile)
+        runs.append([x.clone() for x in res])
+    torch.cuda.synchronize()
+    return runs, used
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("geom", GEOMETRY_TILES)
+@pytest.mark.parametrize("window", [3, 7])
+def test_a_tile_launch_equals_the_default(cuda, geometry_libs, geom, tail,
+                                         window):
+    """A non-default tile's launch equals the default tile's: maps and
+    carried state bit for bit, stats within 1e-5 (the per-warp partials
+    are summed in float32 over a tile's pixels, and the tile changed)."""
+    from dips_tpu_torch.ops._build import MedianTile
+    props = DiPsProperties(window_size=window, temporal_size=3)
+    exp, used = _geometry_runs(props, cuda, tail, None)
+    assert used == MedianTile()
+    got, used = _geometry_runs(props, cuda, tail, MedianTile(*geom))
+    assert used == MedianTile(*geom)
+    for g, e in zip(got, exp):
+        for i, (x, y) in enumerate(zip(g, e)):
+            if i == 1:
+                _assert_stats(x.reshape(-1, 4), y.reshape(-1, 4))
+            else:
+                assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("block", GEOMETRY_BLOCKS)
+@pytest.mark.parametrize("props", RAW_CASES[:3])
+def test_a_raw_block_launch_equals_the_default(cuda, geometry_libs, props,
+                                               block):
+    """A non-default raw block's launch equals the default's bit for bit,
+    stats too (integer partials summed in int64)."""
+    from dips_tpu_torch.ops._build import RawBlock
+    hp, wp = pad_geometry(H, W)
+    raw = torch.from_numpy(make_raw(8, H, W, 7)).to(cuda)
+    out = []
+    for blk in (None, RawBlock(*block)):
+        st = _state(props, hp, wp, True, cuda)
+        runs = []
+        for seeded in (1, 0):
+            res, used = cuda_fused._launch_raw(
+                "test", props, H, W, 1, raw, st[0], st[1],
+                [[1, 0, 0, 1, 0, 0, 0, 0]], st[2], [[1] * 8], [seeded],
+                block=blk)
+            runs.append([x.clone() for x in res])
+        assert used == (blk or RawBlock())
+        out.append(runs)
+    for g, e in zip(*out):
+        for x, y in zip(g, e):
+            assert torch.equal(x, y)
+
+
+def test_shared_memory_mirror_matches_the_library(cuda, geometry_libs):
+    """``MedianTile.smem_bytes`` (which drops the candidates that cannot
+    launch before they are built) equals what the kernels ask for."""
+    from dips_tpu_torch.ops import _build
+    from dips_tpu_torch.ops._build import Geometry, MedianTile
+    for tile in (MedianTile(), *(MedianTile(*t) for t in GEOMETRY_TILES)):
+        for w in (1, 3, 7):
+            for tail in (False, True):
+                lib = _build.kernel_lib(Geometry(tile=tile),
+                                        _build.median_unit(tail, w))
+                fn = getattr(lib, _build.median_symbol(tail, w, "smem"))
+                for mode in range(3):
+                    for t in (1, 4, 16):
+                        assert fn(mode, t) == tile.smem_bytes(w, mode, t)
+
+
+def test_a_tile_that_cannot_launch_raises(cuda, geometry_libs):
+    """A tile whose shared memory exceeds the card's raises at its launch;
+    nothing falls back to the default."""
+    from dips_tpu_torch.ops._build import MedianTile
+    props = DiPsProperties(window_size=7, temporal_size=16)
+    with pytest.raises(RuntimeError, match="32x128/s4 tile"):
+        _geometry_runs(props, cuda, False, MedianTile(*TOO_BIG), s=1)
+
+
+def test_a_stored_geometry_reaches_the_engine(cuda, geometry_libs, tmp_path,
+                                             monkeypatch):
+    """With a store naming a non-default tile and block for this card, the
+    engines launch them, and their outputs equal the default's."""
+    from dips_tpu_torch import DiPsEngine
+    from dips_tpu_torch.ops import tuning
+    from dips_tpu_torch.ops._build import MedianTile, RawBlock
+    frames = [np.ascontiguousarray(f.transpose(1, 2, 0))
+              for f in make_raw(8, GH, W, 3)[:, :, :GH, :W]]
+
+    def run(props):
+        eng = DiPsEngine(props, GH, W, batch=8, device="cuda")
+        cuda_fused.reset_launch_counts()
+        out, stats = eng.process_batch(frames)
+        return out, stats, cuda_fused.geometry_counts()
+
+    monkeypatch.setenv("DIPS_TPU_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "a.json"))
+    tuning.invalidate()
+    for props, name in ((DiPsProperties(), "batch_step_ring"),
+                        (DiPsProperties(output=OutputMode.ABSDIFF),
+                         "absdiff_step_ring")):
+        out0, stats0, geo0 = run(props)
+        assert geo0 == {name: {("8x128/s3" if "batch" in name
+                                else "256x16"): 1}}
+        tuning.save(torch.cuda.get_device_name(0),
+                    ring_tiles={3: MedianTile(24, 2, 2)},
+                    raw_block=RawBlock(512, 32))
+        out1, stats1, geo1 = run(props)
+        assert geo1 == {name: {("24x64/s2" if "batch" in name
+                                else "512x32"): 1}}
+        np.testing.assert_array_equal(out1, out0)
+        np.testing.assert_allclose(stats1, stats0, rtol=1e-5, atol=1e-7)
+        tuning.save(torch.cuda.get_device_name(0),
+                    ring_tiles={3: MedianTile()}, raw_block=RawBlock())
+    tuning.invalidate()

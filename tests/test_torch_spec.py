@@ -221,6 +221,8 @@ def test_serve_imports_no_jax_module():
             "import dips_tpu_torch.report, dips_tpu_torch.utils.indexing\n"
             "import dips_tpu_torch.utils.profiling\n"
             "import dips_tpu_torch.native, dips_tpu_torch.doctor\n"
+            "import dips_tpu_torch.autotune, dips_tpu_torch.ops.tuning\n"
+            "import dips_tpu_torch.utils.compilecache\n"
             "from dips_tpu_torch.io import (video, gstreamer, synthetic,\n"
             "    datfiles, subsample, thumbnail, eventrecorder, gstbind)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -527,3 +529,27 @@ def test_exports_cover_the_jax_package():
     assert {"make_sharded_step", "make_sharded_ring_step"} <= names
     for name in sorted(names):
         assert callable(getattr(dips_tpu_torch.parallel, name, None)), name
+
+
+@pytest.mark.parametrize("rel,names", [
+    ("autotune.py", ["find_largest_fitting", "_bh_candidates",
+                     "_two_point_fit", "main"]),
+    ("ops/tuning.py", ["cache_path", "_load", "invalidate", "_device_kind",
+                       "device_entry", "save"]),
+    ("utils/compilecache.py", ["default_cache_dir", "enable_compile_cache",
+                               "add_compile_cache_flag",
+                               "apply_compile_cache_flag"])])
+def test_tuning_modules_carry_the_jax_names(rel, names):
+    """The tuning slice's modules exist beside their JAX counterparts and
+    carry the names whose meaning carries over, as callables; the tuner is
+    a script of the package, as ``dips-autotune`` is of the JAX one."""
+    import importlib
+    mod = "." + rel[:-3].replace("/", ".")
+    port = importlib.import_module(mod, "dips_tpu_torch")
+    orig = importlib.import_module(mod, "dips_tpu")
+    for name in names:
+        assert callable(getattr(orig, name)), name
+        assert callable(getattr(port, name)), name
+    toml = (ROOT / "pyproject.toml").read_text()
+    assert 'dips-torch-autotune = "dips_tpu_torch.autotune:main"' in toml
+    assert 'dips-autotune = "dips_tpu.autotune:main"' in toml
