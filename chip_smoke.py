@@ -174,6 +174,7 @@ ptxas); the last line is
 repository around it, it exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -4150,19 +4151,15 @@ def _hold_geometry(tag, kind, got, dflt, plain):
                      tol["stats_rtol"])
 
 
-def _engine_with_store(props, frames, store):
-    """One 1080p batch through a ``DiPsEngine`` with the tuning store at
-    ``store`` -> (maps, stats, launches per wrapper and geometry)."""
-    from dips_tpu_torch import DiPsEngine
-    from dips_tpu_torch.ops import cuda_fused, tuning
+@contextlib.contextmanager
+def _tuning_store(path):
+    """The tuning store at ``path`` for the launches inside."""
+    from dips_tpu_torch.ops import tuning
     old = os.environ.get("DIPS_TPU_TORCH_AUTOTUNE_CACHE")
-    os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = store
+    os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = path
     tuning.invalidate()
     try:
-        eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda")
-        cuda_fused.reset_launch_counts()
-        out, stats = eng.process_batch(frames)
-        return out, stats, cuda_fused.geometry_counts()
+        yield
     finally:
         if old is None:
             del os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"]
@@ -4171,21 +4168,107 @@ def _engine_with_store(props, frames, store):
         tuning.invalidate()
 
 
+def _write_store(path, **entries):
+    """A fresh store at ``path`` holding ``entries`` for this card."""
+    import torch
+    from dips_tpu_torch.ops import tuning
+    if os.path.exists(path):
+        os.remove(path)
+    with _tuning_store(path):
+        tuning.save(torch.cuda.get_device_name(0), **entries)
+    return path
+
+
+def _engine_with_store(props, frames, store):
+    """One 1080p batch through a ``DiPsEngine`` with the tuning store at
+    ``store`` -> (maps, stats, launches per wrapper and geometry)."""
+    from dips_tpu_torch import DiPsEngine
+    from dips_tpu_torch.ops import cuda_fused
+    with _tuning_store(store):
+        eng = DiPsEngine(props, H1080, W1080, batch=B, device="cuda")
+        cuda_fused.reset_launch_counts()
+        out, stats = eng.process_batch(frames)
+        return out, stats, cuda_fused.geometry_counts()
+
+
+def _grid_with_store(props, frame, store):
+    """One batch of the 1080p x 8 ring fleet on the one-card GRID (bands)
+    with the tuning store at ``store`` -> (batches, state, launches per
+    wrapper and geometry)."""
+    import torch
+    from dips_tpu_torch.ops import cuda_fused
+    with _tuning_store(store):
+        cuda_fused.reset_launch_counts()
+        batches, state = run_grid_batches(props, frame, 1, True,
+                                          one_card_mesh(*GRID), "bands")
+        torch.cuda.synchronize()
+        return batches, state, cuda_fused.geometry_counts()
+
+
+#: the tuner's probes at ``--windows 3 --mesh 2x3 --stacked 4``
+TUNER_ARGS = ("--windows", "3", "--mesh", "2x3", "--stacked", "4",
+              "--dry-run")
+TUNER_PROBES = ("ring w3", "tail w3", "stacked[4] ring w3",
+                "slab[2x3] ring w3", "stacked[4]-slab[2x3] ring w3", "raw",
+                "stacked[4] raw")
+
+
+def _tuner_call(work, i):
+    """``python -m dips_tpu_torch.autotune TUNER_ARGS`` in a process of its
+    own, the store pointed at a scratch file that the dry run must leave
+    unwritten -> ({probe: chosen geometry}, its chosen lines, seconds)."""
+    store = os.path.join(work, f"autotune{i}.json")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, DIPS_TPU_TORCH_AUTOTUNE_CACHE=store,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.abspath("."), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dips_tpu_torch.autotune",
+                          *TUNER_ARGS], env=env, capture_output=True,
+                         text=True, timeout=400)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(work, f"tuner{i}.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"[autotune] tuner call {i} exit "
+                             f"{res.returncode}:\n{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("[autotune]")]
+    if not any("dry run" in ln for ln in lines) or os.path.exists(store):
+        raise AssertionError("[autotune] the dry run wrote the store or "
+                             "did not say it was one")
+    chosen = [ln for ln in lines if ln.startswith("[autotune] chosen ")]
+    picks = {}
+    for ln in chosen:
+        label, rest = ln[len("[autotune] chosen "):].split(": ", 1)
+        picks[label] = rest.split(" ", 1)[0]
+    if sorted(picks) != sorted(TUNER_PROBES):
+        raise AssertionError(f"[autotune] tuner call {i} probed "
+                             f"{sorted(picks)}, not {sorted(TUNER_PROBES)}")
+    return picks, lines, secs
+
+
 def phase_autotune(card):
     """The kernels' block geometry as a build parameter, and the tuner:
     two non-default tiles of the exact w3 ring kernel and two non-default
     blocks of the raw ABSDIFF ring kernel, built for their units alone (in
     parallel), each held at 1080p, B = 16 over two batches against the
-    default geometry's launch and the plain twin; ``python -m
-    dips_tpu_torch.autotune --windows 3 --dry-run`` in a process of its
-    own with the store pointed at a scratch file (its probe times printed
-    here, with this card's line); one engine batch with a store that names
-    a non-default tile and block, which its launches must use, and whose
-    outputs must equal the default engine's.  Equality, not timing: the
-    tuner's times are its own."""
-    import torch
+    default geometry's launch and the plain twin; the two tiles in the
+    stacked band form too (s = 4 owned 360-row slabs with bands, the grid
+    fleet's launch) against the default's; one engine batch with a store
+    that names a non-default tile and block, which its launches must use,
+    and whose outputs must equal the default engine's; one batch of the
+    1080p x 8 grid fleet with a store naming a stacked-slab tile (its band
+    launches must take it) and with one naming only the s = 1 slab tile
+    (they must keep the default); two calls of ``python -m
+    dips_tpu_torch.autotune --windows 3 --mesh 2x3 --stacked 4 --dry-run``,
+    each in a process of its own with the store pointed at a scratch file,
+    which must choose the same geometry for every probe (their probe
+    times printed here, with this card's line).  Equality, not timing:
+    the tuner's times are its own."""
     from dips_tpu_torch import autotune
-    from dips_tpu_torch.ops import _build, tuning
+    from dips_tpu_torch.ops import _build
     from dips_tpu_torch.ops._build import Geometry, MedianTile, RawBlock
     from dips_tpu_torch.properties import DiPsProperties, OutputMode
     work = os.path.abspath(os.path.join("build", "chip_smoke", "autotune"))
@@ -4210,52 +4293,29 @@ def phase_autotune(card):
             log(f"[autotune] {kind} {g.name()} 1080p B={B}: equal to the "
                 f"default geometry's launch and within the plain twin's "
                 f"tolerance over two batches")
+    s_l, r_ax = FLEET // GRID[0], GRID[1]
+    hold, _, hs, _ = autotune._median_measure_factory(
+        3, H1080, W1080, 4, B, s=s_l, rows_ax=r_ax, seed=41)
+    for g in tiles:
+        hold(g)
+        log(f"[autotune] median {g.name()} stacked band form, s = {s_l} "
+            f"owned {hs}-row slabs with bands, B={B}: maps, ring / prev / "
+            f"baseline / heatmap equal to the default tile's bit for bit, "
+            f"stats within 1e-5, over two batches")
 
-    store = os.path.join(work, "autotune.json")
-    if os.path.exists(store):
-        os.remove(store)
-    env = dict(os.environ, DIPS_TPU_TORCH_AUTOTUNE_CACHE=store,
-               PYTHONPATH=os.pathsep.join(
-                   [os.path.abspath("."), os.environ.get("PYTHONPATH", "")]))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "dips_tpu_torch.autotune",
-                          "--windows", "3", "--dry-run"], env=env,
-                         capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    with open(os.path.join(work, "tuner.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise AssertionError(f"[autotune] the tuner exit {res.returncode}:"
-                             f"\n{res.stderr[-3000:]}")
-    lines = [ln for ln in res.stdout.splitlines()
-             if ln.startswith("[autotune]")]
-    if not any("dry run" in ln for ln in lines) or os.path.exists(store):
-        raise AssertionError("[autotune] the dry run wrote the store or "
-                             "did not say it was one")
-    log(f"[autotune] {card}")
-    for ln in lines:
-        log(ln)
-    log(f"[autotune] the tuner, --windows 3 --dry-run: {secs:.1f} s")
-
+    no_store = os.path.join(work, "no-store.json")
+    if os.path.exists(no_store):
+        os.remove(no_store)
     frames = moving_square_frames(B, H1080, W1080, 31)
-    kind_name = torch.cuda.get_device_name(0)
     for props, name, geom in (
             (DiPsProperties(), "batch_step_ring", tiles[0]),
             (DiPsProperties(output=OutputMode.ABSDIFF), "absdiff_step_ring",
              blocks[0])):
-        out0, stats0, geo0 = _engine_with_store(props, frames, store)
-        path = os.path.join(work, f"store-{name}.json")
-        if os.path.exists(path):
-            os.remove(path)
-        os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"] = path
-        try:
-            if name == "batch_step_ring":
-                tuning.save(kind_name, ring_tiles={3: geom})
-            else:
-                tuning.save(kind_name, raw_block=geom)
-        finally:
-            del os.environ["DIPS_TPU_TORCH_AUTOTUNE_CACHE"]
-            tuning.invalidate()
+        out0, stats0, geo0 = _engine_with_store(props, frames, no_store)
+        key = "ring_tiles" if name == "batch_step_ring" else "raw_block"
+        path = _write_store(os.path.join(work, f"store-{name}.json"),
+                            **{key: {3: geom} if key == "ring_tiles"
+                               else geom})
         out1, stats1, geo1 = _engine_with_store(props, frames, path)
         dname = (_build.DEFAULT.tile if name == "batch_step_ring"
                  else _build.DEFAULT.block).name()
@@ -4270,6 +4330,50 @@ def phase_autotune(card):
         log(f"[autotune] engine {name} with a store naming {geom.name()}: "
             f"launched it ({geo1[name]}), outputs equal to the default "
             f"engine's")
+
+    # the grid fleet's band launches: a stored stacked-slab tile reaches
+    # them; the s = 1 slab tile alone does not
+    frame, props = FleetFrames(77), DiPsProperties()
+    name, cells = "batch_step_ring_stacked", GRID[0] * GRID[1]
+    dname = _build.DEFAULT.tile.name()
+    exp, estate, geo0 = _grid_with_store(props, frame, no_store)
+    for label, entries, want in (
+            ("stacked_slab_ring_tiles", dict(stacked_slab_ring_tiles={
+                3: {hs: tiles[0]}}), tiles[0].name()),
+            ("slab_ring_tiles alone", dict(slab_ring_tiles={
+                3: {hs: tiles[0]}}), dname)):
+        path = _write_store(os.path.join(work, "store-grid.json"),
+                            **entries)
+        got, gstate, geo1 = _grid_with_store(props, frame, path)
+        if geo0 != {name: {dname: cells}} or geo1 != {name: {want: cells}}:
+            raise AssertionError(f"[autotune] grid fleet launches {geo0} "
+                                 f"without a store, {geo1} with "
+                                 f"{label}")
+        _same_fleet_runs(f"[autotune] grid fleet, {label}", got, exp)
+        _same_fleet_state(f"[autotune] grid fleet, {label}", gstate, estate)
+        log(f"[autotune] grid fleet 1080p x {FLEET} on a {GRID} grid, "
+            f"bands, a store with {label}[3][{hs}] = {tiles[0].name()}: "
+            f"{cells} band launches of {want}, maps and carried state equal "
+            f"to the fleet's without a store")
+        del got, gstate
+    del exp, estate
+
+    calls = [_tuner_call(work, i) for i in (1, 2)]
+    log(f"[autotune] {card}")
+    for ln in calls[0][1]:
+        log(ln)
+    for i, (picks, lines, secs) in enumerate(calls, 1):
+        log(f"[autotune] tuner call {i}, {' '.join(TUNER_ARGS)}: "
+            f"{secs:.1f} s")
+        for ln in lines:
+            if ln.startswith("[autotune] chosen "):
+                log(f"[autotune] call {i}: {ln[len('[autotune] '):]}")
+    if calls[0][0] != calls[1][0]:
+        raise AssertionError(f"[autotune] two tuner calls chose "
+                             f"differently: {calls[0][0]} against "
+                             f"{calls[1][0]}")
+    log(f"[autotune] two tuner calls chose the same geometry for all "
+        f"{len(TUNER_PROBES)} probes: {calls[0][0]}")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,10 @@ persists, per card name, the fastest that agrees with the default:
 * ``--stacked S``: the ring kernels at S streams stacked along the rows
   (the fleet and coalesced-serving shape), persisted under their own keys;
 * ``--mesh SxR``: the band-form median ring kernel at the owned slab
-  height (padded height / R) a row-sharded deployment launches.
+  height (padded height / R) a row-sharded deployment launches;
+* ``--mesh SxR --stacked S``: also that band form at S owned slabs stacked
+  along the rows (a grid cell holding S streams: the grid fleet's
+  launch), persisted under ``stacked_slab_ring_tiles``.
 
 Each candidate is built for its kernel's compile unit alone (one ``nvcc``
 each, all started together).  Before it is timed its outputs are held
@@ -25,9 +28,15 @@ bit for bit, the statistics within 1e-5 (the number of per-warp partials
 changes with the tile).  A candidate that disagrees is an error, never a
 candidate.  Timing: device-resident loops of launches (the kernel alone,
 no host work between launches) under CUDA events, the minimum of 3 runs,
-fitted over two loop lengths.  The fastest candidate is kept, unless it
-is within 2% of the default, which then stays.  Every candidate's ms a
-stream-frame is printed beside the card's name and power limit.
+fitted over two loop lengths (the longer one at least 8 ms of the default
+geometry's launches); every candidate is timed so once a round in
+:data:`ROUNDS` interleaved rounds, each round starting at another
+candidate, and its time is the median of its rounds.  The fastest
+candidate is kept only when its slowest round beats the default's fastest
+round by more than 2% (a gain inside the spread between rounds is no
+gain); else the default stays.  Every candidate's ms a stream-frame and
+spread (max - min over median) are printed beside the card's name and
+power limit.
 
 Results persist through :mod:`dips_tpu_torch.ops.tuning`; the geometry
 pickers consult that store before the defaults, so running this once per
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -62,8 +72,15 @@ MAX_TILE_ROWS = 32
 #: candidate raw block threads and bytes a thread
 BLOCK_THREADS = (128, 256, 512)
 BLOCK_BYTES = (16, 32)
-#: a candidate must beat the default by more than this share to be kept
+#: a candidate's slowest round must beat the default's fastest by more
+#: than this share for it to be kept
 MIN_GAIN = 0.02
+#: interleaved timing rounds of every candidate
+ROUNDS = 5
+#: the longer loop of a fit lasts at least this long (seconds): a short
+#: kernel (raw or a slab at s = 1) timed over a few ms has rounds that
+#: spread more, and the margin rule reads the extreme rounds
+FIT_SECONDS = 0.008
 #: the spatial mode the tiles are measured in (exact median)
 EXACT = 0
 #: statistics tolerance of a candidate against the default (relative)
@@ -131,6 +148,23 @@ def _two_point_fit(run: Callable[[int], None], iters: Tuple[int, int],
     raise RuntimeError("the two-point fit found no positive time a launch")
 
 
+def _fit_lengths(run: Callable[[int], None]) -> Tuple[int, int]:
+    """The two loop lengths of :func:`_two_point_fit` for ``run`` (the
+    default geometry's loop): (8k, 24k), k the least for which 24k
+    launches last :data:`FIT_SECONDS`."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    run(24)  # warm
+    start.record()
+    run(24)
+    end.record()
+    end.synchronize()
+    k = max(1, math.ceil(FIT_SECONDS / max(start.elapsed_time(end) / 1e3,
+                                           1e-9)))
+    return 8 * k, 24 * k
+
+
 def tile_candidates(hp: int, window: int, t: int,
                     limit: int) -> list:
     """The tiles to measure for a median kernel at section height ``hp``:
@@ -157,13 +191,53 @@ def block_candidates(wp: int) -> list:
             if wp % by == 0]
 
 
-def choose(seconds: dict, default):
-    """The fastest geometry of ``seconds`` ({geometry: seconds}), unless
-    it is within :data:`MIN_GAIN` of ``default``, which then stays."""
-    best = min(seconds, key=seconds.get)
-    if seconds[best] > seconds[default] * (1 - MIN_GAIN):
+def _median(rounds: dict) -> dict:
+    return {g: float(np.median(v)) for g, v in rounds.items()}
+
+
+def choose(rounds: dict, default):
+    """The fastest geometry of ``rounds`` ({geometry: [seconds a round]})
+    by its median, kept only when its slowest round beats ``default``'s
+    fastest by more than :data:`MIN_GAIN`; else ``default``."""
+    med = _median(rounds)
+    best = min(med, key=med.get)
+    if max(rounds[best]) > min(rounds[default]) * (1 - MIN_GAIN):
         return default
     return best
+
+
+def time_rounds(cands: list, time: Callable, rounds: int = ROUNDS) -> dict:
+    """{candidate: [seconds of each round]}: ``time(c)`` of every candidate
+    once a round, ``rounds`` rounds, round r starting at candidate r * n /
+    rounds, so that drift of clocks or temperature along a round does not
+    favour one position."""
+    n = len(cands)
+    out = {c: [] for c in cands}
+    for r in range(rounds):
+        k = r * n // rounds
+        for c in cands[k:] + cands[:k]:
+            out[c].append(time(c))
+    return out
+
+
+def _outcome(rounds: dict, default, key: str, frames: int) -> dict:
+    """A probe's result from its rounds: {key: the chosen geometry, "ms"
+    and "default_ms" (medians, a stream-frame), "times" and "spread" ({name:
+    median ms, (max - min) / median}), "rival" (the fastest other than the
+    default) and "margin" (by how much the rival's slowest round beat the
+    default's fastest: the rule keeps it from :data:`MIN_GAIN` up)}."""
+    med = _median(rounds)
+    ms = lambda g: med[g] * 1e3 / frames  # noqa: E731
+    best = choose(rounds, default)
+    others = [g for g in med if g != default]
+    rival = min(others, key=med.get) if others else None
+    return {key: best, "ms": ms(best), "default_ms": ms(default),
+            "times": {g.name(): ms(g) for g in med},
+            "spread": {g.name(): (max(v) - min(v)) / med[g]
+                       for g, v in rounds.items()},
+            "rival": rival,
+            "margin": (1 - max(rounds[rival]) / min(rounds[default])
+                       if rival else None)}
 
 
 def _build_all(specs) -> None:
@@ -220,10 +294,13 @@ def _flags(s: int, b: int):
 def _median_measure_factory(window: int, h: int, w: int, t: int, b: int,
                             s: int = 1, tail: bool = False,
                             rows_ax: int = 1, seed: int = 0):
-    """measure(tile) -> seconds a launch of the median ring (tail) kernel
+    """(hold, time, section height, Wp) of the median ring (tail) kernel
     at s stacked sections of the padded height / ``rows_ax`` (the band
-    form when ``rows_ax`` > 1), after its outputs over two batches were
-    held against the default tile's; with the section height and Wp."""
+    form when ``rows_ax`` > 1, as ``parallel/grid2d`` launches it: raw
+    (B, 3, s*Hs, Wp), the two bands (B, 3, s*8, Wp), the row window of a
+    slab inside the image).  ``hold(tile)`` runs two batches and holds
+    them against the default tile's (raises :class:`GeometryMismatch`);
+    ``time(tile)`` -> seconds a launch (:func:`_two_point_fit`)."""
     import torch
     from .ops import cuda_fused
     from .ops.reference import BAND_ROWS
@@ -272,24 +349,28 @@ def _median_measure_factory(window: int, h: int, w: int, t: int, b: int,
 
     ref = two_batches(_build.DEFAULT.tile)
     kernel = "median_tail" if tail else "median_ring"
+    timed = fresh()
+    run(_build.DEFAULT.tile, timed, True)
+    iters = _fit_lengths(
+        lambda n: run(_build.DEFAULT.tile, timed, False, reps=n))
 
-    def measure(tile: MedianTile) -> float:
-        _hold(f"{kernel} w{window} {tile.name()}", two_batches(tile), ref,
-              stats_exact=False)
-        st = fresh()
-        run(tile, st, True)
-        return _two_point_fit(lambda n: run(tile, st, False, reps=n),
-                              (8, 24))
+    def hold(tile: MedianTile) -> None:
+        _hold(f"{kernel} w{window} s{s} {tile.name()}", two_batches(tile),
+              ref, stats_exact=False)
 
-    return measure, hs, wp
+    def time(tile: MedianTile) -> float:
+        return _two_point_fit(lambda n: run(tile, timed, False, reps=n),
+                              iters)
+
+    return hold, time, hs, wp
 
 
 def _raw_measure_factory(h: int, w: int, t: int, b: int, s: int = 1,
                          seed: int = 0):
-    """measure(block) -> seconds a launch of the raw ring kernel (ABSDIFF)
-    at s stacked streams, after its outputs over two batches were held
-    against the default block's (everything bit for bit: the statistics
-    are integer sums); with Hp and Wp."""
+    """(hold, time, Hp, Wp) of the raw ring kernel (ABSDIFF) at s stacked
+    streams: ``hold(block)`` holds two batches against the default
+    block's (everything bit for bit: the statistics are integer sums),
+    ``time(block)`` -> seconds a launch."""
     import torch
     from .ops import cuda_fused
 
@@ -324,16 +405,20 @@ def _raw_measure_factory(h: int, w: int, t: int, b: int, s: int = 1,
         return out
 
     ref = two_batches(_build.DEFAULT.block)
+    timed = fresh()
+    run(_build.DEFAULT.block, timed, True)
+    iters = _fit_lengths(
+        lambda n: run(_build.DEFAULT.block, timed, False, reps=n))
 
-    def measure(block: RawBlock) -> float:
-        _hold(f"raw {block.name()}", two_batches(block), ref,
+    def hold(block: RawBlock) -> None:
+        _hold(f"raw s{s} {block.name()}", two_batches(block), ref,
               stats_exact=True)
-        st = fresh()
-        run(block, st, True)
-        return _two_point_fit(lambda n: run(block, st, False, reps=n),
-                              (8, 24))
 
-    return measure, hp, wp
+    def time(block: RawBlock) -> float:
+        return _two_point_fit(lambda n: run(block, timed, False, reps=n),
+                              iters)
+
+    return hold, time, hp, wp
 
 
 def probe_tiles(windows=(3, 5, 7), h: int = 1080, w: int = 1920,
@@ -341,10 +426,10 @@ def probe_tiles(windows=(3, 5, 7), h: int = 1080, w: int = 1920,
                 rows_ax: int = 1, limit: Optional[int] = None,
                 measure_factory=None, build=_build_all) -> dict:
     """The median ring (``tail``: tail) kernel's tile per window on this
-    card: {window: {"tile", "ms" (a stream-frame), "default_ms", "times"
-    ({tile name: ms})}}.  Windows are clamped as the properties clamp
-    them (the key the pickers consult); ``rows_ax`` > 1 measures the band
-    form at the owned height (windows > 1 only)."""
+    card: {window: :func:`_outcome` with key "tile"}.  Every candidate is
+    held against the default before any is timed.  Windows are clamped as
+    the properties clamp them (the key the pickers consult); ``rows_ax`` >
+    1 measures the band form at the owned height (windows > 1 only)."""
     factory = measure_factory or _median_measure_factory
     if limit is None:
         import torch
@@ -357,45 +442,45 @@ def probe_tiles(windows=(3, 5, 7), h: int = 1080, w: int = 1920,
         windows = [win for win in windows if win > 1]
     results = {}
     for win in windows:
-        measure, hs, wp = factory(win, h, w, t, b, s=s, tail=tail,
-                                  rows_ax=rows_ax)
+        hold, time, hs, wp = factory(win, h, w, t, b, s=s, tail=tail,
+                                     rows_ax=rows_ax)
         cands = tile_candidates(hs, win, t, limit)
         unit = _build.median_unit(tail, win)
         build([(_build.Geometry(tile=c), (unit,)) for c in cands])
-        seconds = {c: measure(c) for c in cands}
-        best = choose(seconds, _build.DEFAULT.tile)
-        ms = lambda c: seconds[c] * 1e3 / (s * b)  # noqa: E731
-        results[win] = {"tile": best, "ms": ms(best),
-                        "default_ms": ms(_build.DEFAULT.tile),
-                        "times": {c.name(): ms(c) for c in cands}}
+        for c in cands:
+            hold(c)
+        results[win] = _outcome(time_rounds(cands, time),
+                                _build.DEFAULT.tile, "tile", s * b)
     return results
 
 
 def probe_raw_block(h: int = 1080, w: int = 1920, t: int = 4, b: int = 16,
                     s: int = 1, measure_factory=None,
                     build=_build_all) -> dict:
-    """The raw kernel's block on this card: {"block", "ms" (a
-    stream-frame), "default_ms", "times" ({block name: ms})}."""
+    """The raw kernel's block on this card: :func:`_outcome` with key
+    "block"; every candidate held before any is timed."""
     factory = measure_factory or _raw_measure_factory
-    measure, hp, wp = factory(h, w, t, b, s=s)
+    hold, time, hp, wp = factory(h, w, t, b, s=s)
     cands = block_candidates(wp)
     build([(_build.Geometry(block=c), (_build.RAW_UNIT,)) for c in cands])
-    seconds = {c: measure(c) for c in cands}
-    best = choose(seconds, _build.DEFAULT.block)
-    ms = lambda c: seconds[c] * 1e3 / (s * b)  # noqa: E731
-    return {"block": best, "ms": ms(best),
-            "default_ms": ms(_build.DEFAULT.block),
-            "times": {c.name(): ms(c) for c in cands}}
+    for c in cands:
+        hold(c)
+    return _outcome(time_rounds(cands, time), _build.DEFAULT.block, "block",
+                    s * b)
 
 
 def _report(label: str, res: dict, card: str, default_name: str,
             key: str) -> None:
-    print(f"[autotune] {label} ({card}): ms a stream-frame")
+    print(f"[autotune] {label} ({card}): ms a stream-frame, the median of "
+          f"{ROUNDS} rounds (spread: max - min over the median)")
     for name, ms in res["times"].items():
         mark = " (default)" if name == default_name else ""
-        print(f"[autotune]   {name}{mark}: {ms:.5f}")
-    print(f"[autotune]   chosen {res[key].name()}: {res['ms']:.5f} against "
-          f"{res['default_ms']:.5f}", flush=True)
+        print(f"[autotune]   {name}{mark}: {ms:.5f} "
+              f"({100 * res['spread'][name]:.1f}%)")
+    rival = (f"; fastest other {res['rival'].name()}, margin "
+             f"{100 * res['margin']:.1f}%" if res["rival"] else "")
+    print(f"[autotune] chosen {label}: {res[key].name()} ({res['ms']:.5f} "
+          f"against {res['default_ms']:.5f}{rival})", flush=True)
 
 
 def _card_line() -> str:
@@ -423,13 +508,16 @@ def main(argv=None) -> int:
                     help="ALSO probe the median ring and raw kernels at S "
                          "streams stacked along the rows (the fleet and "
                          "coalesced-serving shape) and persist stacked_* "
-                         "overrides the stacked launches consume")
+                         "overrides the stacked launches consume; with "
+                         "--mesh, also the band form at S owned slabs a "
+                         "launch (stacked_slab_ring_tiles)")
     ap.add_argument("--mesh", metavar="SxR", default=None,
                     help="ALSO probe the band-form median ring kernel at "
                          "the owned height an SxR (stream x rows) grid "
                          "launches (padded height / R) and persist "
                          "per-(card, window, owned-height) tiles the grid "
-                         "engines consume (window 1 skipped: no stencil)")
+                         "engines consume (window 1 skipped: no stencil); "
+                         "with --stacked S, at S owned slabs a launch too")
     ap.add_argument("--dry-run", action="store_true",
                     help="measure and report, but do not write the store")
     from .utils.compilecache import (add_compile_cache_flag,
@@ -472,14 +560,19 @@ def main(argv=None) -> int:
     tile_name = _build.DEFAULT.tile.name()
     block_name = _build.DEFAULT.block.name()
     found = {}
+    s_l = max(2, args.stacked) if args.stacked else 1
     probes = [] if args.skip_ring else [
         ("ring_tiles", "ring", {}), ("tail_tiles", "tail", {"tail": True})]
     if args.stacked and not args.skip_ring:
-        probes.append(("stacked_ring_tiles", f"stacked[{args.stacked}] ring",
-                       {"s": max(2, args.stacked)}))
+        probes.append(("stacked_ring_tiles", f"stacked[{s_l}] ring",
+                       {"s": s_l}))
     if r_ax > 1 and not args.skip_ring:
         probes.append(("slab_ring_tiles", f"slab[{args.mesh}] ring",
                        {"rows_ax": r_ax}))
+        if args.stacked:
+            probes.append(("stacked_slab_ring_tiles",
+                           f"stacked[{s_l}]-slab[{args.mesh}] ring",
+                           {"s": s_l, "rows_ax": r_ax}))
     for key, name, kw in probes:
         for win, r in probe_tiles(tuple(args.windows), *geo, **kw).items():
             _report(f"{name} w{win}", r, card, tile_name, "tile")
@@ -490,9 +583,8 @@ def main(argv=None) -> int:
         _report("raw", res, card, block_name, "block")
         found["raw_block"] = res["block"]
         if args.stacked:
-            s = max(2, args.stacked)
-            res = probe_raw_block(*geo, s=s)
-            _report(f"stacked[{s}] raw", res, card, block_name, "block")
+            res = probe_raw_block(*geo, s=s_l)
+            _report(f"stacked[{s_l}] raw", res, card, block_name, "block")
             found["stacked_raw_block"] = res["block"]
 
     if args.dry_run:
@@ -502,7 +594,7 @@ def main(argv=None) -> int:
         kind, **found,
         meta={"geometry": f"{args.width}x{args.height}",
               "temporal": args.temporal, "batch": args.batch,
-              "card": card,
+              "card": card, "rounds": ROUNDS,
               **({"stacked": int(args.stacked)} if args.stacked else {}),
               **({"mesh": args.mesh} if args.mesh else {}),
               "tool": "dips_tpu_torch.autotune"})

@@ -252,10 +252,12 @@ def _smem_limit(device: torch.device) -> int:
 def median_tile(props: DiPsProperties, hp: int, s: int, tail: bool,
                 bands: bool, device: torch.device) -> _build.MedianTile:
     """The tile of a median launch on ``device``: the store's entry for
-    this card and this launch -- ``tail_tiles`` (the tail kernel),
-    ``slab_ring_tiles`` at owned height ``hp`` (the ring kernel with
-    bands), ``stacked_ring_tiles`` (s > 1, else ``ring_tiles``) or
-    ``ring_tiles`` -- else the default tile.  The store's tiles are
+    this card and this launch -- ``tail_tiles`` (the tail kernel);
+    ``slab_ring_tiles`` (s = 1) or ``stacked_slab_ring_tiles`` (s > 1) at
+    owned height ``hp`` (the ring kernel with bands: a stacked band launch
+    never takes the s = 1 slab tile, which was measured on another shape);
+    ``stacked_ring_tiles`` (s > 1, else ``ring_tiles``) or ``ring_tiles``
+    -- else the default tile.  The store's tiles are
     measured in the exact median, so the approx and quirk launches keep
     the default (a w7 tail tile that won by 18% there lost 6-14% in
     them).  A stored height that does not divide ``hp``, or whose shared
@@ -269,7 +271,8 @@ def median_tile(props: DiPsProperties, hp: int, s: int, tail: bool,
     if tail:
         stored = tuning.tail_tile(w, kind)
     elif bands:
-        stored = tuning.slab_ring_tile(w, hp, kind)
+        stored = (tuning.slab_ring_tile(w, hp, kind) if s == 1
+                  else tuning.stacked_slab_ring_tile(w, hp, kind))
     else:
         stored = ((tuning.stacked_ring_tile(w, kind) if s > 1 else None)
                   or tuning.ring_tile(w, kind))

@@ -24,9 +24,11 @@ store: the schemas differ).  Schema (one entry per card name, as
         "tail_tiles": {"3": {...}},
         "stacked_ring_tiles": {"3": {...}},        # --stacked S probes
         "slab_ring_tiles": {"3": {"360": {...}}},  # --mesh SxR probes
+        "stacked_slab_ring_tiles": {"3": {"360": {...}}},
+                                       # --mesh SxR --stacked S probes
         "raw_block": {"threads": 256, "bytes": 16},
         "stacked_raw_block": {"threads": 256, "bytes": 16},
-        "meta": {...provenance...}}}
+        "meta": {...provenance, "rounds": 5...}}}
 
 A corrupt file, a malformed entry or no card means no override.  The
 entries are timed optima, not bounds: a later run replaces the keys it
@@ -49,8 +51,10 @@ _ENV = "DIPS_TPU_TORCH_AUTOTUNE_CACHE"
 _cache: Optional[dict] = None          # parsed file, loaded once
 _cache_path_loaded: Optional[str] = None
 
-#: the per-window tile keys and the raw block keys of an entry
+#: the per-window tile keys, the per-(window, owned height) slab tile keys
+#: and the raw block keys of an entry
 TILE_KEYS = ("ring_tiles", "tail_tiles", "stacked_ring_tiles")
+SLAB_KEYS = ("slab_ring_tiles", "stacked_slab_ring_tiles")
 BLOCK_KEYS = ("raw_block", "stacked_raw_block")
 
 
@@ -159,19 +163,34 @@ def stacked_ring_tile(window: int,
     return _window_tile("stacked_ring_tiles", window, kind)
 
 
-def slab_ring_tile(window: int, owned_hp: int,
-                   kind: Optional[str] = None) -> Optional[MedianTile]:
-    """Measured tile of the band-form median ring kernel at this window
-    and owned (padded height / row cells) slab height (``--mesh SxR``), or
-    None (the default tile)."""
-    tiles = device_entry(kind).get("slab_ring_tiles", {})
+def _slab_tile(key: str, window: int, owned_hp: int,
+               kind: Optional[str]) -> Optional[MedianTile]:
+    tiles = device_entry(kind).get(key, {})
     if not isinstance(tiles, dict):
         return None
     per_h = tiles.get(str(window))
     if not isinstance(per_h, dict):
         return None
-    return _tile(per_h.get(str(owned_hp)),
-                 f"slab_ring_tiles[{window}][{owned_hp}]")
+    return _tile(per_h.get(str(owned_hp)), f"{key}[{window}][{owned_hp}]")
+
+
+def slab_ring_tile(window: int, owned_hp: int,
+                   kind: Optional[str] = None) -> Optional[MedianTile]:
+    """Measured tile of the band-form median ring kernel at this window
+    and owned (padded height / row cells) slab height, one section a
+    launch (``--mesh SxR``), or None (the default tile)."""
+    return _slab_tile("slab_ring_tiles", window, owned_hp, kind)
+
+
+def stacked_slab_ring_tile(window: int, owned_hp: int,
+                           kind: Optional[str] = None
+                           ) -> Optional[MedianTile]:
+    """Measured tile of the STACKED band-form median ring kernel (several
+    streams' owned slabs along one launch's rows: a grid cell holding more
+    than one stream, ``--mesh SxR --stacked S``) at this window and owned
+    height, or None (the default tile: a tile measured on one section is
+    not taken for this shape)."""
+    return _slab_tile("stacked_slab_ring_tiles", window, owned_hp, kind)
 
 
 def _block(key: str, kind: Optional[str]) -> Optional[RawBlock]:
@@ -197,42 +216,41 @@ def _as_dict(geometry) -> dict:
     return dict(vars(geometry))
 
 
+def _merge(prior, tiles: dict, depth: int) -> dict:
+    """``tiles`` over the stored map ``prior``, ``depth`` levels of keys
+    deep (1: {window: tile}; 2: {window: {owned_hp: tile}}): each tile
+    given replaces the stored one, the others stay."""
+    merged = dict(prior) if isinstance(prior, dict) else {}
+    for k, v in tiles.items():
+        merged[str(k)] = (_as_dict(v) if depth == 1
+                          else _merge(merged.get(str(k)), v, depth - 1))
+    return merged
+
+
 def save(kind: str, ring_tiles: Optional[dict] = None,
          tail_tiles: Optional[dict] = None,
          stacked_ring_tiles: Optional[dict] = None,
          slab_ring_tiles: Optional[dict] = None,
+         stacked_slab_ring_tiles: Optional[dict] = None,
          raw_block: Optional[RawBlock] = None,
          stacked_raw_block: Optional[RawBlock] = None,
          meta: Optional[dict] = None) -> str:
     """Merge measurements for ``kind`` into the cache file; returns the
-    path written.  Tile maps are {window: tile} (``slab_ring_tiles``
-    {window: {owned_hp: tile}}), a tile a :class:`MedianTile` or a dict of
-    its fields, a block a :class:`RawBlock`.  Each window, owned height and
+    path written.  Tile maps are {window: tile} (the slab keys {window:
+    {owned_hp: tile}}), a tile a :class:`MedianTile` or a dict of its
+    fields, a block a :class:`RawBlock`.  Each window, owned height and
     block given replaces the stored one; the others stay."""
     path = cache_path()
     invalidate()        # re-read the FILE: another process (a concurrent
     data = _load().copy()  # autotune run) may have written since we loaded
     raw_entry = data.get(kind, {})
     entry = dict(raw_entry) if isinstance(raw_entry, dict) else {}
-    for key, tiles in zip(TILE_KEYS, (ring_tiles, tail_tiles,
-                                      stacked_ring_tiles)):
-        if not tiles:
-            continue
-        prior = entry.get(key, {})
-        merged = dict(prior) if isinstance(prior, dict) else {}
-        for win, tile in tiles.items():
-            merged[str(win)] = _as_dict(tile)
-        entry[key] = merged
-    if slab_ring_tiles:
-        prior = entry.get("slab_ring_tiles", {})
-        merged = dict(prior) if isinstance(prior, dict) else {}
-        for win, per_h in slab_ring_tiles.items():
-            pw = merged.get(str(win), {})
-            pw = dict(pw) if isinstance(pw, dict) else {}
-            for hp_k, tile in per_h.items():
-                pw[str(hp_k)] = _as_dict(tile)
-            merged[str(win)] = pw
-        entry["slab_ring_tiles"] = merged
+    for keys, maps, depth in (
+            (TILE_KEYS, (ring_tiles, tail_tiles, stacked_ring_tiles), 1),
+            (SLAB_KEYS, (slab_ring_tiles, stacked_slab_ring_tiles), 2)):
+        for key, tiles in zip(keys, maps):
+            if tiles:
+                entry[key] = _merge(entry.get(key), tiles, depth)
     for key, block in zip(BLOCK_KEYS, (raw_block, stacked_raw_block)):
         if block is not None:
             entry[key] = _as_dict(block)

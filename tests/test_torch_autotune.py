@@ -9,15 +9,18 @@ The JAX package's counterparts are the reference where one carries over
 """
 
 import argparse
+import inspect
 import json
 import os
 import sys
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
+import numpy as np
 import pytest
 import torch
 
 import dips_tpu.autotune as jautotune
+import dips_tpu.ops.tuning as jtuning
 import dips_tpu.utils.compilecache as jcc
 from dips_tpu_torch import autotune
 from dips_tpu_torch.ops import _build, cuda_fused, tuning
@@ -103,6 +106,57 @@ def test_store_slab_keys(cache):
     assert tuning.slab_ring_tile(3, 360, CARD) == T24  # kept
     assert tuning.slab_ring_tile(3, 272, CARD) == MedianTile(16)
     assert tuning.slab_ring_tile(5, 360, CARD) == MedianTile(8, 2, 3)
+
+
+def test_store_stacked_slab_keys(cache):
+    """The stacked-slab tiles ({window: {owned_hp: tile}}) round-trip and
+    merge like the s = 1 slab tiles, apart from them."""
+    tuning.save(CARD, stacked_slab_ring_tiles={3: {360: T24}},
+                slab_ring_tiles={3: {360: MedianTile(16)}})
+    assert tuning.stacked_slab_ring_tile(3, 360, CARD) == T24
+    assert tuning.slab_ring_tile(3, 360, CARD) == MedianTile(16)
+    assert tuning.stacked_slab_ring_tile(3, 272, CARD) is None
+    assert tuning.stacked_slab_ring_tile(5, 360, CARD) is None
+    assert tuning.stacked_slab_ring_tile(3, 360, "other card") is None
+    tuning.save(CARD, stacked_slab_ring_tiles={3: {272: MedianTile(8, 1, 2)},
+                                               7: {360: MedianTile()}})
+    assert tuning.stacked_slab_ring_tile(3, 360, CARD) == T24  # kept
+    assert tuning.stacked_slab_ring_tile(3, 272, CARD) == MedianTile(8, 1, 2)
+    assert tuning.stacked_slab_ring_tile(7, 360, CARD) == MedianTile()
+    assert tuning.slab_ring_tile(3, 360, CARD) == MedianTile(16)
+    with open(cache) as f:
+        entry = json.load(f)[CARD]
+    assert entry["stacked_slab_ring_tiles"]["3"] == {
+        "360": {"rows": 24, "px": 2, "stages": 2},
+        "272": {"rows": 8, "px": 1, "stages": 2}}
+
+
+@pytest.mark.parametrize("bad", [{"rows": 12, "px": 4, "stages": 3},
+                                 [8, 4, 3], "24x64/s2", None])
+def test_store_malformed_stacked_slab_tile_is_no_override(cache, bad):
+    for tiles in ({"3": {"360": bad}}, {"3": [bad]}, [bad]):
+        with open(cache, "w") as f:
+            json.dump({CARD: {"stacked_slab_ring_tiles": tiles}}, f)
+        tuning.invalidate()
+        assert tuning.stacked_slab_ring_tile(3, 360, CARD) is None
+
+
+def test_store_keywords_match_the_jax_store():
+    """Every keyword of the JAX store's ``save`` has its counterpart in the
+    port's: a cap of the VMEM edge there is a tile here, the raw target
+    bytes a raw block.  The port adds the tail kernel's own tiles (the JAX
+    caps cover both protocols' kernels)."""
+    names = {"raw_target": "raw_block",
+             "stacked_raw_target": "stacked_raw_block"}
+    jax_kw = [k for k in inspect.signature(jtuning.save).parameters
+              if k not in ("kind", "meta")]
+    port_kw = [k for k in inspect.signature(tuning.save).parameters
+               if k not in ("kind", "meta")]
+    want = [names.get(k, k.replace("_caps", "_tiles")) for k in jax_kw]
+    assert "stacked_slab_ring_caps" in jax_kw
+    assert sorted(want + ["tail_tiles"]) == sorted(port_kw)
+    assert sorted(tuning.TILE_KEYS + tuning.SLAB_KEYS) == sorted(
+        k for k in port_kw if k.endswith("_tiles"))
 
 
 def test_store_corrupt_file_is_ignored(cache):
@@ -200,19 +254,30 @@ def test_block_candidates():
 
 # -- probes with a fake measurement -------------------------------------------
 
-def _fake_factory(times, bad=(), seen=None):
+def _fake_factory(times, bad=(), seen=None, noise=0.0, seed=0, calls=None):
     """A measure factory: seconds a launch from ``times`` (by name, else
-    1.0); the geometries in ``bad`` disagree with the default."""
+    1.0), each time scaled by a uniform draw within +-``noise`` (a numpy
+    generator from ``seed``); the geometries in ``bad`` disagree with the
+    default; ``calls`` collects ("hold" | "time", name) in order."""
+    rng = np.random.default_rng(seed)
+
     def factory(*args, **kw):
         if seen is not None:
             seen.append((args, kw))
 
-        def measure(geometry):
+        def hold(geometry):
+            if calls is not None:
+                calls.append(("hold", geometry.name()))
             if geometry in bad:
                 raise autotune.GeometryMismatch(f"{geometry.name()}: maps")
-            return times.get(geometry.name(), 1.0)
+
+        def time(geometry):
+            if calls is not None:
+                calls.append(("time", geometry.name()))
+            return times.get(geometry.name(), 1.0) * (
+                1 + rng.uniform(-noise, noise))
         hp, wp = 1080, 2048
-        return measure, hp // kw.get("rows_ax", 1), wp
+        return hold, time, hp // kw.get("rows_ax", 1), wp
     return factory
 
 
@@ -275,6 +340,104 @@ def test_probe_tail_and_stacked_reach_the_factory():
                          measure_factory=_fake_factory({}, seen=seen),
                          build=lambda specs: None)
     assert seen[0][1] == {"s": 4, "tail": True, "rows_ax": 1}
+
+
+def test_noise_within_the_spread_keeps_the_default():
+    """Equal means under +-5% noise: no candidate's slowest round can beat
+    the default's fastest by 2%, so every seeded call keeps the default,
+    where one estimate a candidate would have picked a tile most times."""
+    for seed in range(40):
+        res = autotune.probe_tiles(
+            windows=(3,), limit=H100_SMEM, build=lambda specs: None,
+            measure_factory=_fake_factory({}, noise=0.05, seed=seed))
+        assert res[3]["tile"] == MedianTile()
+        assert res[3]["margin"] < autotune.MIN_GAIN
+        assert 0 < max(res[3]["spread"].values()) <= 0.1 / 0.95
+        raw = autotune.probe_raw_block(
+            build=lambda specs: None,
+            measure_factory=_fake_factory({}, noise=0.05, seed=seed))
+        assert raw["block"] == RawBlock()
+
+
+def test_a_win_beyond_the_spread_is_chosen_every_time():
+    """A 10% win under +-2% noise (its slowest round still beats the
+    default's fastest by more than 2%) is chosen in every seeded call."""
+    for seed in range(40):
+        res = autotune.probe_tiles(
+            windows=(3,), limit=H100_SMEM, build=lambda specs: None,
+            measure_factory=_fake_factory({"24x64/s2": 0.9}, noise=0.02,
+                                          seed=seed))
+        assert res[3]["tile"] == T24 and res[3]["rival"] == T24
+        assert res[3]["margin"] > autotune.MIN_GAIN
+        raw = autotune.probe_raw_block(
+            build=lambda specs: None,
+            measure_factory=_fake_factory({"128x16": 0.9}, noise=0.02,
+                                          seed=seed))
+        assert raw["block"] == RawBlock(128, 16)
+
+
+def test_choose_compares_the_slowest_round_with_the_default_fastest():
+    d, c = MedianTile(), T24
+    assert autotune.choose({d: [1.0, 1.0], c: [0.9, 0.9]}, d) == c
+    # the faster median, but one round inside the default's spread
+    assert autotune.choose({d: [1.0, 0.95], c: [0.9, 0.94]}, d) == d
+    # within 2% of the default's fastest round
+    assert autotune.choose({d: [1.0, 1.0], c: [0.97, 0.985]}, d) == d
+    assert autotune.choose({d: [1.0, 1.0], c: [0.97, 0.97]}, d) == c
+    assert autotune.choose({d: [0.9, 0.9], c: [1.0, 1.0]}, d) == d
+
+
+@pytest.mark.parametrize("ms,k", [(20.0, 1), (8.0, 1), (3.4, 3),
+                                  (0.5, 16)])
+def test_fit_lengths_make_the_longer_loop_last_8_ms(monkeypatch, ms, k):
+    """A loop of 24 default launches lasting ``ms`` gives loops of (8k,
+    24k) launches, the longer one at least FIT_SECONDS."""
+    class Event:
+        def __init__(self, enable_timing):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return ms
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    runs = []
+    assert autotune._fit_lengths(runs.append) == (8 * k, 24 * k)
+    assert runs == [24, 24]
+    assert 24 * k * ms / 24 >= autotune.FIT_SECONDS * 1e3
+
+
+def test_every_candidate_is_held_once_then_timed_in_interleaved_rounds():
+    calls = []
+    res = autotune.probe_raw_block(build=lambda specs: None,
+                                   measure_factory=_fake_factory(
+                                       {}, calls=calls))
+    names = list(res["times"])
+    n = len(names)
+    assert n == 6 and calls[:n] == [("hold", g) for g in names]
+    timed = calls[n:]
+    assert [k for k, _ in timed] == ["time"] * (n * autotune.ROUNDS)
+    rounds = [[g for _, g in timed[r * n:(r + 1) * n]]
+              for r in range(autotune.ROUNDS)]
+    starts = [names.index(r[0]) for r in rounds]
+    assert starts == [r * n // autotune.ROUNDS
+                      for r in range(autotune.ROUNDS)]
+    assert len(set(starts)) == autotune.ROUNDS
+    for r, k in zip(rounds, starts):
+        assert r == names[k:] + names[:k]
+    # a disagreeing candidate stops the probe before anything is timed
+    calls.clear()
+    with pytest.raises(autotune.GeometryMismatch):
+        autotune.probe_raw_block(build=lambda specs: None,
+                                 measure_factory=_fake_factory(
+                                     {}, bad=(RawBlock(512, 32),),
+                                     calls=calls))
+    assert all(k == "hold" for k, _ in calls)
 
 
 def test_autotune_cli_refuses_without_a_card(capsys):
@@ -359,14 +522,77 @@ def test_picker_keys_per_launch(card):
     # stacked without its own key: the single-stream key
     assert pick(W3, 1080, 8, False, False, card) == T24
     assert pick(W3, 1080, 8, True, False, card) == MedianTile(8, 2, 4)
-    # a slab tile only at its owned height, and only with bands
-    assert pick(W3, 360, 3, False, True, card) == MedianTile(24, 1, 3)
+    # a slab tile only at its owned height, only with bands, and only on
+    # a launch of one section: a stacked band launch without its own key
+    # keeps the default
+    assert pick(W3, 360, 1, False, True, card) == MedianTile(24, 1, 3)
+    assert pick(W3, 360, 3, False, True, card) == MedianTile()
     assert pick(W3, 272, 3, False, True, card) == MedianTile()
     assert pick(W3, 360, 3, False, False, card) == T24
     assert cuda_fused.raw_block(8, 2048, card) == RawBlock(128, 32)
     assert cuda_fused.raw_block(1, 2048, card) == RawBlock()
     # a width that does not divide the row falls to 16 bytes
     assert cuda_fused.raw_block(8, 272, card) == RawBlock(128, 16)
+
+
+def test_picker_stacked_band_launches_take_the_stacked_slab_key(card):
+    tuning.save(CARD, slab_ring_tiles={3: {360: MedianTile(24, 1, 3)}},
+                stacked_slab_ring_tiles={3: {360: T24}},
+                stacked_ring_tiles={3: MedianTile(8, 1, 2)},
+                tail_tiles={3: MedianTile(8, 2, 4)})
+    pick = cuda_fused.median_tile
+    for s in (2, 4, 8):
+        assert pick(W3, 360, s, False, True, card) == T24
+        assert pick(W3, 272, s, False, True, card) == MedianTile()
+        # no bands: the stacked ring key; the tail kernel: its own key
+        assert pick(W3, 360, s, False, False, card) == MedianTile(8, 1, 2)
+        assert pick(W3, 360, s, True, True, card) == MedianTile(8, 2, 4)
+    assert pick(W3, 360, 1, False, True, card) == MedianTile(24, 1, 3)
+    w5 = DiPsProperties(window_size=5)
+    assert pick(w5, 360, 4, False, True, card) == MedianTile()
+    # measured in the exact median only
+    approx = DiPsProperties(window_size=3, approx_median=True)
+    assert pick(approx, 360, 4, False, True, card) == MedianTile()
+    # a stored height that does not divide the owned height falls back
+    assert pick(W3, 376, 4, False, True, card) == MedianTile()
+    tuning.save(CARD, stacked_slab_ring_tiles={3: {376: T24}})
+    assert pick(W3, 376, 4, False, True, card) == MedianTile(8, 2, 2)
+
+
+def test_autotune_main_mesh_stacked_probes_and_stores_the_stacked_slab(
+        cache, monkeypatch, capsys):
+    """``--mesh 2x3 --stacked 4`` reaches the median factory with s = 4
+    and rows_ax = 3 (after the s = 1 slab probe) and stores the result
+    under ``stacked_slab_ring_tiles`` at the owned height 360."""
+    seen = []
+    fake = _fake_factory({"24x64/s2": 0.5, "128x16": 0.5}, seen=seen)
+    monkeypatch.setattr(autotune, "_median_measure_factory", fake)
+    monkeypatch.setattr(autotune, "_raw_measure_factory", fake)
+    monkeypatch.setattr(_build, "build", lambda **kw: None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: CARD)
+    monkeypatch.setattr(cuda_fused, "_smem_limit", lambda device: H100_SMEM)
+    monkeypatch.setattr(autotune, "_card_line", lambda: CARD + ", 700 W")
+    assert autotune.main(["--windows", "1", "3", "--mesh", "2x3",
+                          "--stacked", "4"]) == 0
+    median = [kw for args, kw in seen if len(args) == 5]
+    assert median[-2:] == [{"s": 1, "tail": False, "rows_ax": 3},
+                           {"s": 4, "tail": False, "rows_ax": 3}]
+    assert [a[0] for a, kw in seen if kw.get("rows_ax", 1) > 1] == [3, 3]
+    out = capsys.readouterr().out
+    assert "[autotune] chosen stacked[4]-slab[2x3] ring w3: 24x64/s2" in out
+    assert "margin" in out
+    tuning.invalidate()
+    with open(cache) as f:
+        entry = json.load(f)[CARD]
+    assert entry["stacked_slab_ring_tiles"] == {
+        "3": {"360": {"rows": 24, "px": 2, "stages": 2}}}
+    assert entry["slab_ring_tiles"] == entry["stacked_slab_ring_tiles"]
+    assert entry["meta"]["rounds"] == autotune.ROUNDS
+    assert entry["meta"]["mesh"] == "2x3" and entry["meta"]["stacked"] == 4
+    assert tuning.stacked_slab_ring_tile(3, 360, CARD) == T24
+    assert entry["stacked_raw_block"] == {"threads": 128, "bytes": 16}
 
 
 def test_plain_twins_ignore_the_store(card):

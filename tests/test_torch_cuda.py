@@ -746,9 +746,11 @@ def geometry_libs():
     autotune._build_all([(Geometry(), None)] + specs)
 
 
-def _geometry_runs(props, cuda, tail, tile, s=2):
+def _geometry_runs(props, cuda, tail, tile, s=2, bands=False):
     """Two batches of the median ring (tail) kernel at s stacked sections
-    of GH x W, launched with ``tile`` (None: the default)."""
+    of GH x W, launched with ``tile`` (None: the default); ``bands``: the
+    sections are row slabs with seeded neighbour bands (the grid cell's
+    launch)."""
     from dips_tpu_torch.ops import _build  # noqa: F401
     t = props.temporal_size
     hp, wp = pad_geometry(GH, W)
@@ -761,6 +763,13 @@ def _geometry_runs(props, cuda, tail, tile, s=2):
     flags[:, [0, 4]] = True
     valid = np.ones((s, b), bool)
     valid[-1, 3] = False
+    kw = {}
+    if bands:
+        rng = np.random.default_rng(50)
+        top, bottom = (torch.from_numpy(rng.integers(
+            0, 256, (frames, 3, s * 8, wp), np.uint8)).to(cuda)
+            for _ in range(2))
+        kw = dict(row_bounds=(0, GH), bands=(top, bottom))
     st = [None if tail else torch.zeros((t, s * hp, wp), device=cuda),
           None if tail else torch.zeros((s * hp, wp), device=cuda),
           torch.zeros((s * hp, wp), device=cuda),
@@ -770,7 +779,7 @@ def _geometry_runs(props, cuda, tail, tile, s=2):
         res, used = cuda_fused._launch_median(
             "test", props, GH, W, s, raw, st[0], st[1], st[2], flags, st[3],
             valid, None if tail else np.arange(s) % t,
-            None if tail else np.full(s, seeded), tile=tile)
+            None if tail else np.full(s, seeded), tile=tile, **kw)
         runs.append([x.clone() for x in res])
     torch.cuda.synchronize()
     return runs, used
@@ -784,11 +793,27 @@ def test_a_tile_launch_equals_the_default(cuda, geometry_libs, geom, tail,
     """A non-default tile's launch equals the default tile's: maps and
     carried state bit for bit, stats within 1e-5 (the per-warp partials
     are summed in float32 over a tile's pixels, and the tile changed)."""
+    _assert_tile_equals_the_default(cuda, geom, tail, window)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("geom", GEOMETRY_TILES)
+@pytest.mark.parametrize("window", [3, 7])
+def test_a_stacked_band_tile_launch_equals_the_default(
+        cuda, geometry_libs, geom, tail, window):
+    """The same in the band form at s = 4 (four streams' owned slabs with
+    their neighbour bands in one launch: a grid cell's, the shape the
+    stacked-slab tile is measured on and picked for)."""
+    _assert_tile_equals_the_default(cuda, geom, tail, window, s=4,
+                                    bands=True)
+
+
+def _assert_tile_equals_the_default(cuda, geom, tail, window, **kw):
     from dips_tpu_torch.ops._build import MedianTile
     props = DiPsProperties(window_size=window, temporal_size=3)
-    exp, used = _geometry_runs(props, cuda, tail, None)
+    exp, used = _geometry_runs(props, cuda, tail, None, **kw)
     assert used == MedianTile()
-    got, used = _geometry_runs(props, cuda, tail, MedianTile(*geom))
+    got, used = _geometry_runs(props, cuda, tail, MedianTile(*geom), **kw)
     assert used == MedianTile(*geom)
     for g, e in zip(got, exp):
         for i, (x, y) in enumerate(zip(g, e)):
@@ -852,10 +877,13 @@ def test_a_tile_that_cannot_launch_raises(cuda, geometry_libs):
 def test_a_stored_geometry_reaches_the_engine(cuda, geometry_libs, tmp_path,
                                              monkeypatch):
     """With a store naming a non-default tile and block for this card, the
-    engines launch them, and their outputs equal the default's."""
-    from dips_tpu_torch import DiPsEngine
+    engines launch them, and their outputs equal the default's; a (2, 2)
+    grid fleet's stacked band launches take a stored stacked-slab tile,
+    and the default when only the s = 1 slab tile is stored."""
+    from dips_tpu_torch import DiPsEngine, MultiStreamEngine
     from dips_tpu_torch.ops import tuning
     from dips_tpu_torch.ops._build import MedianTile, RawBlock
+    from dips_tpu_torch.parallel import grid_mesh
     frames = [np.ascontiguousarray(f.transpose(1, 2, 0))
               for f in make_raw(8, GH, W, 3)[:, :, :GH, :W]]
 
@@ -884,4 +912,37 @@ def test_a_stored_geometry_reaches_the_engine(cuda, geometry_libs, tmp_path,
         np.testing.assert_allclose(stats1, stats0, rtol=1e-5, atol=1e-7)
         tuning.save(torch.cuda.get_device_name(0),
                     ring_tiles={3: MedianTile()}, raw_block=RawBlock())
+
+    # the grid fleet: 4 streams of 64 rows on (2, 2) cells of this card,
+    # two streams' 32-row owned slabs a launch
+    h, s, b = 64, 4, 6
+    rng = np.random.default_rng(9)
+    feed = [list(rng.integers(0, 256, (b, h, W, 3), np.uint8))
+            for _ in range(s)]
+    tile = MedianTile(*GEOMETRY_TILES[1])
+    name = "batch_step_ring_stacked"
+
+    def fleet_run(**store):
+        monkeypatch.setenv("DIPS_TPU_TORCH_AUTOTUNE_CACHE",
+                           str(tmp_path / f"grid{len(store)}.json"))
+        tuning.invalidate()
+        if store:
+            tuning.save(torch.cuda.get_device_name(0), **store)
+        fleet = MultiStreamEngine(DiPsProperties(), h, W, s, batch=b,
+                                  device=cuda,
+                                  mesh=grid_mesh(2, 2, devices=[cuda] * 4))
+        cuda_fused.reset_launch_counts()
+        out, stats, _ = fleet.process_batch(feed)
+        return out, stats, cuda_fused.geometry_counts()
+
+    out0, stats0, geo0 = fleet_run()
+    out1, stats1, geo1 = fleet_run(
+        stacked_slab_ring_tiles={3: {32: tile}},
+        slab_ring_tiles={3: {32: MedianTile(24, 2, 2)}})
+    assert geo0 == {name: {MedianTile().name(): 4}}
+    assert geo1 == {name: {tile.name(): 4}}
+    np.testing.assert_array_equal(out1, out0)
+    np.testing.assert_allclose(stats1, stats0, rtol=1e-5, atol=1e-7)
+    *_, geo2 = fleet_run(slab_ring_tiles={3: {32: tile}})
+    assert geo2 == {name: {MedianTile().name(): 4}}
     tuning.invalidate()
