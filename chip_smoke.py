@@ -125,7 +125,8 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
 
 then times kernels (wrapper, and alone for the variants), plain twins and
 every engine with CUDA events (``[time]``), the variants, the slab forms
-and the options included; then
+and the options included, and the raw step in THRESHOLD and STATS_ONLY
+beside ABSDIFF (ring and tail, s = 1 and 8); then
 
 * the acceptance check (``[validate]``): ``python -m
   dips_tpu_torch.validate --with-soak 512 --json
@@ -260,9 +261,9 @@ def phase_card():
 
 def instance_regs(ptxas):
     """ptxas's report -> {instance: (registers, spill store bytes)}, an
-    instance being ("raw", tail, 0, 0) or (kernel, W, mode, bands) with
-    kernel "median_ring" / "median_tail" and mode 0 / 1 / 2 (exact,
-    approx, quirk)."""
+    instance being ("raw", tail, C, 0) (C the map's channels: 3, 1, 0) or
+    (kernel, W, mode, bands) with kernel "median_ring" / "median_tail" and
+    mode 0 / 1 / 2 (exact, approx, quirk)."""
     import re
     regs, key = {}, None
     for line in str(ptxas).splitlines():
@@ -270,9 +271,9 @@ def instance_regs(ptxas):
             name = line.split("'")[1]
             m = re.search(r"(median_ring|median_tail)_kernelILi(\d)ELi(\d)"
                           r"ELb([01])E", name)
-            r = re.search(r"raw_step_kernelILb([01])E", name)
+            r = re.search(r"raw_step_kernelILb([01])ELi(\d)E", name)
             key = ((m[1], int(m[2]), int(m[3]), int(m[4])) if m else
-                   ("raw", int(r[1]), 0, 0) if r else None)
+                   ("raw", int(r[1]), int(r[2]), 0) if r else None)
         elif key and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line)[1])
             regs[key] = (None, spill)
@@ -284,12 +285,12 @@ def instance_regs(ptxas):
 
 def record_instance(name):
     """The compiled instance (as :func:`instance_regs` keys it) that the
-    kernels' record entry ``name`` times: the exact w3 median, or the
-    variant the [options] runs use (approx w7, quirk w5); bands for the
-    slab_bands forms."""
+    kernels' record entry ``name`` times: ABSDIFF's for the raw kernel, the
+    exact w3 median, or the variant the [options] runs use (approx w7,
+    quirk w5); bands for the slab_bands forms."""
     base, _, form = name.partition(":")
     if base.startswith("absdiff"):
-        return ("raw", int("ring" not in base), 0, 0)
+        return ("raw", int("ring" not in base), 3, 0)
     kernel = "median_ring" if "ring" in base else "median_tail"
     mode = {"approx_median": 1, "quirk_compat": 2}.get(form, 0)
     w = {1: MAIN_VARIANTS["approx_median"],
@@ -4712,11 +4713,44 @@ def phase_times(card):
                 mp, H1080, W1080, s, sraw, sms[2], sflags, sms[3], svalid),
             s * B),
     }
+    # the raw steps' other maps: THRESHOLD and STATS_ONLY, ring and tail,
+    # s = 1 and s = 8 (their own keys; the record's rows are ABSDIFF's)
+    for mode in (OutputMode.THRESHOLD, OutputMode.STATS_ONLY):
+        op = DiPsProperties(output=mode)
+        calls.update({
+            f"absdiff_step_ring {mode.name}": (
+                lambda p=op: cf.absdiff_step_ring(p, H1080, W1080, raw[t:],
+                                                  *rs[:2], flags, rs[2],
+                                                  valid, 0),
+                lambda p=op: cf.absdiff_step_ring_plain(
+                    p, H1080, W1080, raw[t:], *rs[:2], flags, rs[2], valid,
+                    0), B, op),
+            f"absdiff_step_ring_stacked {mode.name}": (
+                lambda p=op: cf.absdiff_step_ring_stacked(
+                    p, H1080, W1080, s, sraw[t:], *srs[:2], sflags, srs[2],
+                    svalid, zs),
+                lambda p=op: cf.absdiff_step_ring_stacked_plain(
+                    p, H1080, W1080, s, sraw[t:], *srs[:2], sflags, srs[2],
+                    svalid, zs), s * B, op),
+            f"absdiff_step {mode.name}": (
+                lambda p=op: cf.absdiff_step(p, H1080, W1080, raw, rs[1],
+                                             flags, rs[2], valid),
+                lambda p=op: cf.absdiff_step_plain(p, H1080, W1080, raw,
+                                                   rs[1], flags, rs[2],
+                                                   valid), B, op),
+            f"absdiff_step_stacked {mode.name}": (
+                lambda p=op: cf.absdiff_step_stacked(p, H1080, W1080, s,
+                                                     sraw, srs[1], sflags,
+                                                     srs[2], svalid),
+                lambda p=op: cf.absdiff_step_stacked_plain(
+                    p, H1080, W1080, s, sraw, srs[1], sflags, srs[2],
+                    svalid), s * B, op)})
     times = {}
-    for name, (k, p, frames) in calls.items():
-        props = rp if name.startswith("absdiff") else mp
-        times[name] = time_wrapper(name, k, p, frames, props, name, hp, wp,
-                                   card)
+    for key, (k, p, frames, *op) in calls.items():
+        name = key.split()[0]
+        props = op[0] if op else rp if name.startswith("absdiff") else mp
+        times[key] = time_wrapper(key, k, p, frames, props, name, hp, wp,
+                                  card)
     del raw, sraw, rs, ms, srs, sms, calls
 
     # the engines end to end, ring and tail protocol in turns: host frames

@@ -137,10 +137,18 @@ class MedianTile:
 
 @dataclass(frozen=True)
 class RawBlock:
-    """The raw kernel's block (``csrc/raw_ring.cu``): ``threads`` threads,
-    one statistics tile; ``bytes`` bytes of a row a thread.  Raises
+    """The raw kernel's block (``csrc/raw_ring.cu``): ``threads`` consumer
+    threads, a tile of as many chunks, and a producer warp besides;
+    ``bytes`` bytes of a row a chunk (a thread's in a tile).  Raises
     ``ValueError`` outside what the kernel takes: threads a multiple of 32
-    up to 1024, bytes 16 or 32 (whole uint4s, a 32-bit roi mask)."""
+    up to 992 (with the producer's warp, 1024), bytes 16 or 32 (whole
+    uint4s).
+
+    The launch's grid is the card's, not the image's: ``blocks`` a stream
+    (:meth:`blocks`), each owning a contiguous share of the stream's
+    chunks and walking it in ``tiles`` tiles (:meth:`tiles`); the methods
+    below mirror the kernel's own arithmetic (:meth:`split`, :meth:`parts`,
+    :meth:`smem_bytes`), which the library reports too."""
 
     threads: int = 256
     bytes: int = 16
@@ -149,19 +157,68 @@ class RawBlock:
         for f in fields(self):
             if type(getattr(self, f.name)) is not int:
                 raise ValueError(f"block {f.name} must be an int")
-        if self.threads % 32 or not 32 <= self.threads <= 1024:
+        if self.threads % 32 or not 32 <= self.threads <= 992:
             raise ValueError(f"block threads {self.threads}: a multiple "
-                             f"of 32 up to 1024")
+                             f"of 32 up to 992")
         if self.bytes not in (16, 32):
             raise ValueError(f"block bytes {self.bytes}: 16 or 32")
 
     def name(self) -> str:
         return f"{self.threads}x{self.bytes}"
 
-    def tiles(self, hp: int, wp: int) -> int:
-        """Statistics tiles per stream of an Hp x Wp section
-        (``dips_raw_tiles``)."""
-        return -(-(hp * wp // self.bytes) // self.threads)
+    def chunks(self, hp: int, wp: int) -> int:
+        """Chunks of one stream's Hp x Wp plane."""
+        return hp * wp // self.bytes
+
+    def blocks(self, s: int, hp: int, wp: int, resident: int) -> int:
+        """Blocks a stream (the launch's grid is this x s): the
+        ``resident`` blocks the card holds at once (``dips_raw_resident``
+        of the launch's out mode) shared among the s streams, at least one
+        a stream, and no more than the stream has whole tiles of chunks."""
+        whole = max(1, self.chunks(hp, wp) // self.threads)
+        return max(1, min(resident // s, whole))
+
+    def tiles(self, hp: int, wp: int, nb: int) -> int:
+        """Tiles each of the ``nb`` blocks of a stream walks: as many as
+        the largest share needs."""
+        share = -(-self.chunks(hp, wp) // nb)
+        return -(-share // self.threads)
+
+    def parts(self, hp: int, wp: int, nb: int) -> int:
+        """Statistic partials per (frame, stream): one per block, tile and
+        warp (``dips_raw_parts``)."""
+        return nb * self.tiles(hp, wp, nb) * (self.threads // 32)
+
+    def split(self, hp: int, wp: int, nb: int) -> list:
+        """[(first chunk, chunks)] of every tile, block by block, as the
+        kernel cuts a stream: ``nb`` shares that differ by at most one
+        chunk, each cut into :meth:`tiles` pieces the same way."""
+        n, t = self.chunks(hp, wp), self.tiles(hp, wp, nb)
+        out = []
+        for b in range(nb):
+            lo, share = _piece(n, nb, b)
+            for k in range(t):
+                start, size = _piece(share, t, k)
+                out.append((lo + start, size))
+        return out
+
+    @property
+    def stages(self) -> int:
+        """Items staged ahead (``kStages``): 4 where four stages of the
+        tile's three planes fit in 96 KB, else as many as fit, at least
+        2."""
+        return min(4, max(2, 96 * 1024 // (3 * self.threads * self.bytes)))
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block (``dips_raw_smem``)."""
+        return 128 + self.stages * 3 * self.threads * self.bytes
+
+
+def _piece(n: int, parts: int, k: int) -> Tuple[int, int]:
+    """The k-th of ``parts`` near-equal pieces of range(n): (first index,
+    size), the larger pieces first (``piece`` in csrc/raw_ring.cu)."""
+    q, r = divmod(n, parts)
+    return k * q + min(k, r), q + (k < r)
 
 
 @dataclass(frozen=True)
@@ -194,16 +251,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signatures: every pointer and the stream as c_void_p
 RAW_SIGNATURES = {
-    # raw, prev, base, heat, out, parts, flags, valid, seeds,
-    # S, B, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
-    # heat_scale, stream
-    "dips_raw_ring": [_P] * 9 + [_I] * 11 + [_F, _P],
-    # raw, base, heat, out, parts, flags, valid,
-    # S, B, T, Hp, Wp, overall, out_mode, thr, y0, x0, y1, x1,
-    # heat_scale, stream
-    "dips_raw_tail": [_P] * 7 + [_I] * 12 + [_F, _P],
-    # Hp, Wp -> statistics tiles per stream
-    "dips_raw_tiles": [_I, _I],
+    # raw, prev, base, heat, out, parts, stats, flags, valid, seeds,
+    # S, B, Hp, Wp, nb, overall, out_mode, thr, y0, x0, y1, x1,
+    # heat_scale, sum_scale, max_scale, stream
+    "dips_raw_ring": [_P] * 10 + [_I] * 12 + [_F] * 3 + [_P],
+    # raw, base, heat, out, parts, stats, flags, valid,
+    # S, B, T, Hp, Wp, nb, overall, out_mode, thr, y0, x0, y1, x1,
+    # heat_scale, sum_scale, max_scale, stream
+    "dips_raw_tail": [_P] * 8 + [_I] * 13 + [_F] * 3 + [_P],
+    # out mode -> blocks the current card holds at once (a CUDA error:
+    # -code)
+    "dips_raw_resident": [_I],
+    # Hp, Wp, nb -> statistic partials per (frame, stream)
+    "dips_raw_parts": [_I, _I, _I],
+    # -> dynamic shared memory of a block
+    "dips_raw_smem": [],
 }
 MEDIAN_SIGNATURES = {
     # raw, btop, bbot, ring, prev, base, heat, out, parts, flags, valid,

@@ -49,12 +49,13 @@ registers for the batch, and write it back into the same tensors, which the
 functions also return (the JAX functions donate the same buffers).  The
 plain twins update in place too.
 
-Statistics leave the kernels as per-(frame, stream) partials -- one per
-tile of the raw kernel, one per warp of each tile of the median kernels
-(``dips_median_parts`` of the library says how many); the final reduction
-(the counterpart of ``_reduce_stats``) runs here in plain torch.  The raw
-path keeps its partials in integers and sums them in int64 before the one
-float conversion.
+Statistics: the raw step reduces its own -- its launch ends with a small
+kernel that sums the integer partials (one per block, tile and warp) in
+int64 and converts and scales them as :func:`reduce_raw_stats` does, into
+the (s, B, 4) stats, so the wrapper launches no reduction of its own.  The
+median kernels leave per-(frame, stream) partials, one per warp of each
+tile (``dips_median_parts`` of the library says how many), and the final
+reduction (the counterpart of ``_reduce_stats``) runs here in plain torch.
 
 Block geometry: each launch asks :func:`median_tile` / :func:`raw_block`
 which geometry to build and launch (``ops/_build.py``): the entry that
@@ -96,12 +97,14 @@ def _change_thr(props: DiPsProperties) -> float:
     return _f32(_f32(props.change_threshold) * _f32(1 / 255.))
 
 
-def _stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device`` (ctypes passes the int as the
+    entry points' ``void*``)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 def _host_rows(x, shape: tuple, name: str, key: str) -> np.ndarray:
@@ -150,29 +153,42 @@ def _stream_i32(name: str, device: torch.device, items) -> list:
     device tensors of those shapes, cut from one buffer: host values go up
     in one copy, device values are concatenated on the device.
 
-    The uploads are non-blocking: a blocking copy synchronises the stream,
-    so every launch would wait for the previous one.  The source is
-    pageable memory, which the CUDA driver copies into its own staging
-    buffer before the call returns, so it may be freed at once."""
+    The uploads are asynchronous, from pinned memory (torch's caching host
+    allocator, which holds the block until its copy is done): a copy from
+    pageable memory waits for the work already on the stream, which would
+    make every launch wait for the one before it."""
     flat = []
     for key, x, shape in items:
-        t = x if isinstance(x, torch.Tensor) \
-            else torch.from_numpy(np.asarray(x))
+        if isinstance(x, torch.Tensor) and not x.is_cuda:
+            x = x.numpy()
+        t = x if isinstance(x, torch.Tensor) else np.asarray(x)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != "
                              f"{shape}")
         flat.append(t.reshape(-1))
-    if any(t.is_cuda for t in flat):
+    if any(isinstance(t, torch.Tensor) for t in flat):
         buf = torch.cat([t.to(device=device, dtype=torch.int32,
-                              non_blocking=True) for t in flat])
-    else:
-        buf = torch.cat([t.to(torch.int32) for t in flat]).to(
-            device, non_blocking=True)
+                              non_blocking=True)
+                         if isinstance(t, torch.Tensor) else
+                         _upload_i32([t], device) for t in flat])
+    else:  # all on the host: one array, one copy
+        buf = _upload_i32(flat, device)
     views, i = [], 0
     for t, (_, _, shape) in zip(flat, items):
-        views.append(buf[i:i + t.numel()].view(shape))
-        i += t.numel()
+        n = t.numel() if isinstance(t, torch.Tensor) else t.size
+        views.append(buf[i:i + n].view(shape))
+        i += n
     return views
+
+
+def _upload_i32(arrays, device: torch.device) -> torch.Tensor:
+    """Host arrays, concatenated as int32 into pinned memory, copied to
+    ``device`` asynchronously."""
+    host = torch.empty(sum(a.size for a in arrays), dtype=torch.int32,
+                       pin_memory=True)
+    np.concatenate([a.astype(np.int32, copy=False) for a in arrays],
+                   out=host.numpy())
+    return host.to(device, non_blocking=True)
 
 
 def _stream_rows(name: str, raw: torch.Tensor, s: int) -> int:
@@ -308,9 +324,11 @@ def raw_block(s: int, wp: int, device: torch.device) -> _build.RawBlock:
 
 def reduce_raw_stats(parts: torch.Tensor, props: DiPsProperties, h: int,
                      w: int) -> torch.Tensor:
-    """Integer partials (B, S, n_tiles, 4) -> (S, B, 4) float32 stats:
+    """Integer partials (B, S, n_parts, 4) -> (S, B, 4) float32 stats:
     channel-mean signed and abs diff on [-1, 1], max |diff| / 255, changed
-    count.  Sums are taken in int64 and converted to float32 once."""
+    count.  Sums are taken in int64 and converted to float32 once.  The
+    raw plain twins' reduction; the raw kernel's launch computes the same
+    on the card (``raw_step_stats_kernel``)."""
     p = parts.sum(dim=2, dtype=torch.int64)
     p[..., 2] = parts[..., 2].amax(dim=2)
     st = p.to(torch.float32)
@@ -515,37 +533,61 @@ def _launch_raw(name: str, props: DiPsProperties, h: int, w: int, s: int,
         ("snap_flags", snap_flags, (s, b)), ("valid", valid, (s, b))]
         + ([] if tail else [("seeds", seeds, (s,))]))
     mode, c = _raw_out_mode(props)
-    n_tiles = block.tiles(hp, wp)
     out = torch.empty((b, c, s * hp, wp), dtype=torch.uint8, device=dev)
-    parts = torch.empty((b, s, n_tiles, 4), dtype=torch.int32, device=dev)
+    stats = torch.empty((s, b, 4), dtype=torch.float32, device=dev)
     y0, x0, y1, x1 = ((0, 0, hp, wp) if props.roi is None
                       else props.roi_bounds(h, w))
     if rows is not None:
         y0, y1 = rows
-    common = (int(props.method == DiPsMethod.OVERALL), mode,
-              props.change_threshold, y0, x0, y1, x1,
-              _f32(1.0 / (3 * 255.0)), _stream_ptr(dev))
     # the launch goes to the CURRENT device: make it the tensors' own (a
     # mesh cell on another card than the process's current one)
     with torch.cuda.device(dev):
         lib = _build.kernel_lib(_build.Geometry(block=block),
                                 _build.RAW_UNIT)
+        nb = block.blocks(s, hp, wp, _raw_resident(lib, dev, block, mode))
+        parts = torch.empty((b, s, block.parts(hp, wp, nb), 4),
+                            dtype=torch.int32, device=dev)
+        common = (nb, int(props.method == DiPsMethod.OVERALL), mode,
+                  props.change_threshold, y0, x0, y1, x1,
+                  _f32(1.0 / (3 * 255.0)),
+                  _f32(1.0 / (3 * props.analysis_pixels(h, w) * 255)),
+                  _f32(1 / 255.0), _stream_ptr(dev))
         for _ in range(reps):
             if tail:
                 rc = lib.dips_raw_tail(
                     _ptr(raw), _ptr(baseline_raw), _ptr(heatmap), _ptr(out),
-                    _ptr(parts), *map(_ptr, scalars), s, b, t_in, hp, wp,
-                    *common)
+                    _ptr(parts), _ptr(stats), *map(_ptr, scalars), s, b,
+                    t_in, hp, wp, *common)
             else:
                 rc = lib.dips_raw_ring(
                     _ptr(raw), _ptr(prev), _ptr(baseline_raw),
-                    _ptr(heatmap), _ptr(out), _ptr(parts),
+                    _ptr(heatmap), _ptr(out), _ptr(parts), _ptr(stats),
                     *map(_ptr, scalars), s, b, hp, wp, *common)
-            _build.check(rc, f"{name} ({block.name()} block)", lib)
-    stats = reduce_raw_stats(parts, props, h, w)
+            if rc:
+                _build.check(rc, f"{name} ({block.name()} block)", lib)
     if tail:
         return (out, stats, baseline_raw, heatmap), block
     return (out, stats, prev, baseline_raw, heatmap), block
+
+
+#: (device index, block, out mode) -> blocks the card holds at once
+_RESIDENT: dict = {}
+
+
+def _raw_resident(lib, dev: torch.device, block: _build.RawBlock,
+                  mode: int) -> int:
+    """``dips_raw_resident`` of ``block``'s library on ``dev`` (the
+    current device) in out mode ``mode``, asked once a device, block and
+    mode (each mode is an instance of its own, with its own registers)."""
+    key = (dev.index, block, mode)
+    n = _RESIDENT.get(key)
+    if n is None:
+        n = lib.dips_raw_resident(mode)
+        if n < 1:
+            _build.check(-n, f"dips_raw_resident ({block.name()} block)",
+                         lib)
+        _RESIDENT[key] = n
+    return n
 
 
 def absdiff_step_ring_stacked(props: DiPsProperties, h: int, w: int, s: int,

@@ -12,7 +12,9 @@ Prints one JSON line per run, and writes them all to ``--out``:
 * ``wall_ms``: host clock per batch, host frames in to host maps out;
 * ``busy_ms``: the union of the device's kernel and copy intervals per
   batch, and ``idle_share`` = 1 - busy / wall;
-* ``step_ms``: the step kernel's device time per launch;
+* ``step_ms``: the step's device time per launch (the raw step's
+  launch is its kernel and the stats reduction kernel after it, both
+  counted);
 * ``d2h_ms`` / ``h2d_ms``: device time of the copies per batch;
 * ``top``: the five device ops with the most time per batch.
 
@@ -95,13 +97,17 @@ def profile(run_batch, n_batches: int) -> dict:
         per[name] = per.get(name, 0.0) + (b - a)
     step = [(b - a) for name, a, b in iv if "_kernel" in name
             and ("raw_step" in name or "median_" in name)]
+    # launches: the step kernels, not the raw step's stats kernel
+    launches = sum(1 for name, _, _ in iv if "_kernel" in name
+                   and "stats" not in name
+                   and ("raw_step" in name or "median_" in name))
     busy = union_us(iv) / 1e3 / n_batches
     pick = lambda key: sum(v for k, v in per.items()
                            if key in k) / 1e3 / n_batches
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
-            "step_ms": float(np.mean(step)) / 1e3 if step else None,
-            "step_launches": len(step),
+            "step_ms": sum(step) / 1e3 / launches if launches else None,
+            "step_launches": launches,
             "d2h_ms": pick("DtoH"), "h2d_ms": pick("HtoD"),
             "top": [(k[:60], v / 1e3 / n_batches) for k, v in top]}
 

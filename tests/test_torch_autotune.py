@@ -659,7 +659,8 @@ def test_tile_limits_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(threads=100), dict(threads=2048),
-                                dict(bytes=8), dict(bytes=64)])
+                                dict(threads=1024), dict(bytes=8),
+                                dict(bytes=64)])
 def test_block_limits_raise(kw):
     with pytest.raises(ValueError):
         RawBlock(**kw)
@@ -674,8 +675,12 @@ def test_tile_shared_memory_grows_with_rows_pixels_and_ring():
     # the exact mode keeps W sorted rows per tile row, the quirk mode two
     # strips and no column buffer
     assert d.smem_bytes(7, 0, 4) > d.smem_bytes(7, 1, 4)
-    assert RawBlock().tiles(1080, 2048) == 540
-    assert B512.tiles(1080, 2048) == 135
+    # the raw block: tiles a block walks at 1080p over a card's two blocks
+    # an SM (132 SMs), and four stages of 12 KB (two of 48 KB at 512 x 32)
+    assert RawBlock().tiles(1080, 2048, 264) == 3
+    assert B512.tiles(1080, 2048, 132) == 2
+    assert RawBlock().smem_bytes() == 128 + 4 * 3 * 256 * 16
+    assert B512.smem_bytes() == 128 + 2 * 3 * 512 * 32
 
 
 def test_a_geometry_loads_a_library_of_its_unit_alone(monkeypatch):

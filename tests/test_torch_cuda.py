@@ -721,7 +721,7 @@ def test_fft_ops_on_the_card_match_the_cpu(cuda):
 #: a height every tile height divides (8, 16, 24, 32 rows)
 GH = 96
 GEOMETRY_TILES = [(24, 2, 2), (16, 1, 4)]
-GEOMETRY_BLOCKS = [(512, 32), (128, 16), (1024, 32)]
+GEOMETRY_BLOCKS = [(512, 32), (128, 16), (992, 32)]
 #: a tile whose shared memory at w7 and T = 16 exceeds an H100's
 TOO_BIG = (32, 4, 4)
 
@@ -946,3 +946,211 @@ def test_a_stored_geometry_reaches_the_engine(cuda, geometry_libs, tmp_path,
     *_, geo2 = fleet_run(slab_ring_tiles={3: {32: tile}})
     assert geo2 == {name: {MedianTile().name(): 4}}
     tuning.invalidate()
+
+
+# ---------------------------------------------------------------------------
+# The raw kernel's grid: a card's worth of blocks, each walking an even
+# share of a stream in tiles, frames staged by TMA, the stats reduced in
+# the launch.  Its edges against the plain twins, bit for bit: maps,
+# carried state, heatmap and stats (the step sums integer partials in
+# int64 and scales them as reduce_raw_stats does).
+# ---------------------------------------------------------------------------
+
+def _noise_stack(frames, h, w, s, seed, rows=None):
+    """(frames, 3, s*rows, Wp) u8: seeded noise with a bright square
+    moving through it in every stream's true h x w region, zero padding
+    (``rows``: a section's height, default the padded Hp)."""
+    hp, wp = pad_geometry(h, w)
+    rows = rows or hp
+    rng = np.random.default_rng(seed)
+    raw = np.zeros((frames, 3, s, rows, wp), np.uint8)
+    hh = min(h, rows)
+    raw[..., :hh, :w] = rng.integers(0, 256, (frames, 3, s, hh, w),
+                                     np.uint8)
+    for i in range(frames):
+        y, x = (3 * i) % max(1, hh - 8), (11 * i) % max(1, w - 8)
+        raw[i, :, :, y:y + 8, x:x + 8] = 250
+    return raw.reshape(frames, 3, s * rows, wp)
+
+
+def _raw_twins(props, h, w, s, raw, batches, tail, cuda, rows=None,
+               row_bounds=None):
+    """``batches`` = [(frame slice, flags (s, b), valid (s, b), seeds)]
+    through the stacked raw wrapper (ring, or ``tail``) and its plain
+    twin, state carried from batch to batch; every output and the state
+    held bit for bit after each batch."""
+    hp, wp = pad_geometry(h, w)
+    rows = rows or hp
+    shape = (3, s * rows, wp)
+    mk = lambda: [torch.zeros(shape, dtype=torch.uint8, device=cuda)  # noqa
+                  for _ in range(2)] + [
+        torch.zeros(shape[1:], device=cuda)]
+    states = [mk(), mk()]
+    kw = {} if row_bounds is None else dict(row_bounds=row_bounds)
+    fns = ((cuda_fused.absdiff_step_stacked,
+            cuda_fused.absdiff_step_stacked_plain) if tail else
+           (cuda_fused.absdiff_step_ring_stacked,
+            cuda_fused.absdiff_step_ring_stacked_plain))
+    for sl, flags, valid, seeds in batches:
+        x = raw[sl]
+        res = []
+        for fn, (prev, base, heat) in zip(fns, states):
+            f = torch.tensor(flags, dtype=torch.bool, device=cuda)
+            v = torch.tensor(valid, dtype=torch.bool, device=cuda)
+            if tail:
+                res.append(fn(props, h, w, s, x, base, f, heat, v, **kw))
+            else:
+                res.append(fn(props, h, w, s, x, prev, base, f, heat, v,
+                              seeds, **kw))
+        torch.cuda.synchronize()
+        got, exp = res
+        for i, (g, e) in enumerate(zip(got, exp)):
+            assert torch.equal(g, e), i
+        assert torch.equal(states[0][0], states[1][0])
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("h,w,s,b", [(24, 140, 1, 5), (1080, 1920, 1, 5),
+                                     (1080, 1920, 8, 3), (4320, 7680, 1, 2)])
+def test_raw_kernel_uneven_splits_match_plain(cuda, h, w, s, b, tail):
+    """Chunk counts that do not divide among the blocks or tiles: the
+    acceptance clips' 24 x 140 (one block, two tiles), 1080p at s = 1
+    (264 blocks of 523-524 chunks on an H100) and s = 8 (33 a stream),
+    8K; PER_FRAME ABSDIFF (ring) and OVERALL THRESHOLD with an roi whose
+    columns cut 16-byte chunks (tail)."""
+    t = 3
+    props = (DiPsProperties(output=OutputMode.THRESHOLD, temporal_size=t,
+                            change_threshold=17,
+                            roi=(h // 7, 13, h - h // 5, w - 11))
+             if tail else
+             DiPsProperties(method=DiPsMethod.PER_FRAME,
+                            output=OutputMode.ABSDIFF))
+    lead = t if tail else 0
+    raw = torch.from_numpy(_noise_stack(lead + 2 * b, h, w, s, 71)).to(cuda)
+    rng = np.random.default_rng(72)
+    batches = []
+    for k in range(2):
+        flags = rng.integers(0, 2, (s, b)).astype(bool)
+        valid = rng.integers(0, 4, (s, b)) > 0
+        sl = slice(k * b, k * b + lead + b)
+        batches.append((sl, flags, valid, [1 - k] * s))
+    _raw_twins(props, h, w, s, raw, batches, tail, cuda)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("row_bounds", [(0, 0), (5, 17), (0, 120)])
+def test_raw_kernel_roi_edges_and_slab_windows_match_plain(cuda, row_bounds,
+                                                           tail):
+    """The dyn_rows form on three 120-row slabs: a window that misses the
+    slab (0, 0), one inside it, the whole slab; the roi's columns (5, 203)
+    cut a 16-byte chunk at both ends."""
+    h, w, s, b, rows = 360, 640, 3, 4, 120
+    props = DiPsProperties(output=OutputMode.ABSDIFF, temporal_size=2,
+                           roi=(0, 5, 360, 203))
+    lead = 2 if tail else 0
+    raw = torch.from_numpy(_noise_stack(lead + 2 * b, h, w, s, 73,
+                                        rows=rows)).to(cuda)
+    flags = np.zeros((s, b), bool)
+    flags[:, 0] = True
+    valid = np.ones((s, b), bool)
+    valid[1, 2] = False
+    batches = [(slice(k * b, k * b + lead + b), flags, valid, [1 - k] * s)
+               for k in range(2)]
+    _raw_twins(props, h, w, s, raw, batches, tail, cuda, rows=rows,
+               row_bounds=row_bounds)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("method", [DiPsMethod.OVERALL, DiPsMethod.PER_FRAME])
+def test_raw_kernel_one_frame_batches_match_plain(cuda, method, tail):
+    """B = 1, batch after batch, invalid and flagged frames mixed (the
+    ring form gates capture and advance on valid, the tail form does not),
+    two streams with different flags."""
+    h, w, s, t = 60, 200, 2, 2
+    props = DiPsProperties(method=method, output=OutputMode.ABSDIFF,
+                           temporal_size=t)
+    lead = t if tail else 0
+    n = 8
+    raw = torch.from_numpy(_noise_stack(lead + n, h, w, s, 74)).to(cuda)
+    pattern = [(1, 1), (1, 0), (0, 0), (0, 1), (1, 1), (0, 1), (1, 0),
+               (0, 1)]
+    batches = []
+    for k in range(n):
+        f0, v0 = pattern[k]
+        f1, v1 = pattern[(k + 3) % n]
+        batches.append((slice(k, k + lead + 1), [[f0], [f1]], [[v0], [v1]],
+                        [1 if k == 0 else 0] * s))
+    _raw_twins(props, h, w, s, raw, batches, tail, cuda)
+
+
+def test_raw_launches_from_two_threads_on_two_streams(cuda):
+    """Two threads launch the raw step at once, each on its own CUDA
+    stream, state and frames (a server's sessions do): each equals the
+    plain twin run alone, so no launch shares anything with the other."""
+    import threading
+    h, w, b, n = 1080, 1920, 8, 4
+    props = DiPsProperties(output=OutputMode.ABSDIFF)
+    hp, wp = pad_geometry(h, w)
+    feeds = [torch.from_numpy(_noise_stack(n * b, h, w, 1, 75 + i)).to(cuda)
+             for i in range(2)]
+    flags = np.zeros(b, bool)
+    flags[0] = True
+    valid = np.ones(b, bool)
+
+    def run(fn, raw, results):
+        st = [torch.zeros((3, hp, wp), dtype=torch.uint8, device=cuda)
+              for _ in range(2)] + [torch.zeros((hp, wp), device=cuda)]
+        for k in range(n):
+            out, stats, *_ = fn(props, h, w, raw[k * b:(k + 1) * b], st[0],
+                                st[1], flags, st[2], valid, int(k == 0))
+            results.append((out.clone(), stats.clone()))
+        results.append([x.clone() for x in st])
+
+    got = [[], []]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    start = threading.Barrier(2)
+
+    def thread(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            run(cuda_fused.absdiff_step_ring, feeds[i], got[i])
+            streams[i].synchronize()
+
+    threads = [threading.Thread(target=thread, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    for i in range(2):
+        exp = []
+        run(cuda_fused.absdiff_step_ring_plain, feeds[i], exp)
+        torch.cuda.synchronize()
+        assert len(got[i]) == len(exp)
+        for g, e in zip(got[i], exp):
+            for x, y in zip(g, e):
+                assert torch.equal(x, y)
+
+
+def test_the_raw_library_reports_its_grid(cuda, geometry_libs):
+    """Each raw library's partial count and shared memory equal the host's
+    mirror (``RawBlock.parts`` / ``smem_bytes``), and it holds one to four
+    blocks an SM."""
+    from dips_tpu_torch.ops import _build
+    from dips_tpu_torch.ops._build import Geometry, RawBlock
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for blk in [RawBlock()] + [RawBlock(*g) for g in GEOMETRY_BLOCKS]:
+        lib = _build.kernel_lib(Geometry(block=blk), _build.RAW_UNIT)
+        assert lib.dips_raw_smem() == blk.smem_bytes()
+        resident = lib.dips_raw_resident(1)
+        for mode in range(3):
+            assert sms <= lib.dips_raw_resident(mode) <= 4 * sms
+        assert lib.dips_raw_resident(3) < 0
+        for h, w, s in ((24, 140, 1), (1080, 1920, 1), (1080, 1920, 8),
+                        (4320, 7680, 1)):
+            hp, wp = pad_geometry(h, w)
+            if wp % blk.bytes:
+                continue
+            nb = blk.blocks(s, hp, wp, resident)
+            assert lib.dips_raw_parts(hp, wp, nb) == blk.parts(hp, wp, nb)
+        assert lib.dips_raw_parts(8, 16, 0) == 0
