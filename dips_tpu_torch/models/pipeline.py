@@ -33,7 +33,6 @@ flags and seed 1; the tail engine just uploads it.
 from __future__ import annotations
 
 import collections
-import contextlib
 from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +43,7 @@ from ..errors import DeviceError
 from ..properties import DiPsProperties, OutputMode
 from ..ops import cuda_fused, reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
+from ..utils import profiling
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
               OutputMode.STATS_ONLY)
@@ -138,10 +138,15 @@ class DiPsEngine:
         device (a hwc layout; "planar" becomes "hwc").
 
     ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
-    None by default) splits the time into ``h2d`` (the upload), ``dispatch``
-    (layout prep, launch and packing) and ``d2h`` (collect).  Kernels run
-    asynchronously on the card, so ``dispatch`` holds only the enqueue and
-    ``d2h`` holds the wait for the device as well as the download.
+    None by default) splits the time into ``stage_in`` (the frames into the
+    host buffer, planarized in the planar layout), ``tail_keep`` (the host
+    copies of the tail frames), ``h2d`` (the upload), ``dispatch`` (layout
+    prep, launch and packing), ``wait`` (the host blocked until the device
+    has run what was enqueued) and ``d2h`` (the downloads).  Kernels run
+    asynchronously on the card, so ``dispatch`` holds only the enqueue;
+    ``d2h`` no longer holds the wait for the device.  While a
+    ``torch.profiler`` records, each stage is also a ``dips.engine.<stage>``
+    span (:func:`~dips_tpu_torch.utils.profiling.stage`).
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
@@ -261,8 +266,7 @@ class DiPsEngine:
                 np.zeros((0, NUM_STATS), np.float32))
 
     def _stage(self, name: str):
-        return (self.timers.stage(name) if self.timers
-                else contextlib.nullcontext())
+        return profiling.stage(self.timers, name)
 
     def new_batch_buffer(self) -> np.ndarray:
         """A host buffer for one batch: (B, H_in, W_in, 3) uint8 in a hwc
@@ -295,13 +299,14 @@ class DiPsEngine:
         for f in frames:
             if f.shape != shape:
                 raise ValueError(f"frame shape {f.shape} != {shape}")
-        if self.input_layout == "planar":
-            return self.process_planar(
-                [native.planarize(f, self.hp, self.wp) for f in frames],
-                packed=packed)
-        buf = self.new_batch_buffer()
-        for i, f in enumerate(frames):
-            buf[i] = f
+        with self._stage("stage_in"):
+            if self.input_layout == "planar":
+                buf = self._fill_planar([native.planarize(f, self.hp, self.wp)
+                                         for f in frames])
+            else:
+                buf = self.new_batch_buffer()
+                for i, f in enumerate(frames):
+                    buf[i] = f
         return self.collect(self.dispatch_async(buf, n), packed=packed)
 
     def process_planar(self, planar: Sequence[np.ndarray],
@@ -317,6 +322,13 @@ class DiPsEngine:
             return self._empty_result()
         if n > self.batch:
             raise ValueError(f"got {n} frames > batch {self.batch}")
+        with self._stage("stage_in"):
+            buf = self._fill_planar(planar)
+        return self.collect(self.dispatch_async(buf, n), packed=packed)
+
+    def _fill_planar(self, planar: Sequence[np.ndarray]) -> np.ndarray:
+        """A :meth:`new_batch_buffer` buffer with the planar frames in its
+        rows ``[tail_rows:]``."""
         buf = self.new_batch_buffer()
         tr = self.tail_rows
         for i, f in enumerate(planar):
@@ -324,7 +336,7 @@ class DiPsEngine:
                 raise ValueError(f"planar frame shape {f.shape} != "
                                  f"{(3, self.hp, self.wp)}")
             buf[tr + i] = f
-        return self.collect(self.dispatch_async(buf, n), packed=packed)
+        return buf
 
     def process_buffer(self, buf: np.ndarray, n: int, packed: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -350,9 +362,10 @@ class DiPsEngine:
         tr_host = self.tail_rows
         new = buf[tr_host:tr_host + n]
         first = not self._tail
-        if first:  # first batch: the tail starts as T x frame 0
-            self._tail.extend([new[0].copy()] * t)
-        self._tail.extend(new[i].copy() for i in range(max(0, n - t), n))
+        with self._stage("tail_keep"):
+            if first:  # first batch: the tail starts as T x frame 0
+                self._tail.extend([new[0].copy()] * t)
+            self._tail.extend(new[i].copy() for i in range(max(0, n - t), n))
 
         flags = np.zeros((b,), np.bool_)
         valid = np.zeros((b,), np.bool_)
@@ -435,6 +448,9 @@ class DiPsEngine:
         out, stats, n = handle
         if packed and not self.packed_wire:
             raise ValueError("packed collect requires packed_wire=True")
+        with self._stage("wait"):  # what the first download would wait for
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         with self._stage("d2h"):
             stats_np = stats.cpu().numpy()
             if out.shape[1] == 0:  # no maps: stats only

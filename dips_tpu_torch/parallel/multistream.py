@@ -70,6 +70,7 @@ from ..models.pipeline import (analysis_geometry, check_packed_wire,
 from ..ops import reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
+from ..utils import profiling
 from .grid2d import (make_grid_ring_step, make_grid_step,
                      run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
@@ -190,6 +191,15 @@ class MultiStreamEngine:
       slab_impl: "bands" (default) or "extended": how a 2-D grid's slab
         kernels get their neighbour rows (``grid2d.make_grid_ring_step``);
         validated on every mesh, used only by a grid's median modes.
+
+    ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
+    None by default) takes the single-stream engine's six stages:
+    ``stage_in`` and ``tail_keep`` once per staged stream (``stage_in``
+    once more when stale rows of a quiet stream are zeroed), then
+    ``h2d``, ``dispatch`` (layout prep, launch, crop and interleave
+    enqueued), ``wait`` and ``d2h`` (maps, stats and the global mean) once
+    per batch; each is a ``dips.engine.<stage>`` span while a
+    ``torch.profiler`` records.
     """
 
     #: the multi-process engine (``multihost.py``) sets this: every process
@@ -226,6 +236,7 @@ class MultiStreamEngine:
             input_layout, self.height, self.width, self.hp, self.wp,
             downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
+        self.timers = None
         self.mesh, self.slab_impl = mesh, slab_impl
         self._layout = Layout(mesh, self._stage_rows(), self.hp, self.wp,
                               device=self.device)
@@ -303,6 +314,9 @@ class MultiStreamEngine:
         """The valid-weighted sum of mean |diff| and the valid count over
         every process (here: this one's)."""
         return total, count
+
+    def _stage(self, name: str):
+        return profiling.stage(self.timers, name)
 
     # -- state ------------------------------------------------------------
     def _rows(self, row: int) -> slice:
@@ -655,29 +669,36 @@ class MultiStreamEngine:
             n_si = len(frames)
             if not n_si:
                 continue
-            if planar:  # the host lays out each frame, RGB planes
-                new = buf[row, tr:]
-                for i, f in enumerate(frames):
-                    new[i] = native.planarize(f, self.hp, self.wp)
-            else:
-                new = buf[row]
-                for i, f in enumerate(frames):
-                    new[i] = f
-            # slots past n_si hold replicas of the last frame; the kernel
-            # reads them as invalid and leaves the carried state alone
-            new[n_si:] = new[n_si - 1]
-            if self._tails[si] is None:
-                fresh.append(row)
-                self._tails[si] = [new[0].copy()] * t
-                seeds[row] = 1
-            elif not (self.ring_carry or planar
-                      or row in self._tail_live):
-                resumed[row] = self._planar_tail(si)
-            if planar and tr:  # the tail rows go up with the frames
-                buf[row, :t] = self._planar_tail(si)
-            self._tails[si] = (self._tails[si] + [
-                new[i].copy() for i in range(max(0, n_si - t), n_si)
-            ])[-t:]
+            tail = self._tails[si]
+            with self._stage("stage_in"):
+                if planar:  # the host lays out each frame, RGB planes
+                    new = buf[row, tr:]
+                    for i, f in enumerate(frames):
+                        new[i] = native.planarize(f, self.hp, self.wp)
+                else:
+                    new = buf[row]
+                    for i, f in enumerate(frames):
+                        new[i] = f
+                # slots past n_si hold replicas of the last frame; the
+                # kernel reads them as invalid and leaves the carried state
+                # alone
+                new[n_si:] = new[n_si - 1]
+                if tail is None:
+                    fresh.append(row)
+                    seeds[row] = 1
+                elif not (self.ring_carry or planar
+                          or row in self._tail_live):
+                    resumed[row] = self._planar_tail(si)
+                if planar and tr:  # the tail rows go up with the frames
+                    # (a fresh stream's tail is T copies of its frame 0)
+                    buf[row, :t] = (new[0] if tail is None
+                                    else self._planar_tail(si))
+            with self._stage("tail_keep"):
+                if tail is None:
+                    tail = [new[0].copy()] * t
+                self._tails[si] = (tail + [
+                    new[i].copy() for i in range(max(0, n_si - t), n_si)
+                ])[-t:]
             valid[row, :n_si] = True
             # markers fire on each stream's own cursor
             cursor = self.frame_cursors[si]
@@ -690,45 +711,57 @@ class MultiStreamEngine:
             self.frame_cursors[si] = cursor + n_si
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
             written[row] = n_si
-        for row in self._stage_written - set(written):
-            buf[row] = 0  # stale frames of a stream that went quiet or died
+        stale = self._stage_written - set(written)
+        if stale:
+            with self._stage("stage_in"):
+                for row in stale:
+                    buf[row] = 0  # stale frames of a stream gone quiet or dead
         self._stage_written = set(written)
 
-        if self._dev_stage is not self._host:
-            self._dev_stage.copy_(self._host, non_blocking=True)
-        raw = self._planar
-        # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
-        # stream's rows are written in place, no transpose per batch
-        if planar:
-            raw.view(tr + b, 3, s, self.hp, self.wp).permute(
-                2, 0, 1, 3, 4).copy_(self._dev_stage)
-            fresh = []  # their tail rows came up from the host
-        else:
-            self._prep(self._dev_stage, out=raw[tr:].view(
-                b, 3, s, self.hp, self.wp).permute(2, 0, 1, 3, 4))
-        if self.ring_carry:
-            out, stats = self._launch_ring(raw, flags, valid, offsets, seeds)
-        else:
-            out, stats = self._launch_tail(raw, flags, valid, written,
-                                           fresh, resumed)
-        if self.packed_wire:
-            # bit-pack on the device, unpack and crop on the host
-            packed = wire.pack_mask(out[:n]).cpu().numpy()
-            maps = wire.unpack_mask(packed).reshape(
-                n, 1, s, self.hp, self.wp)[..., :h, :w]
-            maps = np.ascontiguousarray(maps.transpose(2, 0, 3, 4, 1))
-        elif c:  # crop + interleave on the device: one download of the maps
-            maps = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
-            maps = maps.permute(2, 0, 3, 4, 1).contiguous().cpu().numpy()
-        else:
-            maps = np.empty((s, n, h, w, 0), np.uint8)
-        stats_t = stats[:, :n].cpu()
-        # mean |diff| over valid slots only: padding replicas and dead
-        # streams stay out of the aggregate
-        vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
-        total, count = self._global_sums((stats_t[..., 1] * vw).sum(),
-                                         vw.sum())
-        gmean = float(total / torch.clamp(count, min=1.0))
+        with self._stage("h2d"):
+            if self._dev_stage is not self._host:
+                self._dev_stage.copy_(self._host, non_blocking=True)
+        with self._stage("dispatch"):
+            raw = self._planar
+            # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
+            # stream's rows are written in place, no transpose per batch
+            if planar:
+                raw.view(tr + b, 3, s, self.hp, self.wp).permute(
+                    2, 0, 1, 3, 4).copy_(self._dev_stage)
+                fresh = []  # their tail rows came up from the host
+            else:
+                self._prep(self._dev_stage, out=raw[tr:].view(
+                    b, 3, s, self.hp, self.wp).permute(2, 0, 1, 3, 4))
+            if self.ring_carry:
+                out, stats = self._launch_ring(raw, flags, valid, offsets,
+                                               seeds)
+            else:
+                out, stats = self._launch_tail(raw, flags, valid, written,
+                                               fresh, resumed)
+            if self.packed_wire:  # bit-packed on the device
+                out = wire.pack_mask(out[:n])
+            elif c:  # crop + interleave on the device: one download
+                out = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
+                out = out.permute(2, 0, 3, 4, 1).contiguous()
+        with self._stage("wait"):  # what the first download would wait for
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with self._stage("d2h"):
+            if self.packed_wire:  # unpacked and cropped on the host
+                maps = wire.unpack_mask(out.cpu().numpy()).reshape(
+                    n, 1, s, self.hp, self.wp)[..., :h, :w]
+                maps = np.ascontiguousarray(maps.transpose(2, 0, 3, 4, 1))
+            elif c:
+                maps = out.cpu().numpy()
+            else:
+                maps = np.empty((s, n, h, w, 0), np.uint8)
+            stats_t = stats[:, :n].cpu()
+            # mean |diff| over valid slots only: padding replicas and dead
+            # streams stay out of the aggregate
+            vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
+            total, count = self._global_sums((stats_t[..., 1] * vw).sum(),
+                                             vw.sum())
+            gmean = float(total / torch.clamp(count, min=1.0))
         return maps, stats_t.numpy(), gmean
 
     def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):

@@ -4,8 +4,12 @@ Counterpart of ``dips_tpu/utils/profiling.py``:
 
 * :class:`StageTimers`, a verbatim copy of the JAX package's class
   (accumulating wall-clock timers per named stage with a frames/s
-  summary).  The engines split their time into ``h2d``, ``dispatch`` and
-  ``d2h``; the run path adds ``decode``, ``device`` and ``encode``.
+  summary).  The engines split their time into :data:`ENGINE_STAGES`;
+  the run path adds ``decode``, ``device`` and ``encode``.
+* :func:`stage`, the engines' one hook around a stage: it times the stage
+  into a :class:`StageTimers` and, while a ``torch.profiler`` records,
+  opens a ``dips.engine.<stage>`` span on the profile's host timeline,
+  the clock of the kernels and copies it records.
 * :func:`trace`, a ``torch.profiler`` capture (CPU activity, and CUDA
   activity when a card is present) written as a Chrome trace, in place of
   the JAX package's ``jax.profiler`` trace.
@@ -16,7 +20,23 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator, Optional
+
+import torch
+
+#: the stages of one engine batch, in order: the frames into the host
+#: buffer (``stage_in``), the host copies of the tail frames
+#: (``tail_keep``), the upload's enqueue (``h2d``), layout prep, launch and
+#: crop enqueued (``dispatch``), the host blocked until the device is done
+#: (``wait``), the downloads (``d2h``)
+ENGINE_STAGES = ("stage_in", "tail_keep", "h2d", "dispatch", "wait", "d2h")
+#: the prefix of the engines' profiler spans
+SPAN_PREFIX = "dips.engine."
+#: the span: a function-scope record, which holds no device-side mark (a
+#: ``record_function`` user annotation gets one spanning the kernels
+#: launched inside it, which a reader of the device's busy time would
+#: count as work)
+_span = torch._C._profiler._RecordFunctionFast
 
 
 class StageTimers:
@@ -72,6 +92,24 @@ class StageTimers:
         return "StageTimers:\n" + "\n".join(rows)
 
 
+def stage(timers: Optional[StageTimers], name: str) -> ContextManager:
+    """The block as engine stage ``name``: timed into ``timers`` (a
+    :class:`StageTimers`, or None), and a ``dips.engine.<name>`` span while
+    a ``torch.profiler`` records.  With no profiler recording it costs one
+    flag check and enters no span."""
+    timed = (timers.stage(name) if timers is not None
+             else contextlib.nullcontext())
+    if torch.autograd._profiler_enabled():
+        return _spanned(timed, name)
+    return timed
+
+
+@contextlib.contextmanager
+def _spanned(timed: ContextManager, name: str) -> Iterator[None]:
+    with _span(SPAN_PREFIX + name), timed:
+        yield
+
+
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace of the block into
@@ -83,7 +121,6 @@ def trace(logdir: Optional[str] = None) -> Iterator[None]:
         return
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(logdir, exist_ok=True)
     activities = [ProfilerActivity.CPU]

@@ -16,7 +16,13 @@ Prints one JSON line per run, and writes them all to ``--out``:
   launch is its kernel and the stats reduction kernel after it, both
   counted);
 * ``d2h_ms`` / ``h2d_ms``: device time of the copies per batch;
-* ``top``: the five device ops with the most time per batch.
+* ``top``: the five device ops with the most time per batch;
+* ``stage_ms``: host time of each engine stage per batch, the union of
+  its ``dips.engine.<stage>`` spans (``stage_in``, ``tail_keep``,
+  ``h2d``, ``dispatch``, ``wait``, ``d2h``; the fleet's per-stream spans
+  count once), and ``idle_staging_share``: the share of the wall in
+  which the device is idle while the host is inside ``stage_in`` or
+  ``tail_keep``.
 
 Each run also prints the card's name and power limit.  Without a card it
 exits non-zero.
@@ -65,16 +71,40 @@ def device_intervals(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def union_us(iv) -> float:
-    total, end = 0.0, -1.0
+def stage_spans(prof):
+    """(stage, start_us, end_us) of every engine stage span of a profile."""
+    from torch.autograd import DeviceType
+
+    from dips_tpu_torch.utils.profiling import SPAN_PREFIX
+    return [(e.name[len(SPAN_PREFIX):], e.time_range.start,
+             e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CPU
+            and e.name.startswith(SPAN_PREFIX)]
+
+
+def merged(iv):
+    """The union of the intervals as disjoint [start, end] pairs."""
+    out = []
     for _, a, b in sorted(iv, key=lambda x: x[1]):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def union_us(iv) -> float:
+    return sum(b - a for a, b in merged(iv))
+
+
+def idle_inside_us(spans, iv) -> float:
+    """Time inside the union of ``spans`` with no device interval."""
+    busy = merged(iv)
+    idle = 0.0
+    for a, b in merged(spans):
+        idle += (b - a) - sum(max(0.0, min(b, d) - max(a, c))
+                              for c, d in busy)
+    return idle
 
 
 def profile(run_batch, n_batches: int) -> dict:
@@ -105,11 +135,20 @@ def profile(run_batch, n_batches: int) -> dict:
     pick = lambda key: sum(v for k, v in per.items()
                            if key in k) / 1e3 / n_batches
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    spans = stage_spans(prof)
+    stage_ms = {}
+    for name, _, _ in spans:
+        stage_ms[name] = union_us([x for x in spans if x[0] == name]
+                                  ) / 1e3 / n_batches
+    staging = [x for x in spans if x[0] in ("stage_in", "tail_keep")]
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
             "step_ms": sum(step) / 1e3 / launches if launches else None,
             "step_launches": launches,
             "d2h_ms": pick("DtoH"), "h2d_ms": pick("HtoD"),
-            "top": [(k[:60], v / 1e3 / n_batches) for k, v in top]}
+            "top": [(k[:60], v / 1e3 / n_batches) for k, v in top],
+            "stage_ms": stage_ms,
+            "idle_staging_share": idle_inside_us(staging, iv) / 1e3
+            / n_batches / wall}
 
 
 def time_ring_paths(card: str) -> dict:
