@@ -593,6 +593,11 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
         return 1, None
     if args.profile and job.timers:
         print(job.timers)
+        down = job.engine.downloads
+        if down.reuse_share is not None:  # on a card
+            print(f"downloads: {down.batches} batches, {down.nbytes} bytes "
+                  f"into page-locked memory, {down.new_blocks} page-locked "
+                  f"a new block (reuse share {down.reuse_share:.3f})")
     if auto_refresh is not None and job.baseline_refreshes is not None:
         if job.baseline_refreshes:
             print("auto-refresh fired at frame(s): "

@@ -18,10 +18,11 @@ Per batch: one upload of the (n, H, W, 3) frames (from a pinned host buffer
 on a card), the layout prep on the device (optional k x k box mean, permute,
 optional BGR flip, zero pad into a planar buffer the engine keeps), one
 kernel launch, then crop and interleave on the device before one download
-of the maps.  With ``input_layout="planar"`` the host hands over padded
-planar frames and the upload goes straight into the planar buffer; with
-``packed_wire`` (THRESHOLD) the masks are bit-packed on the device and
-unpacked on the host.
+of the maps and stats into page-locked host memory the caller owns
+(``utils/downloads.py``).  With ``input_layout="planar"`` the host hands
+over padded planar frames and the upload goes straight into the planar
+buffer; with ``packed_wire`` (THRESHOLD) the masks are bit-packed on the
+device and unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's and the same in both
 protocols: they hold the raw planar u8 tail of the last T frames (at the
@@ -44,6 +45,7 @@ from ..properties import DiPsProperties, OutputMode
 from ..ops import cuda_fused, reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..utils import profiling
+from ..utils.downloads import Downloads
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
               OutputMode.STATS_ONLY)
@@ -147,6 +149,11 @@ class DiPsEngine:
     ``d2h`` no longer holds the wait for the device.  While a
     ``torch.profiler`` records, each stage is also a ``dips.engine.<stage>``
     span (:func:`~dips_tpu_torch.utils.profiling.stage`).
+
+    ``downloads`` (a :class:`~dips_tpu_torch.utils.downloads.Downloads`)
+    brings each batch's maps and stats down; on a card, while ``timers``
+    is set, it counts the batches, their bytes and those whose download
+    page-locked a new host block.
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
@@ -173,6 +180,7 @@ class DiPsEngine:
         self._raw_mode = props.output in _RAW_MODES
         self.ring_carry = bool(ring_carry)
         self.timers = None
+        self.downloads = Downloads(self.device)
         # planar device batch, the tail rows first in the tail protocol:
         # the padding stays zero, only the true region is rewritten
         self._planar = torch.zeros(
@@ -444,19 +452,23 @@ class DiPsEngine:
         (n, H, W, C), stats float32 (n, 4)).  ``packed=True``
         (``packed_wire`` engines only) returns the device-packed padded
         masks (n, 1, Hp/8, Wp) as they came down, without the host
-        unpack."""
+        unpack.  On a card the maps are a view of page-locked host
+        memory the caller owns, the stats a copy of their own: no later
+        batch writes into either."""
         out, stats, n = handle
         if packed and not self.packed_wire:
             raise ValueError("packed collect requires packed_wire=True")
         with self._stage("wait"):  # what the first download would wait for
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        counted = self.timers is not None
         with self._stage("d2h"):
-            stats_np = stats.cpu().numpy()
             if out.shape[1] == 0:  # no maps: stats only
+                stats_np, = self.downloads.fetch(stats, count=counted)
                 return np.empty((n, self.height, self.width, 0),
                                 np.uint8), stats_np
-            out_np = out.cpu().numpy()
+            out_np, stats_np = self.downloads.fetch(out, stats,
+                                                    count=counted)
             if packed:
                 return out_np, stats_np
             if self.packed_wire:
@@ -467,15 +479,22 @@ class DiPsEngine:
     def process_frames(self, frames: Sequence[np.ndarray],
                        packed: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """Process any number of frames, batching internally."""
+        """Process any number of frames, batching internally.  Each
+        batch is copied into one output allocated at the first, so one
+        batch's download at a time is alive."""
         if len(frames) == 0:
             return self._empty_result()
-        outs, stats = [], []
+        outs = stats = None
         for i in range(0, len(frames), self.batch):
             o, s = self.process_batch(frames[i:i + self.batch], packed=packed)
-            outs.append(o)
-            stats.append(s)
-        return np.concatenate(outs), np.concatenate(stats)
+            if outs is None:
+                outs = np.empty((len(frames),) + o.shape[1:], o.dtype)
+                stats = np.empty((len(frames),) + s.shape[1:], s.dtype)
+            outs[i:i + len(o)] = o
+            stats[i:i + len(s)] = s
+            # the batch's download goes back to the pool before the next
+            del o, s
+        return outs, stats
 
     # -- checkpoint / resume -------------------------------------------------
     def state_dict(self) -> dict:

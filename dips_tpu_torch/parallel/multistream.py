@@ -42,11 +42,12 @@ Per batch: the frames go into one persistent (S, B, H, W, 3) host buffer
 (pinned on a card), up in one copy, through the layout prep on the device
 (optional k x k box mean, permute, optional BGR flip, zero pad), one kernel
 launch, then crop and interleave on the device to (S, n, H, W, C) before
-one download.  With ``input_layout="planar"`` the host planarizes each
-frame into a persistent (S, T_rows + B, 3, Hp, Wp) buffer, tail rows
-included (T_rows = T in the tail protocol, else 0), and the upload lands in
-the row-stacked input.  With ``packed_wire`` (THRESHOLD) the masks come
-down bit-packed and are unpacked on the host.
+one download of the maps and stats into page-locked host memory the
+caller owns (``utils/downloads.py``).  With ``input_layout="planar"`` the
+host planarizes each frame into a persistent (S, T_rows + B, 3, Hp, Wp)
+buffer, tail rows included (T_rows = T in the tail protocol, else 0), and
+the upload lands in the row-stacked input.  With ``packed_wire``
+(THRESHOLD) the masks come down bit-packed and are unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's in both directions
 and in both protocols: the fleet's ``save`` / ``load`` and one slot's
@@ -71,6 +72,7 @@ from ..ops import reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
 from ..utils import profiling
+from ..utils.downloads import Downloads
 from .grid2d import (make_grid_ring_step, make_grid_step,
                      run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
@@ -199,7 +201,9 @@ class MultiStreamEngine:
     ``h2d``, ``dispatch`` (layout prep, launch, crop and interleave
     enqueued), ``wait`` and ``d2h`` (maps, stats and the global mean) once
     per batch; each is a ``dips.engine.<stage>`` span while a
-    ``torch.profiler`` records.
+    ``torch.profiler`` records.  ``downloads`` (a
+    :class:`~dips_tpu_torch.utils.downloads.Downloads`) counts the
+    downloads, while ``timers`` is set, as on the single-stream engine.
     """
 
     #: the multi-process engine (``multihost.py``) sets this: every process
@@ -237,6 +241,7 @@ class MultiStreamEngine:
             downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
         self.timers = None
+        self.downloads = Downloads(self.device)
         self.mesh, self.slab_impl = mesh, slab_impl
         self._layout = Layout(mesh, self._stage_rows(), self.hp, self.wp,
                               device=self.device)
@@ -746,23 +751,25 @@ class MultiStreamEngine:
         with self._stage("wait"):  # what the first download would wait for
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        counted = self.timers is not None
         with self._stage("d2h"):
+            if c:
+                maps, stats_np = self.downloads.fetch(out, stats[:, :n],
+                                                      count=counted)
+            else:
+                stats_np, = self.downloads.fetch(stats[:, :n], count=counted)
+                maps = np.empty((s, n, h, w, 0), np.uint8)
             if self.packed_wire:  # unpacked and cropped on the host
-                maps = wire.unpack_mask(out.cpu().numpy()).reshape(
+                maps = wire.unpack_mask(maps).reshape(
                     n, 1, s, self.hp, self.wp)[..., :h, :w]
                 maps = np.ascontiguousarray(maps.transpose(2, 0, 3, 4, 1))
-            elif c:
-                maps = out.cpu().numpy()
-            else:
-                maps = np.empty((s, n, h, w, 0), np.uint8)
-            stats_t = stats[:, :n].cpu()
             # mean |diff| over valid slots only: padding replicas and dead
             # streams stay out of the aggregate
             vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
-            total, count = self._global_sums((stats_t[..., 1] * vw).sum(),
-                                             vw.sum())
+            total, count = self._global_sums(
+                (torch.from_numpy(stats_np)[..., 1] * vw).sum(), vw.sum())
             gmean = float(total / torch.clamp(count, min=1.0))
-        return maps, stats_t.numpy(), gmean
+        return maps, stats_np, gmean
 
     def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):
         """One stacked ring-carry launch over the B-row planar input, or

@@ -217,6 +217,8 @@ class StreamCoalescer:
                         else:
                             k = len(frames)
                             results[si] = (outs[si, :k], stats[si, :k])
+                    # the slots' views alone keep the download alive
+                    del outs, stats
             except Exception as e:  # whole-batch failure -> every waiter
                 results = {si: RuntimeError(str(e)) for si in batch}
             with self._cv:
@@ -279,13 +281,19 @@ class _CoalescedSession:
             return (np.zeros((0, self.height, self.width,
                               self.props.out_channels), np.uint8),
                     np.zeros((0, NUM_STATS), np.float32))
-        outs, stats = [], []
+        outs = stats = None
         b = self._co.engine.batch
         for i in range(0, len(frames), b):
             o, s = self._co.submit(self.slot, frames[i:i + b])
-            outs.append(o)
-            stats.append(s)
-        return np.concatenate(outs), np.concatenate(stats)
+            if outs is None:
+                outs = np.empty((len(frames),) + o.shape[1:], o.dtype)
+                stats = np.empty((len(frames),) + s.shape[1:], s.dtype)
+            outs[i:i + len(o)] = o
+            stats[i:i + len(s)] = s
+            # this slot's view of the fleet's download goes: the block
+            # goes back to the pool once every slot has copied its own
+            del o, s
+        return outs, stats
 
     def snapshot(self) -> None:
         self._co.snapshot(self.slot)

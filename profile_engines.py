@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's engines on one card, both protocols.
 
-    python3 profile_engines.py [--batches 3] [--out chiprun_out/profile.json]
+    python3 profile_engines.py [--batches 3] [--out profile.json]
 
 Runs on a machine with an NVIDIA card.  For the single-stream engine
 (1080p, B = 16) and the 8-stream fleet (1080p x 8, B = 16), COLORIZE w3/T4
-and ABSDIFF, each on the ring-carry and the tail protocol: one warm-up
-batch, then ``--batches`` batches of seeded frames under ``torch.profiler``.
-Prints one JSON line per run, and writes them all to ``--out``:
+and ABSDIFF, each on the ring-carry and the tail protocol, and COLORIZE
+w3/T4 with ``emit_maps=False`` on the ring-carry protocol (stats only: no
+maps come down): one warm-up batch, then a closed loop of ``LOOP``
+batches that holds its first result and its last one, as the benchmark's
+closed loop holds a sample batch and the last, then ``--batches`` batches
+of seeded frames under ``torch.profiler``.  Prints one JSON line per run,
+and writes them all to ``--out``:
 
+* ``loop_ms``: host clock per batch of the closed loop, untraced;
+* ``reuse_share``: the share of the loop's batches whose download
+  page-locked no new host block (``utils/downloads.py``), with
+  ``new_blocks``, their count, and ``pinned_peak_bytes``, the page-locked
+  host memory of the run at its peak (the engine's upload buffers
+  included);
 * ``wall_ms``: host clock per batch, host frames in to host maps out;
 * ``busy_ms``: the union of the device's kernel and copy intervals per
   batch, and ``idle_share`` = 1 - busy / wall;
@@ -16,6 +26,8 @@ Prints one JSON line per run, and writes them all to ``--out``:
   launch is its kernel and the stats reduction kernel after it, both
   counted);
 * ``d2h_ms`` / ``h2d_ms``: device time of the copies per batch;
+  ``d2h_mb``, the bytes the engine downloaded per batch, and
+  ``d2h_gbps``, those bytes over ``d2h_ms``;
 * ``top``: the five device ops with the most time per batch;
 * ``stage_ms``: host time of each engine stage per batch, the union of
   its ``dips.engine.<stage>`` spans (``stage_in``, ``tail_keep``,
@@ -30,8 +42,7 @@ exits non-zero.
 ``--threshold`` instead profiles the THRESHOLD pipeline, ring-carry, with
 and without ``packed_wire`` (the masks bit-packed on the card before the
 download), single stream and fleet, in turns (unpacked, packed, packed,
-unpacked); each row also gives ``d2h_mb``, the map bytes downloaded per
-batch.
+unpacked).
 
 ``--ring-paths`` instead times what every version of the package has:
 the single-stream ring wrappers (``absdiff_step_ring`` with device flags
@@ -51,6 +62,8 @@ import time
 import numpy as np
 
 H, W, B, S = 1080, 1920, 16, 8
+#: batches of the untraced closed loop of every row
+LOOP = 40
 
 
 def frames_of(seed, n, h=H, w=W):
@@ -107,11 +120,35 @@ def idle_inside_us(spans, iv) -> float:
     return idle
 
 
-def profile(run_batch, n_batches: int) -> dict:
+def closed_loop(run_batch, downloads) -> dict:
+    """``LOOP`` batches, each called as the last returns, holding the
+    first result and the last one: the host time a batch and how often a
+    download page-locked a new block."""
+    new0 = downloads.new_blocks
+    first = last = None
+    t0 = time.perf_counter()
+    for i in range(LOOP):
+        last = run_batch(i + 1)
+        if first is None:
+            first = last
+    loop = (time.perf_counter() - t0) * 1e3 / LOOP
+    new = downloads.new_blocks - new0
+    return {"loop_ms": loop, "new_blocks": new,
+            "reuse_share": 1 - new / LOOP}
+
+
+def profile(run_batch, downloads, n_batches: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
-    run_batch(0)  # warm-up
     torch.cuda.synchronize()
+    # this run's page-locked memory only: the earlier runs' cached blocks
+    # are freed
+    torch._C._host_emptyCache()
+    torch.cuda.reset_peak_host_memory_stats()
+    run_batch(0)  # warm-up
+    looped = closed_loop(run_batch, downloads)
+    torch.cuda.synchronize()
+    nbytes0 = downloads.nbytes
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -119,6 +156,8 @@ def profile(run_batch, n_batches: int) -> dict:
             run_batch(i + 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_batches
+    d2h_mb = (downloads.nbytes - nbytes0) / 1e6 / n_batches
+    pinned_peak = torch.cuda.host_memory_stats()["allocated_bytes.peak"]
     iv = device_intervals(prof)
     if not iv:
         raise SystemExit("profile_engines: the profiler saw no device event")
@@ -141,14 +180,18 @@ def profile(run_batch, n_batches: int) -> dict:
         stage_ms[name] = union_us([x for x in spans if x[0] == name]
                                   ) / 1e3 / n_batches
     staging = [x for x in spans if x[0] in ("stage_in", "tail_keep")]
-    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
-            "step_ms": sum(step) / 1e3 / launches if launches else None,
-            "step_launches": launches,
-            "d2h_ms": pick("DtoH"), "h2d_ms": pick("HtoD"),
-            "top": [(k[:60], v / 1e3 / n_batches) for k, v in top],
-            "stage_ms": stage_ms,
-            "idle_staging_share": idle_inside_us(staging, iv) / 1e3
-            / n_batches / wall}
+    d2h = pick("DtoH")
+    return looped | {
+        "pinned_peak_bytes": pinned_peak,
+        "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+        "step_ms": sum(step) / 1e3 / launches if launches else None,
+        "step_launches": launches,
+        "d2h_ms": d2h, "h2d_ms": pick("HtoD"), "d2h_mb": d2h_mb,
+        "d2h_gbps": d2h_mb / d2h if d2h else None,
+        "top": [(k[:60], v / 1e3 / n_batches) for k, v in top],
+        "stage_ms": stage_ms,
+        "idle_staging_share": idle_inside_us(staging, iv) / 1e3
+        / n_batches / wall}
 
 
 def time_ring_paths(card: str) -> dict:
@@ -209,36 +252,39 @@ def time_ring_paths(card: str) -> dict:
     return res | {"card": card}
 
 
+def profile_engine(eng, feeds, n_batches: int, **labels) -> dict:
+    """One run of ``eng`` on the two inputs of ``feeds`` in turns, its
+    downloads counted, printed as a JSON line with ``labels``."""
+    from dips_tpu_torch.utils.profiling import StageTimers
+    eng.timers = StageTimers()
+    row = profile(lambda i: eng.process_batch(feeds[i % 2]), eng.downloads,
+                  n_batches)
+    row.update(labels)
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def profile_threshold(card, one, fleet_feeds, n_batches) -> list:
     """THRESHOLD rows, ring-carry, unpacked and packed_wire in turns."""
     from dips_tpu_torch import (DiPsEngine, DiPsProperties,
                                 MultiStreamEngine, OutputMode)
-    from dips_tpu_torch.ops.reference import pad_geometry
     props = DiPsProperties(output=OutputMode.THRESHOLD)
-    hp, wp = pad_geometry(H, W)
     rows = []
     for packed in (False, True, True, False):
-        for fleet in (False, True):
-            s = S if fleet else 1
-            if fleet:
-                eng = MultiStreamEngine(props, H, W, S, batch=B,
-                                        device="cuda", packed_wire=packed)
-                row = profile(lambda i: eng.process_batch(
-                    fleet_feeds[i % 2]), n_batches)
-            else:
-                eng = DiPsEngine(props, H, W, batch=B, device="cuda",
-                                 packed_wire=packed)
-                row = profile(lambda i: eng.process_batch(one[i % 2]),
-                              n_batches)
-            row.update(
-                engine=(f"MultiStreamEngine 1080p x {S} B=16" if fleet
-                        else "DiPsEngine 1080p B=16"),
-                pipeline="THRESHOLD" + (" packed_wire" if packed else ""),
-                protocol="ring", card=card,
-                d2h_mb=s * B * (hp // 8 * wp if packed else H * W) / 1e6)
-            print(json.dumps(row), flush=True)
-            rows.append(row)
-            del eng
+        pipeline = "THRESHOLD" + (" packed_wire" if packed else "")
+        eng = DiPsEngine(props, H, W, batch=B, device="cuda",
+                         packed_wire=packed)
+        rows.append(profile_engine(
+            eng, one, n_batches, engine="DiPsEngine 1080p B=16",
+            pipeline=pipeline, protocol="ring", card=card))
+        del eng
+        eng = MultiStreamEngine(props, H, W, S, batch=B, device="cuda",
+                                packed_wire=packed)
+        rows.append(profile_engine(
+            eng, fleet_feeds, n_batches,
+            engine=f"MultiStreamEngine 1080p x {S} B=16",
+            pipeline=pipeline, protocol="ring", card=card))
+        del eng
     return rows
 
 
@@ -267,30 +313,31 @@ def main():
     rows = []
     if args.threshold:
         rows = profile_threshold(card, one, fleet_feeds, args.batches)
+    # (label, properties, protocols): the stats-only rows download no
+    # maps, the control of every change to the maps' download
     pipelines = [] if args.threshold else [
-        ("COLORIZE w3/T4", DiPsProperties()),
-        ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF))]
-    for label, props in pipelines:
-        for ring in (True, False):
+        ("COLORIZE w3/T4", DiPsProperties(), (True, False)),
+        ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF),
+         (True, False)),
+        ("COLORIZE w3/T4 emit_maps=False",
+         DiPsProperties(emit_maps=False), (True,))]
+    for label, props, protocols in pipelines:
+        for ring in protocols:
+            protocol = "ring" if ring else "tail"
             eng = DiPsEngine(props, H, W, batch=B, device="cuda",
                              ring_carry=ring)
-            row = profile(lambda i: eng.process_batch(one[i % 2]),
-                          args.batches)
-            row.update(engine="DiPsEngine 1080p B=16", pipeline=label,
-                       protocol="ring" if ring else "tail", card=card)
-            print(json.dumps(row), flush=True)
-            rows.append(row)
+            rows.append(profile_engine(
+                eng, one, args.batches,
+                engine="DiPsEngine 1080p B=16", pipeline=label,
+                protocol=protocol, card=card))
             del eng
-            fleet = MultiStreamEngine(props, H, W, S, batch=B,
-                                      device="cuda", ring_carry=ring)
-            row = profile(lambda i: fleet.process_batch(fleet_feeds[i % 2]),
-                          args.batches)
-            row.update(engine=f"MultiStreamEngine 1080p x {S} B=16",
-                       pipeline=label, protocol="ring" if ring else "tail",
-                       card=card)
-            print(json.dumps(row), flush=True)
-            rows.append(row)
-            del fleet
+            eng = MultiStreamEngine(props, H, W, S, batch=B, device="cuda",
+                                    ring_carry=ring)
+            rows.append(profile_engine(
+                eng, fleet_feeds, args.batches,
+                engine=f"MultiStreamEngine 1080p x {S} B=16",
+                pipeline=label, protocol=protocol, card=card))
+            del eng
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

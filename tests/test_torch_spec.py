@@ -78,7 +78,8 @@ def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
     differ from the originals only by the lines listed in
     ``tests/forks/<module>.diff`` (``difflib.unified_diff`` without
     context): ``backend`` becoming ``device``, NUM_STATS / STAT_NAMES from
-    ``ops/reference``, the coalescer's mesh on the server's device, the
+    ``ops/reference``, the coalescer's mesh on the server's device, each
+    coalesced slot's results copied out of the fleet's download, the
     reply's stall deadline, the daemon's error exit, the GUI's card check,
     the port's command and logger names, the framepump build under a
     directory lock, and their comments.  A change on either side that the list
