@@ -2227,24 +2227,32 @@ def analysis_4k(card, work):
         on_card.update(inp)
         on_cpu.update(inp)
 
-    held = []  # (raw maps, denoised maps) of two frames a batch
-    real = analysis.denoise_frames
+    # (raw maps, denoised maps) of the first two frames a batch: the
+    # engine denoises its device maps one frame's planes at a time
+    held = []
+    real = analysis.denoise_planes
+    calls = [0]
 
-    def spy(frames_u8, radius, device=None):
-        den = real(frames_u8, radius, device)
-        held.append((frames_u8[:2].cpu().numpy(), den[:2].cpu().numpy()))
+    def spy(planes_u8, mask):
+        den = real(planes_u8, mask)
+        if calls[0] % B == 0:
+            held.append(([], []))
+        if calls[0] % B < 2:
+            held[-1][0].append(planes_u8.permute(1, 2, 0).cpu().numpy())
+            held[-1][1].append(den.permute(1, 2, 0).cpu().numpy())
+        calls[0] += 1
         return den
 
     job = DiPsJob(properties=DiPsProperties(), video_path=clip,
                   output_path=os.path.join(work, "out4k.avi"), batch=B,
                   device="cuda", denoise_radius=DENOISE_R, frame_callback=observe)
-    analysis.denoise_frames = spy
+    analysis.denoise_planes = spy
     try:
         t0 = time.perf_counter()
         stats = perform_dips(job)
         wall = time.perf_counter() - t0
     finally:
-        analysis.denoise_frames = real
+        analysis.denoise_planes = real
     if stats.shape != (n, 4) or len(held) != 2:
         raise AssertionError(f"[analysis] 4K run: stats {stats.shape}, "
                              f"{len(held)} denoised batches")

@@ -26,12 +26,13 @@ decoded bytes; "planar": the decode workers planarize with
 ``native.planarize``) pass through, and ``profile`` collects per-stage
 :class:`~dips_tpu_torch.utils.profiling.StageTimers`.
 The post-analysis of ``ops/analysis.py`` runs on the engine's device:
-``DiPsJob.denoise_radius`` low-passes the maps before the frame callback
-sees them, and ``run_dips_on_files(flicker=)`` returns per-stream flicker
-maps.  Media go through ``io/gstreamer.open_video`` / ``open_writer``:
-OpenCV, or GStreamer (``video_backend="gstreamer"``, or "auto" where
-``io.gstreamer.available()``), whose readers decode to RGB and whose
-writer carries each frame's timestamp.
+``DiPsJob.denoise_radius`` low-passes the engine's device maps before
+their one download (``DiPsEngine(denoise_radius=)``), so the frame
+callback sees them denoised, and ``run_dips_on_files(flicker=)`` returns
+per-stream flicker maps.  Media go through ``io/gstreamer.open_video`` /
+``open_writer``: OpenCV, or GStreamer (``video_backend="gstreamer"``, or
+"auto" where ``io.gstreamer.available()``), whose readers decode to RGB
+and whose writer carries each frame's timestamp.
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from .errors import (DecodeError, FrameCallbackError, OutputPathError,
                      VideoPathError)
@@ -97,7 +97,8 @@ class DiPsJob:
     profile: bool = False
     timers: Optional[StageTimers] = None
     #: FFT low-pass post-analysis of the diff maps before they are yielded
-    #: (ops/analysis.denoise_frames radius), on the engine's device
+    #: (ops/analysis.denoise_planes radius): the engine runs it on its
+    #: device maps before their one download
     denoise_radius: Optional[int] = None
     #: duplicate / drop frames onto the writer's constant frame rate so a
     #: variable-frame-rate input keeps its timing; each frame's timestamp
@@ -126,7 +127,8 @@ class DiPsJob:
     #: 1 collects each batch as soon as it is dispatched
     pipeline_depth: int = 1
     #: THRESHOLD only: bit-pack masks on the device before the download
-    #: (1/8 of the bytes; ops/wire.py).  Output is unchanged.
+    #: (1/8 of the bytes; ops/wire.py).  Output is unchanged.  Not with
+    #: ``denoise_radius``: the denoised maps come down unpacked
     packed_wire: bool = False
     #: "hwc" (default): the decoded bytes go up as they are and the device
     #: lays them out (and swaps BGR); "planar": the decode workers
@@ -317,8 +319,10 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
                             input_layout=("planar" if host_planar
                                           else "hwc" if rgb_native
                                           else "hwc_bgr"),
-                            packed_wire=job.packed_wire,
-                            downscale=job.downscale)
+                            packed_wire=(job.packed_wire
+                                         and not job.denoise_radius),
+                            downscale=job.downscale,
+                            denoise_radius=job.denoise_radius or None)
     except Exception:
         reader.close()
         raise
@@ -365,11 +369,6 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
             outs, stats = engine.collect(handle)
         if timers:
             timers.add_frames(len(inputs))
-        if job.denoise_radius:
-            from .ops.analysis import denoise_frames
-            outs = denoise_frames(
-                torch.from_numpy(outs).to(engine.device),
-                int(job.denoise_radius)).cpu().numpy()
         for i, inp in enumerate(inputs):
             out = outs[i]
             job.frame_pts.append(pts_batch[i])

@@ -155,7 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and CUDA activity) into DIR as Chrome trace JSON")
     p.add_argument("--denoise", type=int, metavar="R",
                    help="FFT low-pass denoise radius applied to diff maps "
-                        "(post-analysis, see ops/analysis.fft_denoise)")
+                        "(post-analysis, see ops/analysis.fft_denoise): "
+                        "it runs on the engine's device maps before their "
+                        "one download; ignored with --inputs")
     p.add_argument("--dft-json", metavar="PATH",
                    help="write the temporal DFT of the per-frame "
                         "mean-|diff| series to a JSON file")
@@ -598,6 +600,8 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
             print(f"downloads: {down.batches} batches, {down.nbytes} bytes "
                   f"into page-locked memory, {down.new_blocks} page-locked "
                   f"a new block (reuse share {down.reuse_share:.3f})")
+        if job.engine.denoise_radius is not None:
+            print(job.engine.denoise_counts)
     if auto_refresh is not None and job.baseline_refreshes is not None:
         if job.baseline_refreshes:
             print("auto-refresh fired at frame(s): "

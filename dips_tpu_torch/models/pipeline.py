@@ -19,10 +19,13 @@ on a card), the layout prep on the device (optional k x k box mean, permute,
 optional BGR flip, zero pad into a planar buffer the engine keeps), one
 kernel launch, then crop and interleave on the device before one download
 of the maps and stats into page-locked host memory the caller owns
-(``utils/downloads.py``).  With ``input_layout="planar"`` the host hands
-over padded planar frames and the upload goes straight into the planar
-buffer; with ``packed_wire`` (THRESHOLD) the masks are bit-packed on the
-device and unpacked on the host.
+(``utils/downloads.py``).  With ``denoise_radius`` the kernel's planar
+maps go through the FFT low-pass of ``ops/analysis.py`` on the device
+first, and only the denoised maps come down.  With
+``input_layout="planar"`` the host hands over padded planar frames and the
+upload goes straight into the planar buffer; with ``packed_wire``
+(THRESHOLD) the masks are bit-packed on the device and unpacked on the
+host.
 
 Checkpoints are byte-compatible with the JAX engine's and the same in both
 protocols: they hold the raw planar u8 tail of the last T frames (at the
@@ -34,6 +37,7 @@ flags and seed 1; the tail engine just uploads it.
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,6 +142,12 @@ class DiPsEngine:
         the host; ``collect(packed=True)`` returns the packed bytes.
       downscale: k >= 1, the k x k box mean of each input frame on the
         device (a hwc layout; "planar" becomes "hwc").
+      denoise_radius: r >= 1 runs the post-analysis on the device: the
+        square low-pass of ``ops/analysis.denoise_planes`` over each
+        frame's planar maps of the true region, before they are
+        interleaved, so the maps come down denoised, once.  Needs maps,
+        and no ``packed_wire`` (denoised masks are no longer masks).  None
+        (the default) leaves the path as it is.
 
     ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
     None by default) splits the time into ``stage_in`` (the frames into the
@@ -154,12 +164,16 @@ class DiPsEngine:
     brings each batch's maps and stats down; on a card, while ``timers``
     is set, it counts the batches, their bytes and those whose download
     page-locked a new host block.
+
+    ``denoise_counts`` (a :class:`~dips_tpu_torch.utils.profiling.StepCounts`)
+    counts the denoise step while ``timers`` is set: batches, frames,
+    planes and its device time, read at :meth:`collect` after the wait.
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
                  batch: int = 8, device="cuda", input_layout: str = "hwc",
                  ring_carry: bool = True, packed_wire: bool = False,
-                 downscale: int = 1):
+                 downscale: int = 1, denoise_radius: Optional[int] = None):
         if height <= 0 or width <= 0:
             raise ValueError(f"bad geometry {height}x{width}")
         if batch < 1:
@@ -181,6 +195,24 @@ class DiPsEngine:
         self.ring_carry = bool(ring_carry)
         self.timers = None
         self.downloads = Downloads(self.device)
+        self.denoise_radius = self._denoise_mask = None
+        self.denoise_counts = profiling.StepCounts()
+        if denoise_radius is not None:
+            if denoise_radius < 1:
+                raise ValueError(f"denoise_radius must be >= 1, got "
+                                 f"{denoise_radius}")
+            if props.out_channels == 0:
+                raise ValueError("denoise filters diff maps; a map-"
+                                 "suppressed pipeline (STATS_ONLY / "
+                                 "emit_maps=False) has none")
+            if self.packed_wire:
+                raise ValueError("denoise_radius with packed_wire: the "
+                                 "denoised masks are not bit-packable")
+            from ..ops.analysis import lowpass_mask
+            self.denoise_radius = int(denoise_radius)
+            self._denoise_mask = lowpass_mask(self.height, self.width,
+                                              self.denoise_radius,
+                                              self.device)
         # planar device batch, the tail rows first in the tail protocol:
         # the padding stays zero, only the true region is rewritten
         self._planar = torch.zeros(
@@ -416,12 +448,32 @@ class DiPsEngine:
             if self.packed_wire:
                 # padded (n, 1, Hp/8, Wp): cropped after the host unpack
                 out = wire.pack_mask(out[:n])
-            elif out.shape[1]:
+            elif out.shape[1] and self.denoise_radius is None:
                 # crop + interleave on the device: one download per batch
                 out = out[:n, :, :self.height, :self.width].permute(
                     0, 2, 3, 1).contiguous()
+        if self.denoise_radius is not None:
+            with self._stage(profiling.POST_STAGE):
+                out = self._denoise(out, n)
         self.frame_index += n
         return out, stats[:n], n
+
+    def _denoise(self, out: torch.Tensor, n: int) -> torch.Tensor:
+        """The first ``n`` of the kernel's planar (B, C, Hp, Wp) maps
+        through the low-pass over the true H x W region, one frame's C
+        planes a transform, written interleaved: (n, H, W, C) uint8."""
+        from ..ops import analysis
+        h, w, c = self.height, self.width, out.shape[1]
+        den = torch.empty((n, h, w, c), dtype=torch.uint8,
+                          device=self.device)
+        counting = (self.denoise_counts.step(self.device, n, n * c)
+                    if self.timers is not None
+                    else contextlib.nullcontext())
+        with counting:
+            for i in range(n):
+                den[i] = analysis.denoise_planes(
+                    out[i, :, :h, :w], self._denoise_mask).permute(1, 2, 0)
+        return den
 
     def _launch_tail(self, raw: torch.Tensor, flags, valid):
         """One tail-protocol launch over the (T+B)-row planar batch."""
@@ -461,6 +513,7 @@ class DiPsEngine:
         with self._stage("wait"):  # what the first download would wait for
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        self.denoise_counts.settle()
         counted = self.timers is not None
         with self._stage("d2h"):
             if out.shape[1] == 0:  # no maps: stats only

@@ -63,7 +63,7 @@ def temporal_dft(traces, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     return f.abs(), f.angle()
 
 
-def _lowpass_mask(h: int, w: int, radius: int, device) -> torch.Tensor:
+def lowpass_mask(h: int, w: int, radius: int, device) -> torch.Tensor:
     """The reference's centred (2r x 2r) square, keeping shifted rows
     c-r .. c+r-1, laid out for the UNshifted spectrum:
     ``fftshift(F) * mask`` then ``ifftshift`` equals
@@ -89,8 +89,14 @@ def fft_denoise(image, radius: int = DEFAULT_DENOISE_RADIUS,
     """
     img = _as_tensor(image, device).to(torch.float32)
     h, w = img.shape[-2], img.shape[-1]
-    f = torch.fft.fft2(img)
-    f *= _lowpass_mask(h, w, int(radius), img.device)
+    return _lowpass(img, lowpass_mask(h, w, int(radius), img.device))
+
+
+def _lowpass(planes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """float32 planes (..., H, W) through the square low-pass of ``mask``
+    (:func:`lowpass_mask`): the magnitude of the filtered image, float32."""
+    f = torch.fft.fft2(planes)
+    f *= mask
     return torch.fft.ifft2(f).abs()
 
 
@@ -103,20 +109,36 @@ def fft_magnitude_spectrum(image, device=None) -> torch.Tensor:
     return 20.0 * torch.log(f.abs() + 1.0)
 
 
+def denoise_planes(planes_u8: torch.Tensor, mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """One frame's uint8 map planes (C, H, W), any strides, through the
+    square low-pass of ``mask`` (:func:`lowpass_mask`, on the planes'
+    device) -> uint8 (C, H, W): the magnitude rounded half to even and
+    clamped to [0, 255].  The planes go to the transform as one
+    contiguous float32 (C, H, W) batch, whatever layout they came in, so
+    the engine's planar maps and :func:`denoise_frames`' interleaved ones
+    take the same transform."""
+    x = planes_u8.to(torch.float32, memory_format=torch.contiguous_format)
+    return torch.round(_lowpass(x, mask)).clamp_(0, 255).to(torch.uint8)
+
+
 def denoise_frames(frames_u8, radius: int, device=None) -> torch.Tensor:
     """Batched FFT low-pass denoise of uint8 frames (N, H, W, C) -> uint8.
 
     The streaming-pipeline integration of :func:`fft_denoise` (BASELINE
     configs[4]: "4K streaming pipeline with ... denoise post-analysis").
-    One frame's C planes at a time: a 4K batch of 16 at once would hold 48
-    complex64 planes (3.2 GB) and the transform's workspace.
+    One frame's C planes at a time (:func:`denoise_planes`): a 4K batch of
+    16 at once would hold 48 complex64 planes (3.2 GB) and the transform's
+    workspace.  The run path denoises on the engine's device maps instead
+    (``DiPsEngine(denoise_radius=)``), with the same per-frame transform.
     """
     frames = _as_tensor(frames_u8, device)
     out = torch.empty_like(frames, dtype=torch.uint8)
+    mask = lowpass_mask(frames.shape[1], frames.shape[2], int(radius),
+                        frames.device)
     for i in range(frames.shape[0]):
-        planes = frames[i].to(torch.float32).permute(2, 0, 1)  # (C, H, W)
-        den = fft_denoise(planes, radius).permute(1, 2, 0)
-        out[i] = torch.round(den).clamp_(0, 255).to(torch.uint8)
+        out[i] = denoise_planes(frames[i].permute(2, 0, 1), mask).permute(
+            1, 2, 0)
     return out
 
 

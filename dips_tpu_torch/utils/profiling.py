@@ -9,7 +9,10 @@ Counterpart of ``dips_tpu/utils/profiling.py``:
 * :func:`stage`, the engines' one hook around a stage: it times the stage
   into a :class:`StageTimers` and, while a ``torch.profiler`` records,
   opens a ``dips.engine.<stage>`` span on the profile's host timeline,
-  the clock of the kernels and copies it records.
+  the clock of the kernels and copies it records.  :data:`POST_STAGE` is
+  the optional seventh stage, the engine's post-analysis.
+* :class:`StepCounts`, the counts of that post-analysis step: batches,
+  frames, planes and its device time between two CUDA events.
 * :func:`trace`, a ``torch.profiler`` capture (CPU activity, and CUDA
   activity when a card is present) written as a Chrome trace, in place of
   the JAX package's ``jax.profiler`` trace.
@@ -20,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import ContextManager, Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +33,10 @@ import torch
 #: crop enqueued (``dispatch``), the host blocked until the device is done
 #: (``wait``), the downloads (``d2h``)
 ENGINE_STAGES = ("stage_in", "tail_keep", "h2d", "dispatch", "wait", "d2h")
+#: the stage of ``DiPsEngine``'s post-analysis (the FFT denoise of the
+#: maps on the device, between ``dispatch`` and ``wait``), only on an
+#: engine given a ``denoise_radius``
+POST_STAGE = "denoise"
 #: the prefix of the engines' profiler spans
 SPAN_PREFIX = "dips.engine."
 #: the span: a function-scope record, which holds no device-side mark (a
@@ -90,6 +97,58 @@ class StageTimers:
     def __str__(self) -> str:
         rows = [f"  {k:<12} {v}" for k, v in self.summary().items()]
         return "StageTimers:\n" + "\n".join(rows)
+
+
+class StepCounts:
+    """Counts of one optional engine step, kept while the engine's stage
+    timers are on: ``batches``, ``frames``, ``planes`` transformed and
+    ``device_ms``, the device time between two CUDA events recorded
+    around the step on its stream (on a card).  The events are read by
+    :meth:`settle` once the stream has been synchronised: the engine calls
+    it after the wait its download makes, so counting adds no sync."""
+
+    def __init__(self) -> None:
+        self.batches = 0
+        self.frames = 0
+        self.planes = 0
+        self.device_ms = 0.0
+        self._pending: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    @contextlib.contextmanager
+    def step(self, device: torch.device, frames: int, planes: int
+             ) -> Iterator[None]:
+        """Count the block as one batch of ``frames`` frames and
+        ``planes`` planes; on a card, its device time is read later."""
+        events = None
+        if device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        yield
+        if events is not None:
+            events[1].record()
+            self._pending.append(events)
+        self.batches += 1
+        self.frames += frames
+        self.planes += planes
+
+    def settle(self) -> None:
+        """Add the device time of the steps recorded so far; the stream
+        they ran on must have been synchronised since."""
+        for a, b in self._pending:
+            self.device_ms += a.elapsed_time(b)
+        self._pending.clear()
+
+    def as_dict(self) -> Dict[str, float]:
+        return {"batches": self.batches, "frames": self.frames,
+                "planes": self.planes, "device_ms": self.device_ms}
+
+    def __str__(self) -> str:
+        per = (f", {self.device_ms / self.batches:.3f} ms a batch"
+               if self.batches and self.device_ms else "")
+        return (f"{POST_STAGE}: {self.batches} batches, {self.frames} "
+                f"frames, {self.planes} planes, device {self.device_ms:.3f}"
+                f" ms{per}")
 
 
 def stage(timers: Optional[StageTimers], name: str) -> ContextManager:
