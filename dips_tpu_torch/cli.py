@@ -600,6 +600,10 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
             print(f"downloads: {down.batches} batches, {down.nbytes} bytes "
                   f"into page-locked memory, {down.new_blocks} page-locked "
                   f"a new block (reuse share {down.reuse_share:.3f})")
+        staged = job.engine.staging
+        if staged.batches:
+            gbps = staged.gbps(job.timers)
+            print(staged if gbps is None else f"{staged}, {gbps:.2f} GB/s")
         if job.engine.denoise_radius is not None:
             print(job.engine.denoise_counts)
     if auto_refresh is not None and job.baseline_refreshes is not None:

@@ -14,18 +14,20 @@ in place (no copy per step):
   stays on the device: after a launch, rows [n, n+T) of the (T+B)-row
   planar batch are the next batch's rows [0, T).
 
-Per batch: one upload of the (n, H, W, 3) frames (from a pinned host buffer
-on a card), the layout prep on the device (optional k x k box mean, permute,
-optional BGR flip, zero pad into a planar buffer the engine keeps), one
-kernel launch, then crop and interleave on the device before one download
-of the maps and stats into page-locked host memory the caller owns
-(``utils/downloads.py``).  With ``denoise_radius`` the kernel's planar
-maps go through the FFT low-pass of ``ops/analysis.py`` on the device
-first, and only the denoised maps come down.  With
-``input_layout="planar"`` the host hands over padded planar frames and the
-upload goes straight into the planar buffer; with ``packed_wire``
-(THRESHOLD) the masks are bit-packed on the device and unpacked on the
-host.
+Per batch: one staging copy on the host (``utils/staging.py``: the frames
+into a pinned host buffer on a card, the tail's newest frames into host
+slots the engine reuses, on a pool of host threads when the batch is
+large), one upload of the (n, H, W, 3) frames, the layout prep on the
+device (optional k x k box mean, permute, optional BGR flip, zero pad
+into a planar buffer the engine keeps), one kernel launch, then crop and
+interleave on the device before one download of the maps and stats into
+page-locked host memory the caller owns (``utils/downloads.py``).  With
+``denoise_radius`` the kernel's planar maps go through the FFT low-pass
+of ``ops/analysis.py`` on the device first, and only the denoised maps
+come down.  With ``input_layout="planar"`` the host hands over padded
+planar frames and the upload goes straight into the planar buffer; with
+``packed_wire`` (THRESHOLD) the masks are bit-packed on the device and
+unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's and the same in both
 protocols: they hold the raw planar u8 tail of the last T frames (at the
@@ -36,9 +38,8 @@ flags and seed 1; the tail engine just uploads it.
 
 from __future__ import annotations
 
-import collections
 import contextlib
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from ..ops import cuda_fused, reference, wire
 from ..ops.reference import NUM_STATS, pad_geometry
 from ..utils import profiling
 from ..utils.downloads import Downloads
+from ..utils.staging import Staging, TailSlots
 
 _RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
               OutputMode.STATS_ONLY)
@@ -151,8 +153,10 @@ class DiPsEngine:
 
     ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
     None by default) splits the time into ``stage_in`` (the frames into the
-    host buffer, planarized in the planar layout), ``tail_keep`` (the host
-    copies of the tail frames), ``h2d`` (the upload), ``dispatch`` (layout
+    host buffer, planarized in the planar layout, and the tail's newest
+    frames into its slots, in one staging copy), ``tail_keep`` (the tail's
+    copies out of a buffer the caller filled: :meth:`process_buffer`,
+    :meth:`dispatch_async`), ``h2d`` (the upload), ``dispatch`` (layout
     prep, launch and packing), ``wait`` (the host blocked until the device
     has run what was enqueued) and ``d2h`` (the downloads).  Kernels run
     asynchronously on the card, so ``dispatch`` holds only the enqueue;
@@ -164,6 +168,12 @@ class DiPsEngine:
     brings each batch's maps and stats down; on a card, while ``timers``
     is set, it counts the batches, their bytes and those whose download
     page-locked a new host block.
+
+    ``staging`` (a :class:`~dips_tpu_torch.utils.staging.Staging`) makes
+    each batch's host copies and, while ``timers`` is set, counts the
+    batches, their bytes, those the thread pool copied and its threads.
+    The host tail lives in T slots the engine reuses (``TailSlots``); it
+    never views the caller's frames or an upload buffer.
 
     ``denoise_counts`` (a :class:`~dips_tpu_torch.utils.profiling.StepCounts`)
     counts the denoise step while ``timers`` is set: batches, frames,
@@ -195,6 +205,8 @@ class DiPsEngine:
         self.ring_carry = bool(ring_carry)
         self.timers = None
         self.downloads = Downloads(self.device)
+        self.staging = Staging()
+        self._tail_slots = TailSlots(props.temporal_size)
         self.denoise_radius = self._denoise_mask = None
         self.denoise_counts = profiling.StepCounts()
         if denoise_radius is not None:
@@ -264,9 +276,11 @@ class DiPsEngine:
         heatmap)."""
         t = self.props.temporal_size
         self.frame_index = 0
-        # entries are planar (3, Hp, Wp) frames, or (H, W, 3) frames in the
-        # input layout, planarized only when a checkpoint asks for them
-        self._tail: Deque[np.ndarray] = collections.deque(maxlen=t)
+        # the last T frames, oldest first, in ``_tail_slots``: (H, W, 3)
+        # frames in the input layout, planarized only when a checkpoint
+        # asks for them, or planar (3, Hp, Wp) frames; empty before the
+        # first batch
+        self._tail: List[np.ndarray] = []
         plane = (self.hp, self.wp)
         if self._raw_mode:
             self._baseline = self._zeros((3,) + plane, torch.uint8)
@@ -341,13 +355,10 @@ class DiPsEngine:
                 raise ValueError(f"frame shape {f.shape} != {shape}")
         with self._stage("stage_in"):
             if self.input_layout == "planar":
-                buf = self._fill_planar([native.planarize(f, self.hp, self.wp)
-                                         for f in frames])
-            else:
-                buf = self.new_batch_buffer()
-                for i, f in enumerate(frames):
-                    buf[i] = f
-        return self.collect(self.dispatch_async(buf, n), packed=packed)
+                frames = [native.planarize(f, self.hp, self.wp)
+                          for f in frames]
+            buf, tail = self._stage_frames(frames)
+        return self.collect(self._dispatch(buf, n, tail), packed=packed)
 
     def process_planar(self, planar: Sequence[np.ndarray],
                        packed: bool = False) -> Tuple[np.ndarray, np.ndarray]:
@@ -362,21 +373,25 @@ class DiPsEngine:
             return self._empty_result()
         if n > self.batch:
             raise ValueError(f"got {n} frames > batch {self.batch}")
-        with self._stage("stage_in"):
-            buf = self._fill_planar(planar)
-        return self.collect(self.dispatch_async(buf, n), packed=packed)
-
-    def _fill_planar(self, planar: Sequence[np.ndarray]) -> np.ndarray:
-        """A :meth:`new_batch_buffer` buffer with the planar frames in its
-        rows ``[tail_rows:]``."""
-        buf = self.new_batch_buffer()
-        tr = self.tail_rows
-        for i, f in enumerate(planar):
+        for f in planar:
             if f.shape != (3, self.hp, self.wp):
                 raise ValueError(f"planar frame shape {f.shape} != "
                                  f"{(3, self.hp, self.wp)}")
-            buf[tr + i] = f
-        return buf
+        with self._stage("stage_in"):
+            buf, tail = self._stage_frames(planar)
+        return self.collect(self._dispatch(buf, n, tail), packed=packed)
+
+    def _stage_frames(self, frames: Sequence[np.ndarray]):
+        """(a :meth:`new_batch_buffer` buffer with the frames in its rows
+        ``[tail_rows:]``, the tail after them): the frames into the buffer
+        and the tail's newest frames into its slots, straight from the
+        caller's frames, in one staging copy."""
+        buf = self.new_batch_buffer()
+        tr = self.tail_rows
+        tail, copies = self._tail_slots.keep(self._tail or None, frames)
+        self.staging.copy([(buf[tr + i], f) for i, f in enumerate(frames)]
+                          + copies, count=self.timers is not None)
+        return buf, tail
 
     def process_buffer(self, buf: np.ndarray, n: int, packed: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -392,20 +407,27 @@ class DiPsEngine:
         :meth:`new_batch_buffer` buffer with the n frames written.  State
         (cursor, tail, ring) advances at dispatch, so calls must stay
         ordered."""
-        t = self.props.temporal_size
-        b = self.batch
-        if n < 1 or n > b:
-            raise ValueError(f"n={n} outside 1..{b}")
+        if n < 1 or n > self.batch:
+            raise ValueError(f"n={n} outside 1..{self.batch}")
         if buf.shape != self._buffer_shape or buf.dtype != np.uint8:
             raise ValueError(f"batch buffer {buf.shape} {buf.dtype} != "
                              f"{self._buffer_shape} uint8")
+        tr = self.tail_rows
+        with self._stage("tail_keep"):
+            tail, copies = self._tail_slots.keep(self._tail or None,
+                                                 list(buf[tr:tr + n]))
+            self.staging.copy(copies, count=self.timers is not None)
+        return self._dispatch(buf, n, tail)
+
+    def _dispatch(self, buf: np.ndarray, n: int, tail: List[np.ndarray]):
+        """:meth:`dispatch_async` once the tail after the batch, ``tail``,
+        is in its slots."""
+        t = self.props.temporal_size
+        b = self.batch
         tr_host = self.tail_rows
         new = buf[tr_host:tr_host + n]
-        first = not self._tail
-        with self._stage("tail_keep"):
-            if first:  # first batch: the tail starts as T x frame 0
-                self._tail.extend([new[0].copy()] * t)
-            self._tail.extend(new[i].copy() for i in range(max(0, n - t), n))
+        first = not self._tail  # the tail starts as T x frame 0
+        self._tail = tail
 
         flags = np.zeros((b,), np.bool_)
         valid = np.zeros((b,), np.bool_)
@@ -574,7 +596,7 @@ class DiPsEngine:
         self._baseline = torch.from_numpy(
             np.array(bl, dtype=np.uint8 if self._raw_mode
                      else np.float32)).to(self.device)
-        self._tail.clear()
+        self._tail = []
         if state["tail"] is not None:
             # a short tail (saved before T frames were seen) replicates its
             # oldest frame up to T, as the JAX engine does
@@ -586,7 +608,8 @@ class DiPsEngine:
                     f"{(3, self.hp, self.wp)}")
             if tl and len(tl) < t:
                 tl = [tl[0]] * (t - len(tl)) + tl
-            self._tail.extend(tl)
+            if tl:  # copies: the caller keeps its arrays
+                self._tail = self._tail_slots.load(tl)
         if state.get("heatmap") is not None:
             self._heatmap = torch.from_numpy(np.array(
                 state["heatmap"], dtype=np.float32)).to(self.device)

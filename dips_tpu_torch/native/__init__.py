@@ -5,7 +5,9 @@ use if g++ is available) and exposes:
 
 * :func:`planarize` / :func:`interleave` — fused single-pass layout
   transforms for the decode/encode hot path;
-* :class:`FrameRing` — bounded SPSC frame ring with preallocated slots.
+* :class:`FrameRing` — bounded SPSC frame ring with preallocated slots;
+* :func:`copy_pieces` — a gather copy on a persistent pool of host
+  threads (``utils/staging.py`` decides when to take it).
 
 Every entry point has a pure-numpy fallback, so the package works without a
 toolchain (``NATIVE_AVAILABLE`` tells you which path is live; set
@@ -67,6 +69,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fp_ring_size.argtypes = [ctypes.c_void_p]
     lib.fp_ring_size.restype = i64
     lib.fp_simd_level.restype = ctypes.c_int
+    lib.fp_copy_pieces.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, i64, i64, ctypes.c_int]
+    lib.fp_copy_pieces.restype = ctypes.c_int
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -195,6 +200,30 @@ def interleave(planes: np.ndarray, h: int, w: int,
         hwc = hwc[..., ::-1]
     out[:] = hwc
     return out
+
+
+def copy_pieces(dst: np.ndarray, src: np.ndarray, nbytes: np.ndarray,
+                chunk: int, threads: int) -> int:
+    """Copy ``nbytes[i]`` bytes from address ``src[i]`` to ``dst[i]`` for
+    every i (uintp / int64 arrays of one length), each piece cut into
+    chunks of ``chunk`` bytes, on the calling thread and a pool of
+    ``threads - 1`` workers that the first call in a process starts (a
+    forked child starts its own).  The GIL is released for the copy.
+    Returns the pool's copiers, the caller included.  The caller keeps
+    the arrays behind the addresses alive and checks that no two pieces
+    overlap; without the native module this raises ``RuntimeError``
+    (``utils/staging.py`` copies through NumPy instead)."""
+    if _lib is None:
+        raise RuntimeError("framepump native module not loaded")
+    n = len(nbytes)
+    if len(dst) != n or len(src) != n:
+        raise ValueError("copy_pieces: dst, src and nbytes differ in length")
+    dst = np.ascontiguousarray(dst, np.uintp)
+    src = np.ascontiguousarray(src, np.uintp)
+    nbytes = np.ascontiguousarray(nbytes, np.int64)
+    return int(_lib.fp_copy_pieces(dst.ctypes.data, src.ctypes.data,
+                                   nbytes.ctypes.data, n, int(chunk),
+                                   int(threads)))
 
 
 class FrameRing:

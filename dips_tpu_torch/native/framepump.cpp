@@ -13,11 +13,15 @@
 //     VecDeque frame ring + GStreamer streaming-thread handoff,
 //     dips/src/gpu/mod.rs:53, frame_extractor.rs:206-276): the decode
 //     thread stages planarized frames without per-frame allocation.
+//   * fp_copy_pieces — a gather copy of (destination, source, bytes)
+//     pieces cut into chunks, on a persistent pool of host threads: the
+//     engines stage a batch's frames and tail with one call.
 //
 // Build: make -C dips_tpu/native   (g++ -O3 -shared -fPIC)
 // Python binding: ctypes (dips_tpu/native/__init__.py), numpy fallback when
 // the .so is absent.
 
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <condition_variable>
@@ -26,6 +30,11 @@
 #include <cstring>
 #include <mutex>
 #include <new>
+#include <system_error>
+#include <thread>
+#include <vector>
+
+#include <unistd.h>
 
 #if defined(__x86_64__) || defined(__i386__)
 #define FP_X86 1
@@ -580,3 +589,129 @@ int64_t fp_ring_size(void* ring) {
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Gather copy on a persistent pool of host threads.
+// ---------------------------------------------------------------------------
+//
+// fp_copy_pieces copies n (dst, src, bytes) pieces, each cut into chunks of
+// at most `chunk` bytes, on the caller's thread and the pool's workers:
+// each thread claims the next chunk from one atomic counter.  The pool is
+// built at the first call, with threads - 1 workers parked on a condition
+// variable between calls, and never torn down.  The caller always copies
+// too, so a job finishes even before a worker wakes.  A pool belongs to the
+// process that built it: a child after fork() inherits none of its threads
+// (and perhaps a locked mutex), so it builds its own and leaves the
+// parent's untouched.
+
+namespace {
+
+struct CopyJob {
+    uint8_t* const* dst;
+    const uint8_t* const* src;
+    const int64_t* nbytes;
+    int64_t n;
+    int64_t chunk;
+    std::vector<int64_t> first;  // first[i]: piece i's first chunk; first[n]: all
+    std::atomic<int64_t> next{0};
+};
+
+void copy_chunks(CopyJob* job) {
+    const int64_t total = job->first[job->n];
+    int64_t piece = 0;
+    for (;;) {
+        const int64_t c = job->next.fetch_add(1);
+        if (c >= total) return;
+        // a thread's chunks come in increasing order: the piece only advances
+        while (job->first[piece + 1] <= c) ++piece;
+        const int64_t off = (c - job->first[piece]) * job->chunk;
+        const int64_t len = std::min(job->chunk, job->nbytes[piece] - off);
+        std::memcpy(job->dst[piece] + off, job->src[piece] + off, len);
+    }
+}
+
+struct CopyPool {
+    pid_t pid = 0;
+    std::atomic<int> threads{1};  // copiers, the caller included
+    std::mutex submit;            // one job at a time
+    std::mutex mu;
+    std::condition_variable cv_work, cv_done;
+    CopyJob* job = nullptr;       // under mu
+    uint64_t gen = 0;             // under mu: bumped for each job
+    int active = 0;               // under mu: workers inside the job
+};
+
+void copy_worker(CopyPool* p) {
+    uint64_t seen = 0;
+    std::unique_lock<std::mutex> lk(p->mu);
+    for (;;) {
+        p->cv_work.wait(lk, [&] { return p->gen != seen; });
+        seen = p->gen;
+        CopyJob* job = p->job;
+        if (!job) continue;  // woke after the caller had finished it
+        ++p->active;
+        lk.unlock();
+        copy_chunks(job);
+        lk.lock();
+        if (--p->active == 0) p->cv_done.notify_all();
+    }
+}
+
+std::atomic<CopyPool*> g_copy_pool{nullptr};
+
+CopyPool* copy_pool(int threads) {
+    const pid_t pid = getpid();
+    CopyPool* p = g_copy_pool.load();
+    if (p && p->pid == pid) return p;
+    auto* fresh = new CopyPool();
+    fresh->pid = pid;
+    // a forked child's old pool is left as it is (its threads are gone)
+    if (!g_copy_pool.compare_exchange_strong(p, fresh)) {
+        delete fresh;  // another thread built this process's pool first
+        return p;
+    }
+    for (int i = 1; i < threads; ++i) {
+        try {
+            std::thread(copy_worker, fresh).detach();
+        } catch (const std::system_error&) {
+            break;  // fewer workers: the caller copies what they do not
+        }
+        fresh->threads.fetch_add(1);
+    }
+    return fresh;
+}
+
+}  // namespace
+
+// Copy every piece; returns the copiers the pool has (the caller
+// included), 0 when n <= 0.  Pieces must not overlap.
+extern "C" int fp_copy_pieces(uint8_t* const* dst,
+                              const uint8_t* const* src,
+                              const int64_t* nbytes, int64_t n,
+                              int64_t chunk, int threads) {
+    if (n <= 0) return 0;
+    if (chunk < 1) chunk = 1;
+    CopyJob job;
+    job.dst = dst;
+    job.src = src;
+    job.nbytes = nbytes;
+    job.n = n;
+    job.chunk = chunk;
+    job.first.resize(n + 1);
+    job.first[0] = 0;
+    for (int64_t i = 0; i < n; ++i)
+        job.first[i + 1] = job.first[i] + (nbytes[i] + chunk - 1) / chunk;
+    CopyPool* p = copy_pool(threads);
+    std::lock_guard<std::mutex> one(p->submit);
+    {
+        std::lock_guard<std::mutex> lk(p->mu);
+        p->job = &job;
+        ++p->gen;
+    }
+    p->cv_work.notify_all();
+    copy_chunks(&job);
+    std::unique_lock<std::mutex> lk(p->mu);
+    p->cv_done.wait(lk, [&] { return p->active == 0; });
+    p->job = nullptr;
+    return p->threads.load();
+}

@@ -263,9 +263,8 @@ class MultiHostStreamEngine(MultiStreamEngine):
         self._heatmap = self._from_per_stream(hm)
         for i, si in enumerate(ids):
             self.frame_cursors[si] = int(state["frame_cursors"][i])
-            tl = state["tails"][i]
-            self._tails[si] = (None if tl is None
-                               else self._tail_from_checkpoint(tl))
+            self._tails[si] = self._tail_from_checkpoint(
+                si, state["tails"][i])
             self._snap_pending[si] = False
         self.failed = {
             int(si): StreamError(int(si),

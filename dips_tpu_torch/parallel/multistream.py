@@ -38,16 +38,20 @@ zeros, in its frame rows and, in the tail protocol, in its tail rows, as
 the JAX engine stages it; its real tail stays in the host bookkeeping and
 goes back up when it is staged again.
 
-Per batch: the frames go into one persistent (S, B, H, W, 3) host buffer
-(pinned on a card), up in one copy, through the layout prep on the device
-(optional k x k box mean, permute, optional BGR flip, zero pad), one kernel
-launch, then crop and interleave on the device to (S, n, H, W, C) before
-one download of the maps and stats into page-locked host memory the
-caller owns (``utils/downloads.py``).  With ``input_layout="planar"`` the
-host planarizes each frame into a persistent (S, T_rows + B, 3, Hp, Wp)
-buffer, tail rows included (T_rows = T in the tail protocol, else 0), and
-the upload lands in the row-stacked input.  With ``packed_wire``
-(THRESHOLD) the masks come down bit-packed and are unpacked on the host.
+Per batch: every staged stream's frames go into one persistent (S, B, H,
+W, 3) host buffer (pinned on a card) and each stream's newest frames into
+the host tail slots it reuses, in one staging copy (``utils/staging.py``,
+on a pool of host threads when the batch is large), up in one copy,
+through the layout prep on the device (optional k x k box mean, permute,
+optional BGR flip, zero pad), one kernel launch, then crop and interleave
+on the device to (S, n, H, W, C) before one download of the maps and
+stats into page-locked host memory the caller owns
+(``utils/downloads.py``).  With ``input_layout="planar"`` the host
+planarizes each frame into a persistent (S, T_rows + B, 3, Hp, Wp)
+buffer, tail rows included (T_rows = T in the tail protocol, else 0),
+the staging copy keeps the tails, and the upload lands in the
+row-stacked input.  With ``packed_wire`` (THRESHOLD) the masks come down
+bit-packed and are unpacked on the host.
 
 Checkpoints are byte-compatible with the JAX engine's in both directions
 and in both protocols: the fleet's ``save`` / ``load`` and one slot's
@@ -73,6 +77,7 @@ from ..ops.reference import NUM_STATS, pad_geometry
 from ..properties import DiPsProperties, OutputMode
 from ..utils import profiling
 from ..utils.downloads import Downloads
+from ..utils.staging import Staging, TailSlots
 from .grid2d import (make_grid_ring_step, make_grid_step,
                      run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
@@ -195,15 +200,19 @@ class MultiStreamEngine:
         validated on every mesh, used only by a grid's median modes.
 
     ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
-    None by default) takes the single-stream engine's six stages:
-    ``stage_in`` and ``tail_keep`` once per staged stream (``stage_in``
-    once more when stale rows of a quiet stream are zeroed), then
+    None by default) takes the single-stream engine's stages but
+    ``tail_keep``: ``stage_in`` once per batch (the one staging copy of
+    every staged stream's frames, padding replicas and tail frames, and
+    the zeroing of a quiet stream's stale rows; in the planar layout one
+    more per staged stream before it, which planarizes its frames), then
     ``h2d``, ``dispatch`` (layout prep, launch, crop and interleave
     enqueued), ``wait`` and ``d2h`` (maps, stats and the global mean) once
     per batch; each is a ``dips.engine.<stage>`` span while a
     ``torch.profiler`` records.  ``downloads`` (a
-    :class:`~dips_tpu_torch.utils.downloads.Downloads`) counts the
-    downloads, while ``timers`` is set, as on the single-stream engine.
+    :class:`~dips_tpu_torch.utils.downloads.Downloads`) and ``staging`` (a
+    :class:`~dips_tpu_torch.utils.staging.Staging`) count, while
+    ``timers`` is set, as on the single-stream engine.  Each stream's
+    host tail lives in T slots of its own that the engine reuses.
     """
 
     #: the multi-process engine (``multihost.py``) sets this: every process
@@ -242,6 +251,9 @@ class MultiStreamEngine:
         self._raw_mode = props.output in _RAW_MODES
         self.timers = None
         self.downloads = Downloads(self.device)
+        self.staging = Staging()
+        self._tail_slots = [TailSlots(props.temporal_size)
+                            for _ in range(self.n_streams)]
         self.mesh, self.slab_impl = mesh, slab_impl
         self._layout = Layout(mesh, self._stage_rows(), self.hp, self.wp,
                               device=self.device)
@@ -351,8 +363,8 @@ class MultiStreamEngine:
         heatmap, failures)."""
         s = self.n_streams
         self.frame_cursors: List[int] = [0] * s
-        # entries: (H, W, 3) frames in the input layout, or planar
-        # (3, Hp, Wp) frames from a checkpoint; planarized on demand
+        # entries, in the stream's ``_tail_slots``: (H, W, 3) frames in the
+        # input layout, or planar (3, Hp, Wp) frames; planarized on demand
         self._tails: List[Optional[list]] = [None] * s
         if self._raw_mode:
             self._baseline = self._layout.zeros((3,), torch.uint8)
@@ -422,9 +434,12 @@ class MultiStreamEngine:
         return np.stack([tail_frame_planar(
             f, self.hp, self.wp, self.downscale, self._swap_rb) for f in tl])
 
-    def _tail_from_checkpoint(self, tail) -> list:
-        """Checkpoint tail frames -> the last T planar frames; a short tail
+    def _tail_from_checkpoint(self, stream: int, tail) -> Optional[list]:
+        """Checkpoint tail frames (or None) -> stream ``stream``'s tail:
+        the last T planar frames copied into its slots; a short tail
         replicates its oldest frame up to T (the seeding rule)."""
+        if tail is None:
+            return None
         t = self.props.temporal_size
         tl = [np.asarray(f, np.uint8) for f in tail][-t:]
         if not tl:
@@ -432,7 +447,7 @@ class MultiStreamEngine:
         if tl[0].shape != (3, self.hp, self.wp):
             raise ValueError(f"checkpoint tail frame shape {tl[0].shape} != "
                              f"{(3, self.hp, self.wp)}")
-        return [tl[0]] * (t - len(tl)) + tl
+        return self._tail_slots[stream].load([tl[0]] * (t - len(tl)) + tl)
 
     # -- checkpoint / resume ----------------------------------------------
     def _per_stream(self, cells: list) -> np.ndarray:
@@ -486,9 +501,8 @@ class MultiStreamEngine:
         dtype = np.uint8 if self._raw_mode else np.float32
         self._baseline = self._from_per_stream(bl.astype(dtype))
         self._heatmap = self._from_per_stream(hm)
-        self._tails = [None if tl is None
-                       else self._tail_from_checkpoint(tl)
-                       for tl in state["tails"]]
+        self._tails = [self._tail_from_checkpoint(si, tl)
+                       for si, tl in enumerate(state["tails"])]
         self.failed = {
             int(si): StreamError(int(si),
                                  RuntimeError("restored from checkpoint"))
@@ -562,9 +576,8 @@ class MultiStreamEngine:
         if bl.shape != expect:
             raise ValueError(f"checkpoint baseline shape {bl.shape} != "
                              f"engine's expected per-stream {expect}")
-        tail = state.get("tail")
-        self._tails[stream] = (None if tail is None
-                               else self._tail_from_checkpoint(tail))
+        self._tails[stream] = self._tail_from_checkpoint(
+            stream, state.get("tail"))
         self.failed.pop(stream, None)
         self._snap_pending[stream] = False
         self.frame_cursors[stream] = int(state["frame_index"])
@@ -662,6 +675,7 @@ class MultiStreamEngine:
         # tail protocol: row sections whose tail rows must be filled before
         # the launch, from frame 0 (a fresh stream) or from the host tail
         fresh, resumed = [], {}
+        pieces = []  # the batch's staging copy: (destination, source)
         for si, frames in enumerate(frames_per_stream):
             row = self._stage_index(si)
             if row < 0 or si in self.failed:
@@ -675,35 +689,33 @@ class MultiStreamEngine:
             if not n_si:
                 continue
             tail = self._tails[si]
-            with self._stage("stage_in"):
-                if planar:  # the host lays out each frame, RGB planes
+            if planar:  # the host lays out each frame, RGB planes
+                with self._stage("stage_in"):
                     new = buf[row, tr:]
                     for i, f in enumerate(frames):
                         new[i] = native.planarize(f, self.hp, self.wp)
-                else:
-                    new = buf[row]
-                    for i, f in enumerate(frames):
-                        new[i] = f
+                    new[n_si:] = new[n_si - 1]
+                    if tr:  # the tail rows go up with the frames
+                        # (a fresh stream's tail is T copies of its frame 0)
+                        buf[row, :t] = (new[0] if tail is None
+                                        else self._planar_tail(si))
+                kept = list(new[:n_si])
+            else:
                 # slots past n_si hold replicas of the last frame; the
                 # kernel reads them as invalid and leaves the carried state
                 # alone
-                new[n_si:] = new[n_si - 1]
-                if tail is None:
-                    fresh.append(row)
-                    seeds[row] = 1
-                elif not (self.ring_carry or planar
-                          or row in self._tail_live):
-                    resumed[row] = self._planar_tail(si)
-                if planar and tr:  # the tail rows go up with the frames
-                    # (a fresh stream's tail is T copies of its frame 0)
-                    buf[row, :t] = (new[0] if tail is None
-                                    else self._planar_tail(si))
-            with self._stage("tail_keep"):
-                if tail is None:
-                    tail = [new[0].copy()] * t
-                self._tails[si] = (tail + [
-                    new[i].copy() for i in range(max(0, n_si - t), n_si)
-                ])[-t:]
+                pieces += [(buf[row, i], frames[min(i, n_si - 1)])
+                           for i in range(b)]
+                kept = frames
+            if tail is None:
+                fresh.append(row)
+                seeds[row] = 1
+            elif not (self.ring_carry or planar or row in self._tail_live):
+                resumed[row] = self._planar_tail(si)
+            # the old tail is read above: the staging copy below may write
+            # the slots its dropped frames held
+            self._tails[si], copies = self._tail_slots[si].keep(tail, kept)
+            pieces += copies
             valid[row, :n_si] = True
             # markers fire on each stream's own cursor
             cursor = self.frame_cursors[si]
@@ -717,8 +729,9 @@ class MultiStreamEngine:
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
             written[row] = n_si
         stale = self._stage_written - set(written)
-        if stale:
+        if pieces or stale:
             with self._stage("stage_in"):
+                self.staging.copy(pieces, count=self.timers is not None)
                 for row in stale:
                     buf[row] = 0  # stale frames of a stream gone quiet or dead
         self._stage_written = set(written)

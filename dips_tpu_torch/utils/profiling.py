@@ -28,8 +28,10 @@ from typing import ContextManager, Dict, Iterator, List, Optional, Tuple
 import torch
 
 #: the stages of one engine batch, in order: the frames into the host
-#: buffer (``stage_in``), the host copies of the tail frames
-#: (``tail_keep``), the upload's enqueue (``h2d``), layout prep, launch and
+#: buffer and the tail's newest frames into its slots, in one copy
+#: (``stage_in``), the tail's copies alone where the caller filled the
+#: buffer (``tail_keep``: ``dispatch_async``, so one of the two runs a
+#: batch), the upload's enqueue (``h2d``), layout prep, launch and
 #: crop enqueued (``dispatch``), the host blocked until the device is done
 #: (``wait``), the downloads (``d2h``)
 ENGINE_STAGES = ("stage_in", "tail_keep", "h2d", "dispatch", "wait", "d2h")

@@ -34,7 +34,12 @@ and writes them all to ``--out``:
   ``h2d``, ``dispatch``, ``wait``, ``d2h``; the fleet's per-stream spans
   count once), and ``idle_staging_share``: the share of the wall in
   which the device is idle while the host is inside ``stage_in`` or
-  ``tail_keep``.
+  ``tail_keep``;
+* ``staging``: the engine's staging record over the row (warm-up, loop
+  and traced batches; ``utils/staging.py``): ``pooled_share`` (the
+  batches whose host copy the thread pool made), ``threads`` and
+  ``gbps``, the bytes staged over the time in ``stage_in`` and
+  ``tail_keep`` (None on a package without the record).
 
 Each run also prints the card's name and power limit.  Without a card it
 exits non-zero.
@@ -259,6 +264,10 @@ def profile_engine(eng, feeds, n_batches: int, **labels) -> dict:
     eng.timers = StageTimers()
     row = profile(lambda i: eng.process_batch(feeds[i % 2]), eng.downloads,
                   n_batches)
+    staged = getattr(eng, "staging", None)
+    row["staging"] = None if staged is None else {
+        "pooled_share": staged.pooled_share, "threads": staged.threads,
+        "gbps": staged.gbps(eng.timers), "batches": staged.batches}
     row.update(labels)
     print(json.dumps(row), flush=True)
     return row

@@ -36,8 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
                                  "io/subsample.py", "io/thumbnail.py",
                                  "io/eventrecorder.py", "io/gstbind.py",
                                  "io/gstreamer.py", "utils/__init__.py",
-                                 "native/framepump.cpp", "native/Makefile",
-                                 "ops/oracle.py"])
+                                 "native/Makefile", "ops/oracle.py"])
 def test_spec_copy_is_verbatim(rel):
     assert (ROOT / "dips_tpu_torch" / rel).read_bytes() == \
         (ROOT / "dips_tpu" / rel).read_bytes()
@@ -71,7 +70,8 @@ def test_serve_analytics_copy_is_verbatim_but_its_device():
 @pytest.mark.parametrize("rel", ["serve/server.py", "serve/coalesce.py",
                                  "serve/daemon.py", "serve/__init__.py",
                                  "report.py", "live.py", "gui.py",
-                                 "native/__init__.py"])
+                                 "native/__init__.py",
+                                 "native/framepump.cpp"])
 def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
     """The port's near-copies of JAX modules (the serving modules, the
     report, the live preview, the Tk frontend and the framepump binding)
@@ -82,7 +82,8 @@ def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
     coalesced slot's results copied out of the fleet's download, the
     reply's stall deadline, the daemon's error exit, the GUI's card check,
     the port's command and logger names, the framepump build under a
-    directory lock, and their comments.  A change on either side that the list
+    directory lock, the framepump's gather copier on a pool of host
+    threads (``fp_copy_pieces``, ``copy_pieces``), and their comments.  A change on either side that the list
     does not hold fails here; a deliberate one rewrites the list."""
     orig = (ROOT / "dips_tpu" / rel).read_text().splitlines(keepends=True)
     port = (ROOT / "dips_tpu_torch" / rel).read_text().splitlines(

@@ -2,12 +2,15 @@
 each stage into ``StageTimers`` and, while a ``torch.profiler`` records,
 opens a ``dips.engine.<stage>`` span.
 
-* ``DiPsEngine.process_batch``: the six spans once a call, in order,
-  without overlap, inside the caller's ``record_function``; both
-  protocols, both upload layouts.
-* ``MultiStreamEngine.process_batch``: ``stage_in`` / ``tail_keep`` once
-  per staged stream, then ``h2d``, ``dispatch``, ``wait``, ``d2h``; a
-  stream gone quiet adds one ``stage_in`` (its stale rows zeroed).
+* ``DiPsEngine.process_batch``: the six spans but ``tail_keep`` once a
+  call, in order, without overlap, inside the caller's
+  ``record_function`` (the tail's copies are in ``stage_in``'s one
+  staging copy); both protocols, both upload layouts.
+  ``process_buffer`` (a buffer the caller filled): the six but
+  ``stage_in``.
+* ``MultiStreamEngine.process_batch``: one ``stage_in`` a batch (in the
+  planar layout one more per staged stream before it), then ``h2d``,
+  ``dispatch``, ``wait``, ``d2h``; no ``tail_keep``.
 * With no profiler recording no span is entered; the maps and stats are
   byte-equal with spans on and off; the timers take the new stages.
 
@@ -30,6 +33,8 @@ from dips_tpu_torch.utils.profiling import (ENGINE_STAGES, SPAN_PREFIX,
 H, W, B, S = 24, 40, 4, 3
 PROPS = {"colorize": DiPsProperties(),
          "absdiff": DiPsProperties(output=OutputMode.ABSDIFF)}
+#: a ``process_batch`` call's stages on the single-stream engine
+BATCH_STAGES = [s for s in ENGINE_STAGES if s != "tail_keep"]
 
 
 def clip(seed: int, n: int):
@@ -80,7 +85,18 @@ def test_engine_spans_once_a_call_in_order(ring, layout):
     eng = engine(ring_carry=ring, input_layout=layout)
     for k, n in enumerate((B, B - 1)):  # a first and a short batch
         caller, spans, _ = traced(lambda: eng.process_batch(clip(k, n)))
-        assert names(spans) == list(ENGINE_STAGES)
+        assert names(spans) == BATCH_STAGES
+        check_nesting(caller, spans)
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_engine_buffer_spans_keep_the_tail(ring):
+    eng = engine(ring_carry=ring)
+    for k, n in enumerate((B, B - 1)):
+        buf = eng.new_batch_buffer()
+        buf[:n] = np.stack(clip(k, n))
+        caller, spans, _ = traced(lambda: eng.process_buffer(buf, n))
+        assert names(spans) == [s for s in ENGINE_STAGES if s != "stage_in"]
         check_nesting(caller, spans)
 
 
@@ -89,15 +105,16 @@ def test_engine_spans_once_a_call_in_order(ring, layout):
 def test_fleet_spans_once_per_staged_stream(ring, layout):
     f = fleet(ring_carry=ring, input_layout=layout)
     per_batch = list(ENGINE_STAGES[2:])
+    planarized = 1 if layout == "planar" else 0  # a stage_in a stream
     feeds = [clip(1, B), clip(2, 2), clip(3, B)]
     caller, spans, _ = traced(lambda: f.process_batch(feeds))
-    assert names(spans) == ["stage_in", "tail_keep"] * S + per_batch
+    assert names(spans) == ["stage_in"] * (planarized * S + 1) + per_batch
     check_nesting(caller, spans)
-    # stream 1 goes quiet: two staged streams, then its stale rows zeroed
+    # stream 1 goes quiet: two staged streams, its stale rows zeroed in the
+    # batch's staging stage
     caller, spans, _ = traced(lambda: f.process_batch(
         [clip(4, B), [], clip(5, 1)]))
-    assert names(spans) == (["stage_in", "tail_keep"] * 2 + ["stage_in"]
-                            + per_batch)
+    assert names(spans) == ["stage_in"] * (planarized * 2 + 1) + per_batch
     check_nesting(caller, spans)
 
 
@@ -131,7 +148,7 @@ def test_no_profiler_enters_no_span(monkeypatch, timed):
     with profile(activities=[ProfilerActivity.CPU]):
         eng.process_batch(clip(2, B))
         f.process_batch([clip(2, B)] * S)
-    assert CountingSpan.entered == len(ENGINE_STAGES) + 2 * S + 4
+    assert CountingSpan.entered == len(BATCH_STAGES) + 1 + 4
 
 
 @pytest.mark.parametrize("props", sorted(PROPS))
@@ -165,10 +182,10 @@ def test_timers_take_the_new_stages():
     for k in range(2):
         eng.process_batch(clip(k, B))
         f.process_batch([clip(k, B), clip(k, 3), []])
-    assert dict(eng.timers.counts) == {s: 2 for s in ENGINE_STAGES}
+    assert dict(eng.timers.counts) == {s: 2 for s in BATCH_STAGES}
     assert dict(f.timers.counts) == dict(
-        stage_in=4, tail_keep=4, h2d=2, dispatch=2, wait=2, d2h=2)
-    assert set(f.timers.summary()) == set(ENGINE_STAGES) | {"_overall"}
+        stage_in=2, h2d=2, dispatch=2, wait=2, d2h=2)
+    assert set(f.timers.summary()) == set(BATCH_STAGES) | {"_overall"}
 
 
 def test_stage_hook_without_timers_or_profiler():
@@ -190,12 +207,17 @@ def test_stage_hook_without_timers_or_profiler():
 
 def test_chrome_trace_names_the_stages(tmp_path):
     """``utils/profiling.trace`` (the CLI's ``--trace-dir``) writes the six
-    stage spans into its Chrome trace."""
+    stage spans into its Chrome trace: a ``process_batch`` call's five and
+    a ``process_buffer`` call's five."""
     eng = engine()
+    buf = eng.new_batch_buffer()
+    buf[:] = np.stack(clip(1, B))
     with profiling.trace(str(tmp_path)):
         eng.process_batch(clip(0, B))
+        eng.process_buffer(buf, B)
     path = tmp_path / f"trace.{os.getpid()}.json"
     events = json.loads(path.read_text())["traceEvents"]
     got = [e["name"][len(SPAN_PREFIX):] for e in events
            if str(e.get("name", "")).startswith(SPAN_PREFIX)]
-    assert sorted(got) == sorted(ENGINE_STAGES)
+    assert sorted(got) == sorted(BATCH_STAGES + [
+        s for s in ENGINE_STAGES if s != "stage_in"])
