@@ -48,7 +48,7 @@ from ..errors import StreamError
 from ..models.pipeline import resolve_device
 from ..properties import DiPsProperties
 from .mesh import Mesh, visible_devices
-from .multistream import MultiStreamEngine, stream_mesh
+from .multistream import MultiStreamEngine, npz_state, stream_mesh
 
 log = logging.getLogger("dips_tpu_torch.multihost")
 
@@ -263,8 +263,7 @@ class MultiHostStreamEngine(MultiStreamEngine):
         self._heatmap = self._from_per_stream(hm)
         for i, si in enumerate(ids):
             self.frame_cursors[si] = int(state["frame_cursors"][i])
-            self._tails[si] = self._tail_from_checkpoint(
-                si, state["tails"][i])
+            self._tails[si] = self._slot_tail(si, state["tails"][i])
             self._snap_pending[si] = False
         self.failed = {
             int(si): StreamError(int(si),
@@ -277,29 +276,14 @@ class MultiHostStreamEngine(MultiStreamEngine):
         """Per-process checkpoint (append the rank to ``path`` when the
         processes share a file system)."""
         s = self.state_dict()
-        t = self.props.temporal_size
-        tails = np.stack([
-            tl if tl is not None
-            else np.zeros((t, 3, self.hp, self.wp), np.uint8)
-            for tl in s["tails"]])
-        has_tail = np.asarray([tl is not None for tl in s["tails"]])
-        np.savez_compressed(
-            path, local_stream_ids=np.asarray(s["local_stream_ids"]),
-            frame_cursors=np.asarray(s["frame_cursors"]),
-            baseline=s["baseline"], heatmap=s["heatmap"], tails=tails,
-            has_tail=has_tail, failed=np.asarray(s["failed"], np.int64))
+        self._save_npz(path, s, local_stream_ids=np.asarray(
+            s["local_stream_ids"]))
 
     def load(self, path: str) -> None:
         with np.load(path) as z:
-            self.load_state_dict({
-                "local_stream_ids": z["local_stream_ids"].tolist(),
-                "frame_cursors": z["frame_cursors"].tolist(),
-                "baseline": z["baseline"],
-                "heatmap": z["heatmap"],
-                "tails": [z["tails"][i] if z["has_tail"][i] else None
-                          for i in range(z["tails"].shape[0])],
-                "failed": z["failed"].tolist(),
-            })
+            self.load_state_dict(dict(
+                npz_state(z),
+                local_stream_ids=z["local_stream_ids"].tolist()))
 
     # -- refused, as the JAX multi-host engine refuses them ------------------
     def _no_multihost(self, name: str):

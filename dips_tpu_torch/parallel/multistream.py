@@ -24,41 +24,26 @@ checkpoints do not depend on the mesh.
 
 The engine owns its state row-stacked, in the kernels' own layout: ring
 (T, S*Hp, Wp), prev / baseline (3 or 1, S*Hp, Wp), heatmap (S*Hp, Wp);
-stream ``si`` owns rows [si*Hp, (si+1)*Hp).  The state lives in the mesh's
-cells (``mesh.Layout``: cell (i, j) holds rows [j*Hs, (j+1)*Hs) of its
-S_l streams, row-stacked again, on its own device); without a mesh the one
-cell is the whole state on ``device``.  Each batch is staged straight into
-the row-stacked planar input on ``device``, seen as (F, 3, S, Hp, Wp), so
-the fleet pays no transpose copy per batch; a mesh's cells then take their
-slabs of it (one strided copy each), and their outputs are gathered on
-``device`` before the one download.
-
-A stream that is not staged in a batch (idle, exhausted or failed) is fed
+stream ``si`` owns rows [si*Hp, (si+1)*Hp), in the mesh's cells
+(``mesh.Layout``).  It owns the per-stream cursors, tails and failure
+isolation, the zeroing of stale staging rows, the grid launches, the
+global mean and the multi-process hooks.  A batch's frames are staged
+into one (S, B, H, W, 3) upload buffer (planarized into (S, T_rows + B,
+3, Hp, Wp) on the host in the planar layout) that goes up whole into a
+device twin; the layout prep writes them into the row-stacked input seen
+as (F, 3, S, Hp, Wp).  Staging, upload, crop and interleave, wait and
+download go through ``models/batchio.py``, as the single-stream engine's
+do.  A stream not staged in a batch (idle, exhausted or failed) is fed
 zeros, in its frame rows and, in the tail protocol, in its tail rows, as
-the JAX engine stages it; its real tail stays in the host bookkeeping and
-goes back up when it is staged again.
-
-Per batch: every staged stream's frames go into one persistent (S, B, H,
-W, 3) host buffer (pinned on a card) and each stream's newest frames into
-the host tail slots it reuses, in one staging copy (``utils/staging.py``,
-on a pool of host threads when the batch is large), up in one copy,
-through the layout prep on the device (optional k x k box mean, permute,
-optional BGR flip, zero pad), one kernel launch, then crop and interleave
-on the device to (S, n, H, W, C) before one download of the maps and
-stats into page-locked host memory the caller owns
-(``utils/downloads.py``).  With ``input_layout="planar"`` the host
-planarizes each frame into a persistent (S, T_rows + B, 3, Hp, Wp)
-buffer, tail rows included (T_rows = T in the tail protocol, else 0),
-the staging copy keeps the tails, and the upload lands in the
-row-stacked input.  With ``packed_wire`` (THRESHOLD) the masks come down
-bit-packed and are unpacked on the host.
+the JAX engine stages it; its tail goes back up when it is staged again.
 
 Checkpoints are byte-compatible with the JAX engine's in both directions
-and in both protocols: the fleet's ``save`` / ``load`` and one slot's
-``save_stream`` / ``load_stream`` (``DiPsEngine``'s format, so a slot moves
-to and from a single-stream engine of either package).  They hold raw
-planar u8 tails; after a load the ring engine rebuilds its ring from them
-with one stacked launch (one per cell on a mesh).
+and both protocols: the fleet's ``save`` / ``load``, and one slot's
+``save_stream`` / ``load_stream`` in ``DiPsEngine``'s format
+(``models/pipeline.py``'s one-stream checkpoint), so a slot moves to and
+from a single-stream engine of either package.  After a load the ring
+engine rebuilds its ring from the raw planar tails with one stacked
+launch (one per cell on a mesh).
 """
 
 from __future__ import annotations
@@ -70,21 +55,15 @@ import torch
 
 from .. import native
 from ..errors import StreamError
-from ..models.pipeline import (analysis_geometry, check_packed_wire,
-                               resolve_device, tail_frame_planar)
-from ..ops import reference, wire
-from ..ops.reference import NUM_STATS, pad_geometry
-from ..properties import DiPsProperties, OutputMode
-from ..utils import profiling
-from ..utils.downloads import Downloads
-from ..utils.staging import Staging, TailSlots
+from ..models.batchio import BatchIO, capture_flags
+from ..models.pipeline import (EngineBase, load_slot, save_slot,
+                               slot_baseline, slot_tail)
+from ..ops.reference import NUM_STATS
+from ..properties import DiPsProperties
+from ..utils.staging import TailSlots
 from .grid2d import (make_grid_ring_step, make_grid_step,
                      run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
-
-_RAW_MODES = (OutputMode.ABSDIFF, OutputMode.THRESHOLD,
-              OutputMode.STATS_ONLY)
-
 
 def stream_mesh(n_devices: Optional[int] = None,
                 devices: Optional[Sequence] = None) -> Mesh:
@@ -162,7 +141,20 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
-class MultiStreamEngine:
+def npz_state(z) -> dict:
+    """The fleet ``state_dict`` held by an open fleet .npz."""
+    tails = z["tails"]
+    return {
+        "frame_cursors": z["frame_cursors"].tolist(),
+        "baseline": z["baseline"],
+        "heatmap": z["heatmap"],
+        "tails": [tl if has else None
+                  for tl, has in zip(tails, z["has_tail"])],
+        "failed": z["failed"].tolist(),
+    }
+
+
+class MultiStreamEngine(EngineBase):
     """Batch runner over S parallel streams with per-stream failure
     isolation; feed one frame list per stream.
 
@@ -199,20 +191,14 @@ class MultiStreamEngine:
         kernels get their neighbour rows (``grid2d.make_grid_ring_step``);
         validated on every mesh, used only by a grid's median modes.
 
-    ``timers`` (a :class:`~dips_tpu_torch.utils.profiling.StageTimers`,
-    None by default) takes the single-stream engine's stages but
-    ``tail_keep``: ``stage_in`` once per batch (the one staging copy of
-    every staged stream's frames, padding replicas and tail frames, and
+    ``timers``, ``staging`` and ``downloads`` are the single-stream
+    engine's (``models/batchio.py``).  The stages are its own but
+    ``tail_keep``: ``stage_in`` once per batch (the one staging copy, and
     the zeroing of a quiet stream's stale rows; in the planar layout one
     more per staged stream before it, which planarizes its frames), then
-    ``h2d``, ``dispatch`` (layout prep, launch, crop and interleave
-    enqueued), ``wait`` and ``d2h`` (maps, stats and the global mean) once
-    per batch; each is a ``dips.engine.<stage>`` span while a
-    ``torch.profiler`` records.  ``downloads`` (a
-    :class:`~dips_tpu_torch.utils.downloads.Downloads`) and ``staging`` (a
-    :class:`~dips_tpu_torch.utils.staging.Staging`) count, while
-    ``timers`` is set, as on the single-stream engine.  Each stream's
-    host tail lives in T slots of its own that the engine reuses.
+    ``h2d``, ``dispatch``, ``wait`` and ``d2h`` (maps and stats; the global
+    mean follows).  Each stream's host tail lives in T slots of its own
+    that the engine reuses.
     """
 
     #: the multi-process engine (``multihost.py``) sets this: every process
@@ -229,29 +215,11 @@ class MultiStreamEngine:
                  slab_impl: str = "bands", mesh: Optional[Mesh] = None):
         if slab_impl not in ("bands", "extended"):
             raise ValueError(f"unknown slab_impl {slab_impl!r}")
-        if height <= 0 or width <= 0:
-            raise ValueError(f"bad geometry {height}x{width}")
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
-        if batch < 1:
-            raise ValueError("batch must be >= 1")
-        self.props = props
-        self.in_height, self.in_width = int(height), int(width)
-        self.height, self.width, self.downscale, input_layout = \
-            analysis_geometry(height, width, downscale, input_layout)
-        props.roi_bounds(self.height, self.width)  # fail early on a bad roi
-        self.hp, self.wp = pad_geometry(self.height, self.width)
-        self.n_streams, self.batch = int(n_streams), int(batch)
-        self.packed_wire = check_packed_wire(props, packed_wire)
-        self.device = resolve_device(device)
-        self.input_layout = input_layout
-        self._swap_rb, self._prep = reference.make_layout_prep(
-            input_layout, self.height, self.width, self.hp, self.wp,
-            downscale=self.downscale)
-        self._raw_mode = props.output in _RAW_MODES
-        self.timers = None
-        self.downloads = Downloads(self.device)
-        self.staging = Staging()
+        super().__init__(props, height, width, batch, device, input_layout,
+                         packed_wire, downscale)
+        self.n_streams = int(n_streams)
         self._tail_slots = [TailSlots(props.temporal_size)
                             for _ in range(self.n_streams)]
         self.mesh, self.slab_impl = mesh, slab_impl
@@ -277,38 +245,21 @@ class MultiStreamEngine:
                 f"(8-row-aligned slabs): padded height {self.hp} / "
                 f"{mesh.shape['rows']} row shards")
         self.ring_carry = bool(ring_carry)
-        s, b = self._stage_rows(), self.batch
-        if self._prep is None:  # planar: tail rows staged on the host too
-            frames = (s, self._tail_len + b, 3, self.hp, self.wp)
-        else:
-            frames = (s, b, self.in_height, self.in_width, 3)
-        # persistent staging: host rows a batch does not write are re-zeroed
-        # (``_stage_written``), so the staged bytes equal fresh zeros
-        on_card = self.device.type == "cuda"
-        self._host = torch.zeros(frames, dtype=torch.uint8,
-                                 pin_memory=on_card)
-        self._host_np = self._host.numpy()
-        self._dev_stage = (torch.empty(frames, dtype=torch.uint8,
-                                       device=self.device) if on_card
-                           else self._host)
+        s = self._stage_rows()
+        # one persistent upload buffer (planar: the tail rows staged on the
+        # host too): the rows a batch does not write are re-zeroed
+        # (``_stage_written``), so they stage fresh zeros
+        self._io = BatchIO(self.device, self.height, self.width,
+                           props.out_channels, self.packed_wire, s,
+                           (s,) + self._buffer_shape, 1, twin=True)
         self._stage_written: set = set()
-        # row-stacked planar input, the tail rows first in the tail
-        # protocol: the padding stays zero, only the true region of each
-        # stream is rewritten per batch
-        self._planar = torch.zeros(
-            (self._tail_len + b, 3, s * self.hp, self.wp),
-            dtype=torch.uint8, device=self.device)
+        self._planar = self._planar_input(s)
         #: the cells' slabs of the input (the input itself without a mesh)
         self._raw_cells = self._layout.scatter(self._planar)
         #: streams whose tail rows of ``_planar`` hold their tail; every
         #: other stream's tail rows are zero
         self._tail_live: set = set()
         self.reset()
-
-    @property
-    def _tail_len(self) -> int:
-        """Rows of raw tail ahead of the new frames in a launch."""
-        return 0 if self.ring_carry else self.props.temporal_size
 
     # -- the streams staged here --------------------------------------------
     # The multi-process engine (``multihost.py``) overrides these three: its
@@ -331,9 +282,6 @@ class MultiStreamEngine:
         """The valid-weighted sum of mean |diff| and the valid count over
         every process (here: this one's)."""
         return total, count
-
-    def _stage(self, name: str):
-        return profiling.stage(self.timers, name)
 
     # -- state ------------------------------------------------------------
     def _rows(self, row: int) -> slice:
@@ -425,29 +373,8 @@ class MultiStreamEngine:
         return _to_host(hm[:, :self.height, :self.width])
 
     def _planar_tail(self, stream: int) -> Optional[np.ndarray]:
-        """Stream ``stream``'s tail as planar RGB (T, 3, Hp, Wp) u8 at the
-        analysis geometry (input frames pooled on the host under
-        ``downscale``, bit-equal to the device prep)."""
-        tl = self._tails[stream]
-        if tl is None:
-            return None
-        return np.stack([tail_frame_planar(
-            f, self.hp, self.wp, self.downscale, self._swap_rb) for f in tl])
-
-    def _tail_from_checkpoint(self, stream: int, tail) -> Optional[list]:
-        """Checkpoint tail frames (or None) -> stream ``stream``'s tail:
-        the last T planar frames copied into its slots; a short tail
-        replicates its oldest frame up to T (the seeding rule)."""
-        if tail is None:
-            return None
-        t = self.props.temporal_size
-        tl = [np.asarray(f, np.uint8) for f in tail][-t:]
-        if not tl:
-            raise ValueError("checkpoint tail holds no frame")
-        if tl[0].shape != (3, self.hp, self.wp):
-            raise ValueError(f"checkpoint tail frame shape {tl[0].shape} != "
-                             f"{(3, self.hp, self.wp)}")
-        return self._tail_slots[stream].load([tl[0]] * (t - len(tl)) + tl)
+        """Stream ``stream``'s tail as planar RGB (T, 3, Hp, Wp) u8."""
+        return self._planar_stack(self._tails[stream])
 
     # -- checkpoint / resume ----------------------------------------------
     def _per_stream(self, cells: list) -> np.ndarray:
@@ -501,7 +428,7 @@ class MultiStreamEngine:
         dtype = np.uint8 if self._raw_mode else np.float32
         self._baseline = self._from_per_stream(bl.astype(dtype))
         self._heatmap = self._from_per_stream(hm)
-        self._tails = [self._tail_from_checkpoint(si, tl)
+        self._tails = [self._slot_tail(si, tl)
                        for si, tl in enumerate(state["tails"])]
         self.failed = {
             int(si): StreamError(int(si),
@@ -566,23 +493,23 @@ class MultiStreamEngine:
         for j, slab in enumerate(self._layout.stream_views(cells, stream)):
             slab.copy_(value[..., j * hs:(j + 1) * hs, :])
 
+    def _slot_tail(self, stream: int, tail) -> Optional[list]:
+        """A checkpoint's tail for stream ``stream`` in its slots
+        (``pipeline.slot_tail``; an empty tail list raises)."""
+        return slot_tail(self._tail_slots[stream], tail, self.hp, self.wp,
+                         empty_ok=False)
+
     def load_stream_state(self, stream: int, state: dict) -> None:
         """Restore one slot from a ``DiPsEngine``-format state dict; the
         other slots keep their state (their ring is rebuilt bit-exactly
         from the raw tails the engine carries)."""
-        bl = np.asarray(state["baseline"])
-        expect = ((3, self.hp, self.wp) if self._raw_mode
-                  else (self.hp, self.wp))
-        if bl.shape != expect:
-            raise ValueError(f"checkpoint baseline shape {bl.shape} != "
-                             f"engine's expected per-stream {expect}")
-        self._tails[stream] = self._tail_from_checkpoint(
-            stream, state.get("tail"))
+        bl = slot_baseline(state["baseline"], self._raw_mode, self.hp,
+                           self.wp)
+        self._tails[stream] = self._slot_tail(stream, state.get("tail"))
         self.failed.pop(stream, None)
         self._snap_pending[stream] = False
         self.frame_cursors[stream] = int(state["frame_index"])
-        self._set_stream_rows(self._baseline, stream, np.array(
-            bl, dtype=np.uint8 if self._raw_mode else np.float32))
+        self._set_stream_rows(self._baseline, stream, bl)
         hm = state.get("heatmap")
         if hm is not None:
             self._set_stream_rows(self._heatmap, stream,
@@ -592,32 +519,20 @@ class MultiStreamEngine:
 
     def save_stream(self, stream: int, path: str) -> None:
         """Checkpoint one slot (``DiPsEngine.save``'s npz keys)."""
-        st = self.stream_state_dict(stream)
-        np.savez_compressed(
-            path, frame_index=st["frame_index"], baseline=st["baseline"],
-            heatmap=st["heatmap"],
-            tail=st["tail"] if st["tail"] is not None
-            else np.zeros((0,), np.uint8),
-            geometry=np.asarray([self.height, self.width], np.int64))
+        save_slot(path, self.stream_state_dict(stream), self.height,
+                  self.width)
 
     def load_stream(self, stream: int, path: str) -> None:
-        z = np.load(path)
-        if "geometry" in z.files:
-            gh, gw = (int(v) for v in z["geometry"])
-            if (gh, gw) != (self.height, self.width):
-                raise ValueError(f"checkpoint geometry {gh}x{gw} != engine "
-                                 f"{self.height}x{self.width}")
-        tail = z["tail"]
-        self.load_stream_state(stream, {
-            "frame_index": int(z["frame_index"]),
-            "baseline": z["baseline"],
-            "heatmap": z["heatmap"],
-            "tail": tail if tail.size else None,
-        })
+        self.load_stream_state(stream, load_slot(path, self.height,
+                                                 self.width))
 
     def save(self, path: str) -> None:
         """Persist the fleet (the JAX engine's .npz format)."""
-        st = self.state_dict()
+        self._save_npz(path, self.state_dict())
+
+    def _save_npz(self, path: str, st: dict, **first) -> None:
+        """A fleet ``state_dict`` as the .npz, after the arrays ``first``;
+        a stream without a tail saves zeros and ``has_tail`` False."""
         t = self.props.temporal_size
         tails = np.stack([
             tl if tl is not None
@@ -625,20 +540,13 @@ class MultiStreamEngine:
             for tl in st["tails"]])
         has_tail = np.asarray([tl is not None for tl in st["tails"]])
         np.savez_compressed(
-            path, frame_cursors=np.asarray(st["frame_cursors"]),
+            path, **first, frame_cursors=np.asarray(st["frame_cursors"]),
             baseline=st["baseline"], heatmap=st["heatmap"], tails=tails,
             has_tail=has_tail, failed=np.asarray(st["failed"], np.int64))
 
     def load(self, path: str) -> None:
-        z = np.load(path)
-        self.load_state_dict({
-            "frame_cursors": z["frame_cursors"].tolist(),
-            "baseline": z["baseline"],
-            "heatmap": z["heatmap"],
-            "tails": [z["tails"][i] if z["has_tail"][i] else None
-                      for i in range(z["tails"].shape[0])],
-            "failed": z["failed"].tolist(),
-        })
+        with np.load(path) as z:
+            self.load_state_dict(npz_state(z))
 
     # -- the batch ----------------------------------------------------------
     def process_batch(self, frames_per_stream: Sequence[Sequence[np.ndarray]]
@@ -652,18 +560,17 @@ class MultiStreamEngine:
         valid slots).  A stream given a frame of the wrong shape is
         isolated into ``failed`` (a :class:`StreamError`); the others run.
         """
-        t, b = self.props.temporal_size, self.batch
-        h, w, c = self.height, self.width, self.props.out_channels
-        s = self._stage_rows()
+        t, b, s = self.props.temporal_size, self.batch, self._stage_rows()
         if len(frames_per_stream) != self.n_streams:
             raise ValueError(f"expected {self.n_streams} streams")
         n = max((len(f) for f in frames_per_stream), default=0)
         if n == 0 and not self._lockstep_collectives:
-            return (np.zeros((s, 0, h, w, c), np.uint8),
+            return (np.zeros((s, 0, self.height, self.width,
+                              self.props.out_channels), np.uint8),
                     np.zeros((s, 0, NUM_STATS), np.float32), 0.0)
         if n > b:
             raise ValueError(f"{n} frames > batch {b}")
-        buf = self._host_np
+        buf = self._io.buffer()
         planar = self._prep is None
         tr = self._tail_len
         shape = (self.in_height, self.in_width, 3)
@@ -690,7 +597,7 @@ class MultiStreamEngine:
                 continue
             tail = self._tails[si]
             if planar:  # the host lays out each frame, RGB planes
-                with self._stage("stage_in"):
+                with self._io.stage("stage_in"):
                     new = buf[row, tr:]
                     for i, f in enumerate(frames):
                         new[i] = native.planarize(f, self.hp, self.wp)
@@ -719,36 +626,31 @@ class MultiStreamEngine:
             valid[row, :n_si] = True
             # markers fire on each stream's own cursor
             cursor = self.frame_cursors[si]
-            for i in range(n_si):
-                flags[row, i] = (cursor + i == 0 or
-                                 cursor + i in self.props.refresh_markers)
-            if self._snap_pending[si]:
-                flags[row, 0] = True
-                self._snap_pending[si] = False
+            capture_flags(flags[row], cursor, n_si,
+                          self.props.refresh_markers, self._snap_pending[si])
+            self._snap_pending[si] = False
             self.frame_cursors[si] = cursor + n_si
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
             written[row] = n_si
         stale = self._stage_written - set(written)
         if pieces or stale:
-            with self._stage("stage_in"):
-                self.staging.copy(pieces, count=self.timers is not None)
+            with self._io.stage("stage_in"):
+                self._io.copy(pieces)
                 for row in stale:
                     buf[row] = 0  # stale frames of a stream gone quiet or dead
         self._stage_written = set(written)
 
-        with self._stage("h2d"):
-            if self._dev_stage is not self._host:
-                self._dev_stage.copy_(self._host, non_blocking=True)
-        with self._stage("dispatch"):
+        staged = self._io.upload(buf)
+        with self._io.stage("dispatch"):
             raw = self._planar
             # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
             # stream's rows are written in place, no transpose per batch
             if planar:
                 raw.view(tr + b, 3, s, self.hp, self.wp).permute(
-                    2, 0, 1, 3, 4).copy_(self._dev_stage)
+                    2, 0, 1, 3, 4).copy_(staged)
                 fresh = []  # their tail rows came up from the host
             else:
-                self._prep(self._dev_stage, out=raw[tr:].view(
+                self._prep(staged, out=raw[tr:].view(
                     b, 3, s, self.hp, self.wp).permute(2, 0, 1, 3, 4))
             if self.ring_carry:
                 out, stats = self._launch_ring(raw, flags, valid, offsets,
@@ -756,33 +658,14 @@ class MultiStreamEngine:
             else:
                 out, stats = self._launch_tail(raw, flags, valid, written,
                                                fresh, resumed)
-            if self.packed_wire:  # bit-packed on the device
-                out = wire.pack_mask(out[:n])
-            elif c:  # crop + interleave on the device: one download
-                out = out[:n].view(n, c, s, self.hp, self.wp)[..., :h, :w]
-                out = out.permute(2, 0, 3, 4, 1).contiguous()
-        with self._stage("wait"):  # what the first download would wait for
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-        counted = self.timers is not None
-        with self._stage("d2h"):
-            if c:
-                maps, stats_np = self.downloads.fetch(out, stats[:, :n],
-                                                      count=counted)
-            else:
-                stats_np, = self.downloads.fetch(stats[:, :n], count=counted)
-                maps = np.empty((s, n, h, w, 0), np.uint8)
-            if self.packed_wire:  # unpacked and cropped on the host
-                maps = wire.unpack_mask(maps).reshape(
-                    n, 1, s, self.hp, self.wp)[..., :h, :w]
-                maps = np.ascontiguousarray(maps.transpose(2, 0, 3, 4, 1))
-            # mean |diff| over valid slots only: padding replicas and dead
-            # streams stay out of the aggregate
-            vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
-            total, count = self._global_sums(
-                (torch.from_numpy(stats_np)[..., 1] * vw).sum(), vw.sum())
-            gmean = float(total / torch.clamp(count, min=1.0))
-        return maps, stats_np, gmean
+            out = self._io.maps(out, n)
+        maps, stats_np = self._io.collect(out, stats[:, :n], n)
+        # mean |diff| over valid slots only: padding replicas and dead
+        # streams stay out of the aggregate
+        vw = torch.from_numpy(valid[:, :n]).to(torch.float32)
+        total, count = self._global_sums(
+            (torch.from_numpy(stats_np)[..., 1] * vw).sum(), vw.sum())
+        return maps, stats_np, float(total / torch.clamp(count, min=1.0))
 
     def _launch_ring(self, raw: torch.Tensor, flags, valid, offsets, seeds):
         """One stacked ring-carry launch over the B-row planar input, or

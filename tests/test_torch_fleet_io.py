@@ -97,7 +97,8 @@ def test_fleet_checkpoint_keeps_failures(tmp_path):
 def test_slot_checkpoint_moves_between_engines(props, tmp_path):
     """A fleet slot goes into a single-stream engine of either package and
     back into a fleet of the other; every continuation equals the
-    uninterrupted single-stream run."""
+    uninterrupted single-stream run.  A single-stream engine's file goes
+    through a fleet slot and back byte for byte."""
     cl = clips(12, seed=11)
     pp = props_from_jax(props)
     ref = TorchEngine(pp, H, W, batch=4, device="cpu")
@@ -139,6 +140,20 @@ def test_slot_checkpoint_moves_between_engines(props, tmp_path):
     exp = tf.process_batch(feeds)
     assert_batch_same(props, got_t, exp)
     assert_batch_same(props, got_j, exp)
+    # single -> fleet slot -> single: the one-stream .npz byte for byte
+    one.save(str(tmp_path / "one.npz"))
+    t2.load_stream(2, str(tmp_path / "one.npz"))
+    t2.save_stream(2, str(tmp_path / "back.npz"))
+    with np.load(tmp_path / "one.npz") as a, \
+            np.load(tmp_path / "back.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            assert a[k].tobytes() == b[k].tobytes(), k
+    back = TorchEngine(pp, H, W, batch=4, device="cpu")
+    back.load(str(tmp_path / "back.npz"))
+    for k, v in one.state_dict().items():
+        np.testing.assert_array_equal(back.state_dict()[k], v, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -362,7 +362,7 @@ def test_fleet_tail_views_nothing_the_caller_holds():
     for frames in feeds:
         for x in frames:
             x[:] = 7
-    f._host_np[:] = 9
+    f._io.buffer()[:] = 9  # the fleet's one upload buffer
     for got, exp in zip(f.state_dict()["tails"], want):
         np.testing.assert_array_equal(got, exp)
 
