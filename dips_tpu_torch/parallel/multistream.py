@@ -29,13 +29,15 @@ stream ``si`` owns rows [si*Hp, (si+1)*Hp), in the mesh's cells
 isolation, the zeroing of stale staging rows, the grid launches, the
 global mean and the multi-process hooks.  A batch's frames are staged
 into one (S, B, H, W, 3) upload buffer (planarized into (S, T_rows + B,
-3, Hp, Wp) on the host in the planar layout) that goes up whole into a
-device twin; the layout prep writes them into the row-stacked input seen
-as (F, 3, S, Hp, Wp).  Staging, upload, crop and interleave, wait and
-download go through ``models/batchio.py``, as the single-stream engine's
-do.  A stream not staged in a batch (idle, exhausted or failed) is fed
-zeros, in its frame rows and, in the tail protocol, in its tail rows, as
-the JAX engine stages it; its tail goes back up when it is staged again.
+3, Hp, Wp) on the host in the planar layout) that goes up into a device
+twin, whole or, for a large batch, in pieces of whole stream rows, each
+as soon as it is staged (``BatchIO.send``); the layout prep writes them
+into the row-stacked input seen as (F, 3, S, Hp, Wp).  Staging, upload,
+crop and interleave, wait and download go through ``models/batchio.py``,
+as the single-stream engine's do.  A stream not staged in a batch (idle,
+exhausted or failed) is fed zeros, in its frame rows and, in the tail
+protocol, in its tail rows, as the JAX engine stages it; its tail goes
+back up when it is staged again.
 
 Checkpoints are byte-compatible with the JAX engine's in both directions
 and both protocols: the fleet's ``save`` / ``load``, and one slot's
@@ -60,7 +62,7 @@ from ..models.pipeline import (EngineBase, load_slot, save_slot,
                                slot_baseline, slot_tail)
 from ..ops.reference import NUM_STATS
 from ..properties import DiPsProperties
-from ..utils.staging import TailSlots
+from ..utils.staging import Piece, TailSlots
 from .grid2d import (make_grid_ring_step, make_grid_step,
                      run_grid_ring_step, run_grid_step, slab_rows_ok)
 from .mesh import Layout, Mesh, visible_devices
@@ -193,12 +195,14 @@ class MultiStreamEngine(EngineBase):
 
     ``timers``, ``staging`` and ``downloads`` are the single-stream
     engine's (``models/batchio.py``).  The stages are its own but
-    ``tail_keep``: ``stage_in`` once per batch (the one staging copy, and
-    the zeroing of a quiet stream's stale rows; in the planar layout one
-    more per staged stream before it, which planarizes its frames), then
-    ``h2d``, ``dispatch``, ``wait`` and ``d2h`` (maps and stats; the global
-    mean follows).  Each stream's host tail lives in T slots of its own
-    that the engine reuses.
+    ``tail_keep``: ``stage_in`` (in the planar layout one per staged
+    stream, which planarizes its frames; then one with the zeroing of a
+    quiet stream's stale rows and the staging copy), ``h2d``,
+    ``dispatch``, ``wait`` and ``d2h`` (maps and stats; the global mean
+    follows).  A batch in pieces has a ``stage_in`` and an ``h2d`` a
+    piece, and a last ``stage_in``, the tails' slots, before ``wait``.
+    Each stream's host tail lives in T slots of its own that the engine
+    reuses.
     """
 
     #: the multi-process engine (``multihost.py``) sets this: every process
@@ -582,7 +586,10 @@ class MultiStreamEngine(EngineBase):
         # tail protocol: row sections whose tail rows must be filled before
         # the launch, from frame 0 (a fresh stream) or from the host tail
         fresh, resumed = [], {}
-        pieces = []  # the batch's staging copy: (destination, source)
+        # the batch's staging copy, (destination, source): each row
+        # section's frames, then the tails' slots
+        rows: List[List[Piece]] = [[] for _ in range(s)]
+        tail_copies: List[Piece] = []
         for si, frames in enumerate(frames_per_stream):
             row = self._stage_index(si)
             if row < 0 or si in self.failed:
@@ -611,8 +618,8 @@ class MultiStreamEngine(EngineBase):
                 # slots past n_si hold replicas of the last frame; the
                 # kernel reads them as invalid and leaves the carried state
                 # alone
-                pieces += [(buf[row, i], frames[min(i, n_si - 1)])
-                           for i in range(b)]
+                rows[row] = [(buf[row, i], frames[min(i, n_si - 1)])
+                             for i in range(b)]
                 kept = frames
             if tail is None:
                 fresh.append(row)
@@ -622,7 +629,7 @@ class MultiStreamEngine(EngineBase):
             # the old tail is read above: the staging copy below may write
             # the slots its dropped frames held
             self._tails[si], copies = self._tail_slots[si].keep(tail, kept)
-            pieces += copies
+            tail_copies += copies
             valid[row, :n_si] = True
             # markers fire on each stream's own cursor
             cursor = self.frame_cursors[si]
@@ -633,14 +640,14 @@ class MultiStreamEngine(EngineBase):
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
             written[row] = n_si
         stale = self._stage_written - set(written)
-        if pieces or stale:
-            with self._io.stage("stage_in"):
-                self._io.copy(pieces)
-                for row in stale:
-                    buf[row] = 0  # stale frames of a stream gone quiet or dead
         self._stage_written = set(written)
 
-        staged = self._io.upload(buf)
+        def stage():
+            for row in stale:  # before any upload: every row goes up
+                buf[row] = 0  # stale frames of a stream gone quiet or dead
+            return buf, rows, tail_copies
+
+        staged = self._io.send(stage)
         with self._io.stage("dispatch"):
             raw = self._planar
             # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each

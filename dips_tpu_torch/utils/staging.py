@@ -14,10 +14,16 @@ the destinations hold the same bytes.  A source that is not C-contiguous
 uint8, or that may share memory with its destination, is always copied by
 NumPy, with NumPy's casting (as ``buf[i] = frame`` does).
 
+A batch of twice :data:`PIECE_BYTES` or more goes up in pieces
+(:func:`upload_pieces`): runs of consecutive rows of the upload buffer, each
+staged by its own call and enqueued for upload before the next is staged,
+so that the card's copy of one piece runs while the host stages the next.
+
 A staging call is counted only when the caller asks (the engines ask while
 their stage timers are on, as under ``--profile``), as ``Downloads``
-counts: ``batches``, ``nbytes``, ``pooled`` (the calls the pool copied) and
-``threads`` (the copiers of the last counted call).
+counts: ``batches``, ``calls``, ``nbytes``, ``pooled`` (the calls the pool
+copied), ``threads`` (the copiers of the last counted call) and
+``uploads`` (the upload pieces of the counted batches; ``pieces`` a batch).
 """
 
 from __future__ import annotations
@@ -36,6 +42,13 @@ POOL_ABOVE = 16 << 20
 #: bytes of one piece of work on the pool (1 MB chunks beat 2 and 4 MB on
 #: a 1080p x 16 batch there)
 CHUNK_BYTES = 1 << 20
+#: bytes of one upload piece at least: a batch of twice this or more is
+#: staged and uploaded in pieces (:func:`upload_pieces`), a smaller one in
+#: one staging copy and one upload.  On an H100's host the 1080p 8 x 16
+#: fleet ran fastest in 4 pieces (2 streams each), and the 1080p x 16
+#: single engine whole: its pieces' upload saved no more than the
+#: staging lost to the upload's share of host memory (PERF.md §6)
+PIECE_BYTES = 96 << 20
 #: the engine stages that staging copies run in
 STAGING_STAGES = ("stage_in", "tail_keep")
 
@@ -47,26 +60,51 @@ def pool_threads() -> int:
     return min(8, len(os.sched_getaffinity(0)))
 
 
+def upload_pieces(rows: int, row_bytes: int) -> List[Tuple[int, int]]:
+    """``rows`` rows of ``row_bytes`` bytes each cut into pieces of
+    consecutive rows, as [start, stop) in order: as many pieces as hold
+    :data:`PIECE_BYTES` each, the rows spread over them as evenly as they
+    go (one piece below twice :data:`PIECE_BYTES`)."""
+    per = max(1, -(-PIECE_BYTES // row_bytes))  # rows a piece needs
+    m = max(1, rows // per)
+    size, extra = divmod(rows, m)
+    cuts, lo = [], 0
+    for k in range(m):
+        hi = lo + size + (k < extra)
+        cuts.append((lo, hi))
+        lo = hi
+    return cuts
+
+
 def _addresses(arrays: Sequence[np.ndarray]) -> np.ndarray:
     return np.fromiter((a.__array_interface__["data"][0] for a in arrays),
                        np.uintp, len(arrays))
 
 
 class Staging:
-    """One engine's host staging copies, with four counts of those made
-    with ``count``: ``batches``, ``nbytes``, ``pooled`` and ``threads``."""
+    """One engine's host staging copies, with six counts of those made
+    with ``count``: ``batches``, ``calls``, ``nbytes``, ``pooled``,
+    ``threads`` and ``uploads``."""
 
     def __init__(self) -> None:
         self.batches = 0
+        self.calls = 0
         self.nbytes = 0
         self.pooled = 0
         self.threads = 1
+        self.uploads = 0
 
     @property
     def pooled_share(self) -> Optional[float]:
         """The share of the counted calls the pool copied; None before
         the first."""
-        return self.pooled / self.batches if self.batches else None
+        return self.pooled / self.calls if self.calls else None
+
+    @property
+    def pieces(self) -> Optional[float]:
+        """The upload pieces a counted batch (1.0: every batch went up
+        whole); None before the first."""
+        return self.uploads / self.batches if self.batches else None
 
     def gbps(self, timers) -> Optional[float]:
         """Staged GB/s: ``nbytes`` over the time ``timers`` (the engine's
@@ -78,10 +116,13 @@ class Staging:
         s = sum(timers.totals.get(name, 0.0) for name in STAGING_STAGES)
         return self.nbytes / s / 1e9 if s > 0 else None
 
-    def copy(self, pieces: Sequence[Piece], count: bool = False) -> bool:
+    def copy(self, pieces: Sequence[Piece], count: bool = False,
+             uploads: int = 1) -> bool:
         """Copy each source into its destination (a writable C-contiguous
         uint8 array of the source's shape); returns whether the pool
-        copied.  With ``count`` the call is counted."""
+        copied.  With ``count`` the call is counted, and closes a batch
+        that went up in ``uploads`` pieces (0: a call of a batch that a
+        later call closes)."""
         fast: List[Piece] = []
         nbytes = total = 0
         for dst, src in pieces:
@@ -114,17 +155,22 @@ class Staging:
             for dst, src in fast:
                 dst[...] = src
         if count:
-            self.batches += 1
+            self.calls += 1
             self.nbytes += nbytes
             self.pooled += pooled
             self.threads = threads
+            if uploads:
+                self.batches += 1
+                self.uploads += uploads
         return pooled
 
     def __str__(self) -> str:
-        share = self.pooled_share
+        share, pieces = self.pooled_share, self.pieces
         return (f"staging: {self.batches} batches, {self.nbytes} bytes, "
                 f"pooled share {0.0 if share is None else share:.3f}, "
-                f"{self.threads} thread(s)")
+                f"{self.threads} thread(s), "
+                f"{0.0 if pieces is None else pieces:.3f} upload pieces "
+                f"a batch")
 
 
 class TailSlots:

@@ -37,9 +37,10 @@ and writes them all to ``--out``:
   ``tail_keep``;
 * ``staging``: the engine's staging record over the row (warm-up, loop
   and traced batches; ``utils/staging.py``): ``pooled_share`` (the
-  batches whose host copy the thread pool made), ``threads`` and
-  ``gbps``, the bytes staged over the time in ``stage_in`` and
-  ``tail_keep`` (None on a package without the record).
+  calls whose host copy the thread pool made), ``threads``, ``gbps``,
+  the bytes staged over the time in ``stage_in`` and ``tail_keep``, and
+  ``pieces``, the upload pieces a batch (1.0: every batch went up whole;
+  None on a package without the record or the count).
 
 Each run also prints the card's name and power limit.  Without a card it
 exits non-zero.
@@ -267,7 +268,8 @@ def profile_engine(eng, feeds, n_batches: int, **labels) -> dict:
     staged = getattr(eng, "staging", None)
     row["staging"] = None if staged is None else {
         "pooled_share": staged.pooled_share, "threads": staged.threads,
-        "gbps": staged.gbps(eng.timers), "batches": staged.batches}
+        "gbps": staged.gbps(eng.timers), "batches": staged.batches,
+        "pieces": getattr(staged, "pieces", None)}
     row.update(labels)
     print(json.dumps(row), flush=True)
     return row

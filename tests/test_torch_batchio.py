@@ -12,6 +12,11 @@ one-stream checkpoint (``models/pipeline.py``), on the CPU.
 * The upload buffers: handed out in rotation, each again only after the
   event of its last upload (fake events here; on the CPU there are none
   and the buffer is the upload itself).
+* The order of a batch sent in pieces (a fake upload that snapshots the
+  rows it sends): every row goes up once, in order, already holding its
+  final bytes (frames, replica slots, a stale row's zeros); the tails'
+  slots are copied after the last upload, and the buffer's event is
+  recorded once, after it.
 * Checkpoints: an empty tail list is "no tail" to ``DiPsEngine`` and an
   error to a fleet slot; a short tail is padded with its oldest frame in
   both, which then run on alike.
@@ -29,6 +34,8 @@ from dips_tpu_torch.models.batchio import (BatchIO, capture_flags,
                                            interleave, unpack)
 from dips_tpu_torch.ops import wire
 from dips_tpu_torch.ops.reference import pad_geometry
+from dips_tpu_torch.utils import staging
+from dips_tpu_torch.utils.staging import Staging
 
 H, W, B = 24, 37, 4
 HP, WP = pad_geometry(H, W)
@@ -194,6 +201,118 @@ def test_buffers_rotate_and_wait_for_their_upload():
     assert log[-2:] == [("synchronize", 1), ("synchronize", 0)]
 
 
+# -- a batch in pieces ----------------------------------------------------------
+@pytest.fixture
+def sends(monkeypatch):
+    """A row a piece; the log of every upload enqueued (a snapshot of the
+    rows it sends) and every staging call (its destinations)."""
+    monkeypatch.setattr(staging, "PIECE_BYTES", 1)
+    log: list = []
+    put, copy = BatchIO._put, Staging.copy
+
+    def fake_put(self, dst, buf, lo, i, j):
+        log.append(("put", buf, lo + i, lo + j, buf[lo + i:lo + j].copy()))
+        put(self, dst, buf, lo, i, j)
+
+    def logged_copy(self, pieces, count=False, uploads=1):
+        log.append(("copy", [d for d, _ in pieces]))
+        return copy(self, pieces, count, uploads)
+
+    monkeypatch.setattr(BatchIO, "_put", fake_put)
+    monkeypatch.setattr(Staging, "copy", logged_copy)
+    return log
+
+
+def check_sent(log: list, rows: int, lo: int = 0, want=None):
+    """One batch's log: rows ``[lo, lo + rows)`` sent once each, in order,
+    each already holding the bytes the buffer holds after the batch (and
+    ``want[r]``, where given); copies into the buffer before the last
+    upload, the tails' slots after it."""
+    puts = [k for k, e in enumerate(log) if e[0] == "put"]
+    buf = log[puts[0]][1]
+    assert [log[k][2:4] for k in puts] == [(r, r + 1)
+                                           for r in range(lo, lo + rows)]
+    for k in puts:
+        _, b, r0, r1, snap = log[k]
+        assert b is buf
+        np.testing.assert_array_equal(snap, buf[r0:r1])
+        if want is not None:
+            np.testing.assert_array_equal(snap[0], want[r0])
+    for e in log[:puts[-1]]:
+        if e[0] == "copy":
+            assert all(np.shares_memory(d, buf) for d in e[1])
+    after = [e for e in log[puts[-1]:] if e[0] == "copy"]
+    assert len(after) == 1 and after[0][1]  # the tails' slots
+    assert not any(np.shares_memory(d, buf) for d in after[0][1])
+
+
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+@pytest.mark.parametrize("ring", [True, False])
+def test_engine_sends_each_piece_staged(sends, ring, layout):
+    """A full batch and a short one, a frame a piece."""
+    eng = DiPsEngine(DiPsProperties(), H, W, batch=B, device="cpu",
+                     ring_carry=ring, input_layout=layout)
+    for k, n in enumerate((B, 2)):
+        frames = clip(30 + k, n)
+        del sends[:]
+        eng.process_batch(frames)
+        want = {eng.tail_rows + i: f for i, f in enumerate(frames)}
+        check_sent(sends, n, eng.tail_rows,
+                   want if layout == "hwc" else None)
+
+
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+@pytest.mark.parametrize("ring", [True, False])
+def test_fleet_sends_each_piece_staged(sends, ring, layout):
+    """Three streams, a stream a piece: replica slots after a short
+    stream's frames, a quiet stream's stale row zeroed before its upload,
+    a dead stream's row zeroed, a never-fed row's zeros."""
+    s = 3
+    f = MultiStreamEngine(DiPsProperties(), H, W, s, batch=B, device="cpu",
+                          ring_carry=ring, input_layout=layout)
+    bad = [np.zeros((H + 1, W, 3), np.uint8)]
+    feeds = [[clip(40, B), clip(41, 2), []],
+             [clip(42, 1), [], clip(43, B)],   # stream 1 quiet: stale
+             [clip(44, 3), bad, clip(45, 2)]]  # stream 1 dead
+    zero = np.zeros((B, H, W, 3), np.uint8)
+    for feed in feeds:
+        del sends[:]
+        f.process_batch(feed)
+        want = [np.stack([fr[min(i, len(fr) - 1)] for i in range(B)])
+                if fr and fr is not bad else zero for fr in feed]
+        check_sent(sends, s, 0, want if layout == "hwc" else None)
+        buf = next(e[1] for e in sends if e[0] == "put")
+        for si, fr in enumerate(feed):
+            if not fr or fr is bad:
+                assert not buf[si].any()
+    assert sorted(f.failed) == [1]
+
+
+def test_send_records_the_event_once_after_the_last_upload(monkeypatch):
+    """A buffer sent in pieces records its event once, after its last
+    upload; sent whole, as ``upload`` does."""
+    log: list = []
+    io = BatchIO(torch.device("cpu"), H, W, 3, False, None, (B, H, W, 3), 2)
+    io._events = [FakeEvent(log, k) for k in range(2)]
+    monkeypatch.setattr(BatchIO, "_put", lambda self, dst, buf, lo, i, j:
+                        log.append(("put", i, j)))
+    frames = clip(50, B)
+    for piece in (1, 1 << 62):
+        monkeypatch.setattr(staging, "PIECE_BYTES", piece)
+        del log[:]
+
+        def stage():
+            buf = io.buffer()
+            return buf, [[(buf[i], f)] for i, f in enumerate(frames)], []
+
+        up = io.send(stage)
+        k = io._next - 1 if io._next else 1
+        puts = [("put", i, i + 1) for i in range(B)] if piece == 1 else [
+            ("put", 0, B)]
+        assert log == [("synchronize", k)] + puts + [("record", k)]
+        np.testing.assert_array_equal(up.numpy(), np.stack(frames))
+
+
 def test_engines_hand_out_their_buffers():
     single, fleet = pair("colorize")
     a, b = single.new_batch_buffer(), single.new_batch_buffer()
@@ -299,3 +418,70 @@ def test_card_one_stream_fleet_equals_single_engine(mode):
     assert single.new_batch_buffer() is a and c is not a
     assert torch.from_numpy(a).is_pinned()
     assert torch.from_numpy(fleet._io.buffer()).is_pinned()
+
+
+def card_feeds(kind: str, b: int = 16, s: int = 8):
+    """Three batches of 1080p frames: full, short (the fleet's stream 3
+    quiet and stream 5 short), full."""
+    rng = np.random.default_rng(7)
+    pool = [rng.integers(0, 256, (1080, 1920, 3), np.uint8)
+            for _ in range(24)]
+    at = lambda i0, n: [pool[(i0 + i) % len(pool)] for i in range(n)]
+    if kind == "engine":
+        return [at(0, b), at(b, 5), at(2 * b, b)]
+    return [[at(k * b + 3 * si, b if k != 1 or si != 5 else 5)
+             if k != 1 or si != 3 else [] for si in range(s)]
+            for k in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["engine", "fleet"])
+def test_card_whole_and_in_pieces_byte_equal(monkeypatch, kind):
+    """At 1080p x 16 (and 8 streams) on the card: a frame or a stream a
+    piece against one piece, byte-equal over three batches with a short
+    batch and a quiet stream; the pieces a batch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dips_tpu_torch.utils.profiling import StageTimers
+    feeds = card_feeds(kind)
+    got = {}
+    for piece in (1 << 62, 1):
+        monkeypatch.setattr(staging, "PIECE_BYTES", piece)
+        if kind == "engine":
+            eng = DiPsEngine(DiPsProperties(), 1080, 1920, batch=16,
+                             device="cuda")
+        else:
+            eng = MultiStreamEngine(DiPsProperties(), 1080, 1920, 8,
+                                    batch=16, device="cuda")
+        eng.timers = StageTimers()
+        res = [[np.copy(x) for x in eng.process_batch(feed)[:2]]
+               for feed in feeds]
+        res.append(eng.heatmap() if kind == "engine" else eng.heatmaps())
+        got[piece] = res
+        want = 1.0 if piece > 1 else (16 + 5 + 16) / 3 if kind == "engine" \
+            else 8.0
+        assert eng.staging.pieces == want
+        del eng
+    for a, b in zip(got[1 << 62][:3], got[1][:3]):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(got[1 << 62][3], got[1][3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [16, 1])
+def test_card_fleet_pieces_at_the_default_size(b):
+    """The 1080p 8 x 16 fleet goes up in pieces at the chosen size, the
+    8 x 1 fleet (serving's coalesced batch) whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dips_tpu_torch.utils.profiling import StageTimers
+    eng = MultiStreamEngine(DiPsProperties(), 1080, 1920, 8, batch=b,
+                            device="cuda")
+    eng.timers = StageTimers()
+    for feed in card_feeds("fleet", b)[::2]:
+        eng.process_batch(feed)
+    if b == 1:
+        assert eng.staging.pieces == 1.0
+    else:
+        assert eng.staging.pieces > 1

@@ -15,11 +15,20 @@ of host threads above a size.
   and fresh streams; the host tail views neither the caller's frames nor
   an upload buffer, and a checkpoint's tail views no slot; a saved,
   loaded and resumed engine goes on byte-equal.
+* The upload pieces (``upload_pieces``): every row once, in order, each
+  piece at least ``PIECE_BYTES`` and a batch under twice that whole, at
+  1080p x 16, a 1080p 8 x 16 and 8 x 1 fleet, one frame, and small rows;
+  both engines byte-equal whole and in pieces (``PIECE_BYTES`` patched),
+  with short batches, quiet, dead and fresh streams, both protocols and
+  the hwc, hwc_bgr and planar layouts.
 * The ``staging`` counts: only while ``timers`` is set; a pooled share of
-  1.0 for a 1080p x 16 batch and 0.0 for one 64 x 64 frame.
+  1.0 for a 1080p x 16 batch and 0.0 for one 64 x 64 frame; the upload
+  pieces a batch, whole and in pieces, and the calls of a batch.
 * Marked ``gpu`` (they skip without a card; no JAX here, so they run with
   ``--noconftest``): the 1080p x 16 engine and the 1080p 8 x 16 fleet
-  byte-equal with the pool on and off, and ``stage_in`` faster with it.
+  byte-equal with the pool on and off, and ``stage_in`` faster with it;
+  both byte-equal whole and in pieces over a short batch and a quiet
+  stream; the fleet's pieces a batch above 1 at 8 x 16 and 1.0 at 8 x 1.
 
 Sizes: H = 24, W = 37 (odd), B = 4, S = 3 but where said.
 """
@@ -56,6 +65,15 @@ def pool(monkeypatch):
     thread pool; ``pool(False)``: none does."""
     def force(on: bool):
         monkeypatch.setattr(staging, "POOL_ABOVE", -1 if on else 1 << 62)
+    return force
+
+
+@pytest.fixture
+def pieces(monkeypatch):
+    """``pieces(True)``: a batch goes up a row a piece; ``pieces(False)``:
+    every batch goes up whole."""
+    def force(on: bool):
+        monkeypatch.setattr(staging, "PIECE_BYTES", 1 if on else 1 << 62)
     return force
 
 
@@ -199,6 +217,45 @@ def test_a_forked_child_builds_its_own_pool(monkeypatch):
     np.testing.assert_array_equal(dst, np.stack(src))
 
 
+# -- the upload pieces ---------------------------------------------------------
+FRAME_1080P = 1080 * 1920 * 3
+
+
+@pytest.mark.parametrize("piece_mb", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("rows,row_bytes", [
+    (16, FRAME_1080P),        # the 1080p x 16 single engine: a frame a row
+    (8, 16 * FRAME_1080P),    # the 1080p 8 x 16 fleet: a stream a row
+    (8, FRAME_1080P),         # the 1080p 8 x 1 fleet (serving, coalesced)
+    (1, FRAME_1080P),         # B = 1
+    (13, 5 << 20),            # rows that do not divide evenly
+], ids=["single16", "fleet8x16", "fleet8x1", "b1", "odd"])
+def test_upload_pieces_cut(monkeypatch, piece_mb, rows, row_bytes):
+    """Every row once, in order; each piece at least ``PIECE_BYTES``, the
+    rows spread evenly; a batch under twice that in one piece."""
+    monkeypatch.setattr(staging, "PIECE_BYTES", piece_mb << 20)
+    cuts = staging.upload_pieces(rows, row_bytes)
+    assert cuts[0][0] == 0 and cuts[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    sizes = [hi - lo for lo, hi in cuts]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    if rows * row_bytes < 2 * staging.PIECE_BYTES:
+        assert cuts == [(0, rows)]
+    # as many pieces as hold PIECE_BYTES each in whole rows
+    per = -(-staging.PIECE_BYTES // row_bytes)
+    assert len(cuts) == max(1, rows // per)
+    if len(cuts) > 1:
+        assert min(sizes) * row_bytes >= staging.PIECE_BYTES
+
+
+def test_upload_pieces_at_the_default_size():
+    """At the chosen size the 1080p 8 x 16 fleet goes up in pieces; the
+    1080p x 16 single engine, the 8 x 1 fleet and one frame whole."""
+    assert len(staging.upload_pieces(8, 16 * FRAME_1080P)) > 1
+    assert staging.upload_pieces(16, FRAME_1080P) == [(0, 16)]
+    assert staging.upload_pieces(8, FRAME_1080P) == [(0, 8)]
+    assert staging.upload_pieces(1, FRAME_1080P) == [(0, 1)]
+
+
 # -- the tail slots -----------------------------------------------------------
 @pytest.mark.parametrize("t", [1, 3, 4])
 def test_tail_slots_reuse_and_keep(t):
@@ -326,6 +383,43 @@ def test_fleet_byte_equal_pool_on_and_off(pool, ring, layout):
     assert_states_equal(off[2], on[2])
 
 
+@pytest.mark.parametrize("layout", ["hwc", "hwc_bgr", "planar"])
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("props", sorted(PROPS))
+def test_engine_byte_equal_whole_and_in_pieces(pool, pieces, props, ring,
+                                               layout):
+    """Short batches among full ones, a frame a piece against one piece:
+    the same maps, stats, heatmap and state."""
+    pieces(False)
+    whole = run_engine(props, ring, layout, False, pool)
+    pieces(True)
+    cut = run_engine(props, ring, layout, False, pool)
+    for (oa, sa), (ob, sb) in zip(whole[0], cut[0]):
+        np.testing.assert_array_equal(oa, ob)
+        np.testing.assert_array_equal(sa, sb)
+    np.testing.assert_array_equal(whole[1], cut[1])
+    assert_states_equal(whole[2], cut[2])
+
+
+@pytest.mark.parametrize("layout", ["hwc", "hwc_bgr", "planar"])
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("props", sorted(PROPS))
+def test_fleet_byte_equal_whole_and_in_pieces(pool, pieces, props, ring,
+                                              layout):
+    """Fresh, quiet, dead and reset streams, a stream a piece against one
+    piece: the same results, heatmaps and state."""
+    pieces(False)
+    whole = run_fleet(props, ring, layout, False, pool)
+    pieces(True)
+    cut = run_fleet(props, ring, layout, False, pool)
+    for a, b in zip(whole[0], cut[0]):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert a[2] == b[2]
+    np.testing.assert_array_equal(whole[1], cut[1])
+    assert_states_equal(whole[2], cut[2])
+
+
 @pytest.mark.parametrize("layout", ["hwc", "planar"])
 @pytest.mark.parametrize("ring", [True, False])
 def test_tail_views_nothing_the_caller_holds(ring, layout):
@@ -435,6 +529,30 @@ def test_counts_only_while_timed():
     assert (f.staging.batches, f.staging.nbytes) == (1, 8 * nbytes * S)
     assert eng.staging.gbps(eng.timers) > 0
     assert "staging: 1 batches" in str(eng.staging)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("kind", ["engine", "fleet"])
+def test_pieces_counted(pieces, kind, cut):
+    """The upload pieces a batch: 1.0 whole; a frame a piece (the single
+    engine's B = 4 and 2 frames) or a stream a piece (the fleet's S = 3);
+    each batch one counted batch, its calls a piece with frames and one
+    for the tails' slots."""
+    pieces(cut)
+    eng = engine() if kind == "engine" else fleet()
+    eng.timers = StageTimers()
+    if kind == "engine":
+        eng.process_batch(clip(1, B))
+        eng.process_batch(clip(2, 2))
+        want = ((B + 2) / 2, B + 2 + 2) if cut else (1.0, 2)
+    else:
+        eng.process_batch([clip(1, B), clip(2, 2), clip(3, 1)])
+        eng.process_batch([clip(4, B), [], clip(5, 3)])  # one stream quiet
+        want = (float(S), 3 + 1 + 2 + 1) if cut else (1.0, 2)
+    st = eng.staging
+    assert st.batches == 2
+    assert (st.pieces, st.calls) == want
+    assert f"{want[0]:.3f} upload pieces a batch" in str(st)
 
 
 @needs_native
