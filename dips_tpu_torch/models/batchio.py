@@ -7,17 +7,19 @@ count while it is set), the upload buffers (page-locked on a card, each
 with the event of its last upload, handed out in rotation), the batch's
 one staging copy, its upload, the device side of its maps (crop and
 interleave, or bit-pack) and its collect (the wait, the download and the
-host unpack of packed masks).  A batch of twice ``staging.PIECE_BYTES`` or
-more is staged and uploaded in pieces (:meth:`BatchIO.send`): each piece's
-upload is enqueued as soon as the piece is staged and runs on the card
-while the host stages the next, and the tail's slots are copied while the
-card works on the batch.  A fleet's results carry a leading stream axis
-(S, n, ...); a single stream's are the s = 1 case without it.
+host unpack of packed masks).  A fleet's batch of twice
+``staging.PIECE_BYTES`` or more is staged and uploaded in pieces
+(:meth:`BatchIO.send`): each piece's upload is enqueued as soon as the
+piece is staged and runs on the card while the host stages the next, and
+the tails' slots are copied while the card works on the batch.  A fleet's
+results carry a leading stream axis (S, n, ...); a single stream's are
+the s = 1 case without it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import contextlib
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +91,6 @@ class BatchIO:
         self._next = 0
         self._twin = (torch.empty(shape, dtype=torch.uint8, device=device)
                       if twin and on_card else None)
-        self._after: Optional[Tuple[List[Piece], int]] = None
 
     @property
     def counting(self) -> bool:
@@ -116,88 +117,70 @@ class BatchIO:
     def upload(self, buf: np.ndarray, lo: int = 0,
                hi: Optional[int] = None) -> torch.Tensor:
         """Rows ``[lo, hi)`` of ``buf`` on the device, enqueued without
-        blocking in the ``h2d`` stage; a buffer of the layer's records
-        its event."""
+        blocking in the ``h2d`` stage, as a batch that went up whole; a
+        buffer of the layer's records its event."""
         with self.stage("h2d"):
-            dst = self._landing(buf, lo, hi)
-            self._put(dst, buf, lo, 0, len(dst))
-            self._record(buf)
-        return dst
+            src = torch.from_numpy(buf[lo:hi])
+            if self._twin is not None:
+                src = self._twin.copy_(src, non_blocking=True)
+            elif self.device.type == "cuda":
+                src = src.to(self.device, non_blocking=True)
+            self._record(buf, 1)
+        return src
 
-    def send(self, stage: Callable[[], Tuple[np.ndarray, List[List[Piece]],
-                                            List[Piece]]],
-             lo: int = 0) -> torch.Tensor:
-        """A batch staged and on the device, as :meth:`upload` gives its
-        rows.  ``stage()``, run in ``stage_in``, does the caller's host
-        work and returns (an upload buffer, ``rows``, ``after``):
-        ``rows[i]`` is the staging copy into buffer row ``lo + i``,
-        ``after`` the host-only copies (the tail's slots).  In one piece
-        (:func:`upload_pieces`) that ``stage_in`` copies everything and the
-        rows go up in one upload.  In pieces each piece is copied in a
-        ``stage_in`` of its own and its upload enqueued in ``h2d`` before
-        the next is copied; ``after`` waits for :meth:`flush`, which
-        :meth:`collect` calls first, so that the last upload and the work
-        the caller enqueues on the batch run behind it."""
-        self.flush()
-        with self.stage("stage_in"):
-            buf, rows, after = stage()
-            cuts = upload_pieces(len(rows), buf[lo].nbytes)
-            if len(cuts) == 1:
-                self.copy([p for row in rows for p in row] + after)
+    @contextlib.contextmanager
+    def send(self, buf: np.ndarray, rows: List[List[Piece]],
+             after: List[Piece]) -> Iterator[torch.Tensor]:
+        """The whole of ``buf`` staged and on the device, as :meth:`upload`
+        gives it, for the body of the ``with``: ``rows[i]`` is the staging
+        copy into row ``i``, ``after`` the host-only copies (the tails'
+        slots).  In one piece (:func:`upload_pieces`) one ``stage_in``
+        copies everything and one upload follows.  In pieces each piece is
+        copied in a ``stage_in`` of its own and its upload enqueued in
+        ``h2d`` before the next is copied, and ``after`` is copied once
+        the body ends, by an exception too, so that the last upload and
+        the work the body enqueues run behind it."""
+        cuts = upload_pieces(len(rows), buf[0].nbytes)
         if len(cuts) == 1:
-            return self.upload(buf, lo, lo + len(rows))
-        count = self.counting
-        dst = self._landing(buf, lo, lo + len(rows))
-        for i, j in cuts:
-            part = [p for row in rows[i:j] for p in row]
-            if part:
+            pieces = [p for row in rows for p in row] + after
+            if pieces:
                 with self.stage("stage_in"):
-                    self.staging.copy(part, count=count, uploads=0)
-            with self.stage("h2d"):
-                self._put(dst, buf, lo, i, j)
-                if j == len(rows):
-                    self._record(buf)
-        self._after = (after, len(cuts))
-        return dst
-
-    def flush(self) -> None:
-        """The host-only copies a batch sent in pieces left (the tail's
-        slots), in ``stage_in``, once: :meth:`collect` makes them before
-        its wait, :meth:`send` before the next batch's staging."""
-        if self._after is None:
+                    self.copy(pieces)
+            yield self.upload(buf)
             return
-        after, uploads = self._after
-        self._after = None
-        with self.stage("stage_in"):
-            self.staging.copy(after, count=self.counting, uploads=uploads)
+        try:
+            for i, j in cuts:
+                part = [p for row in rows[i:j] for p in row]
+                if part:
+                    with self.stage("stage_in"):
+                        self.copy(part)
+                with self.stage("h2d"):
+                    self._put(buf, i, j)
+            self._record(buf, len(cuts))
+            yield (torch.from_numpy(buf) if self._twin is None
+                   else self._twin)
+        finally:
+            with self.stage("stage_in"):
+                self.copy(after)
 
-    def _landing(self, buf: np.ndarray, lo: int,
-                 hi: Optional[int]) -> torch.Tensor:
-        """Where rows ``[lo, hi)`` of ``buf`` land: the device twin, a
-        new device tensor, or on the CPU the rows themselves."""
+    def _put(self, buf: np.ndarray, i: int, j: int) -> None:
+        """Enqueue the upload of rows ``[i, j)`` of ``buf`` into the same
+        rows of the device twin without blocking (on the CPU the buffer is
+        its own twin)."""
         if self._twin is not None:
-            return self._twin
-        rows = torch.from_numpy(buf[lo:hi])
-        if self.device.type == "cuda":
-            return torch.empty(rows.shape, dtype=torch.uint8,
-                               device=self.device)
-        return rows
+            self._twin[i:j].copy_(torch.from_numpy(buf[i:j]),
+                                  non_blocking=True)
 
-    def _put(self, dst: torch.Tensor, buf: np.ndarray, lo: int, i: int,
-             j: int) -> None:
-        """Enqueue the upload of rows ``[lo + i, lo + j)`` of ``buf`` into
-        rows ``[i, j)`` of ``dst`` without blocking (on the CPU ``dst``
-        is the rows)."""
-        if self.device.type == "cuda":
-            dst[i:j].copy_(torch.from_numpy(buf[lo + i:lo + j]),
-                           non_blocking=True)
-
-    def _record(self, buf: np.ndarray) -> None:
-        """A buffer of the layer's records its event after its last
-        upload was enqueued."""
+    def _record(self, buf: np.ndarray, uploads: int) -> None:
+        """A batch sent from ``buf`` in ``uploads`` pieces, its last
+        upload enqueued: a buffer of the layer's records its event, and
+        the staging record counts the batch while counting."""
         for arr, ev in zip(self._arrays, self._events):
             if arr.ctypes.data == buf.ctypes.data:
                 ev.record()
+        if self.counting:
+            self.staging.batches += 1
+            self.staging.uploads += uploads
 
     def maps(self, out: torch.Tensor, n: int) -> torch.Tensor:
         """The first ``n`` of the kernel's maps (B, C, S*Hp, Wp) ready to
@@ -217,7 +200,6 @@ class BatchIO:
         (maps, stats) in host memory the caller owns; the stats alone
         come down without channels, and packed masks are unpacked unless
         ``packed`` asks for them as they came down."""
-        self.flush()
         with self.stage("wait"):  # what the first download would wait for
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()

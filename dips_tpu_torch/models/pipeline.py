@@ -414,31 +414,24 @@ class DiPsEngine(EngineBase):
         for f in frames:
             if f.shape != shape:
                 raise ValueError(f"frame shape {f.shape} != {shape}")
-        src, tail = self._stage_frames(frames, planarize)
-        return self.collect(self._dispatch(src, n, tail), packed=packed)
-
-    def _stage_frames(self, frames: Sequence[np.ndarray],
-                      planarize: bool = False):
-        """(the frames on the device, the tail after them): the frames
-        (planarized first with ``planarize``) into the rows
-        ``[tail_rows:]`` of an upload buffer and up, in pieces when the
-        batch is large (``BatchIO.send``), and the tail's newest frames
-        into its slots, straight from the caller's frames."""
-        tr = self.tail_rows
-        tail = None
-
-        def stage():
-            nonlocal frames, tail
+        with self._io.stage("stage_in"):
             if planarize:
                 frames = [native.planarize(f, self.hp, self.wp)
                           for f in frames]
-            buf = self._io.buffer()
-            tail, copies = self._tail_slots.keep(self._tail or None, frames)
-            return buf, [[(buf[tr + i], f)]
-                         for i, f in enumerate(frames)], copies
+            buf, tail = self._stage_frames(frames)
+        return self.collect(self._dispatch(buf, n, tail), packed=packed)
 
-        src = self._io.send(stage, lo=tr)
-        return src, tail
+    def _stage_frames(self, frames: Sequence[np.ndarray]):
+        """(an upload buffer with the frames in its rows ``[tail_rows:]``,
+        the tail after them): the frames into the buffer and the tail's
+        newest frames into its slots, straight from the caller's frames,
+        in one staging copy."""
+        buf = self._io.buffer()
+        tr = self.tail_rows
+        tail, copies = self._tail_slots.keep(self._tail or None, frames)
+        self._io.copy([(buf[tr + i], f) for i, f in enumerate(frames)]
+                      + copies)
+        return buf, tail
 
     def process_buffer(self, buf: np.ndarray, n: int, packed: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -464,12 +457,11 @@ class DiPsEngine(EngineBase):
             tail, copies = self._tail_slots.keep(self._tail or None,
                                                  list(buf[tr:tr + n]))
             self._io.copy(copies)
-        return self._dispatch(self._io.upload(buf, tr, tr + n), n, tail)
+        return self._dispatch(buf, n, tail)
 
-    def _dispatch(self, src: torch.Tensor, n: int, tail: List[np.ndarray]):
-        """:meth:`dispatch_async` once the batch's ``n`` frames are on the
-        device, ``src``, and the tail after them, ``tail``, is in its
-        slots."""
+    def _dispatch(self, buf: np.ndarray, n: int, tail: List[np.ndarray]):
+        """:meth:`dispatch_async` once the tail after the batch, ``tail``,
+        is in its slots."""
         t = self.props.temporal_size
         b = self.batch
         first = not self._tail  # the tail starts as T x frame 0
@@ -484,6 +476,8 @@ class DiPsEngine(EngineBase):
 
         raw = self._planar
         tr = self._tail_len
+        lo = self.tail_rows
+        src = self._io.upload(buf, lo, lo + n)
         with self._io.stage("dispatch"):
             if self._prep is None:
                 raw[tr:tr + n] = src

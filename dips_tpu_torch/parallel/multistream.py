@@ -200,7 +200,7 @@ class MultiStreamEngine(EngineBase):
     quiet stream's stale rows and the staging copy), ``h2d``,
     ``dispatch``, ``wait`` and ``d2h`` (maps and stats; the global mean
     follows).  A batch in pieces has a ``stage_in`` and an ``h2d`` a
-    piece, and a last ``stage_in``, the tails' slots, before ``wait``.
+    piece, and a last ``stage_in``, the tails' slots, after ``dispatch``.
     Each stream's host tail lives in T slots of its own that the engine
     reuses.
     """
@@ -639,16 +639,15 @@ class MultiStreamEngine(EngineBase):
             self.frame_cursors[si] = cursor + n_si
             self._ring_offs[si] = (self._ring_offs[si] + n_si) % t
             written[row] = n_si
-        stale = self._stage_written - set(written)
+        # stale frames of a stream gone quiet or dead, zeroed in the copy
+        # of the piece that uploads them
+        zero = np.broadcast_to(np.uint8(0), buf.shape[1:])
+        for row in self._stage_written - set(written):
+            rows[row] = [(buf[row], zero)]
         self._stage_written = set(written)
 
-        def stage():
-            for row in stale:  # before any upload: every row goes up
-                buf[row] = 0  # stale frames of a stream gone quiet or dead
-            return buf, rows, tail_copies
-
-        staged = self._io.send(stage)
-        with self._io.stage("dispatch"):
+        with self._io.send(buf, rows, tail_copies) as staged, \
+                self._io.stage("dispatch"):
             raw = self._planar
             # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
             # stream's rows are written in place, no transpose per batch

@@ -14,16 +14,17 @@ the destinations hold the same bytes.  A source that is not C-contiguous
 uint8, or that may share memory with its destination, is always copied by
 NumPy, with NumPy's casting (as ``buf[i] = frame`` does).
 
-A batch of twice :data:`PIECE_BYTES` or more goes up in pieces
+A fleet's batch of twice :data:`PIECE_BYTES` or more goes up in pieces
 (:func:`upload_pieces`): runs of consecutive rows of the upload buffer, each
 staged by its own call and enqueued for upload before the next is staged,
 so that the card's copy of one piece runs while the host stages the next.
 
 A staging call is counted only when the caller asks (the engines ask while
 their stage timers are on, as under ``--profile``), as ``Downloads``
-counts: ``batches``, ``calls``, ``nbytes``, ``pooled`` (the calls the pool
-copied), ``threads`` (the copiers of the last counted call) and
-``uploads`` (the upload pieces of the counted batches; ``pieces`` a batch).
+counts: ``calls``, ``nbytes``, ``pooled`` (the calls the pool copied) and
+``threads`` (the copiers of the last counted call).  The engines' batch
+I/O layer counts ``batches`` and ``uploads`` (the upload pieces of those
+batches; ``pieces`` a batch) beside them.
 """
 
 from __future__ import annotations
@@ -42,12 +43,10 @@ POOL_ABOVE = 16 << 20
 #: bytes of one piece of work on the pool (1 MB chunks beat 2 and 4 MB on
 #: a 1080p x 16 batch there)
 CHUNK_BYTES = 1 << 20
-#: bytes of one upload piece at least: a batch of twice this or more is
-#: staged and uploaded in pieces (:func:`upload_pieces`), a smaller one in
-#: one staging copy and one upload.  On an H100's host the 1080p 8 x 16
-#: fleet ran fastest in 4 pieces (2 streams each), and the 1080p x 16
-#: single engine whole: its pieces' upload saved no more than the
-#: staging lost to the upload's share of host memory (PERF.md §6)
+#: bytes of one upload piece at least: a fleet's batch of twice this or
+#: more is staged and uploaded in pieces (:func:`upload_pieces`), a smaller
+#: one in one staging copy and one upload.  On an H100's host the 1080p
+#: 8 x 16 fleet ran fastest in 4 pieces of 2 streams (PERF.md §6)
 PIECE_BYTES = 96 << 20
 #: the engine stages that staging copies run in
 STAGING_STAGES = ("stage_in", "tail_keep")
@@ -82,9 +81,10 @@ def _addresses(arrays: Sequence[np.ndarray]) -> np.ndarray:
 
 
 class Staging:
-    """One engine's host staging copies, with six counts of those made
-    with ``count``: ``batches``, ``calls``, ``nbytes``, ``pooled``,
-    ``threads`` and ``uploads``."""
+    """One engine's host staging copies, with four counts of those made
+    with ``count``: ``calls``, ``nbytes``, ``pooled`` and ``threads``; and
+    the engine's batches and their upload pieces, ``batches`` and
+    ``uploads``, which the engine counts."""
 
     def __init__(self) -> None:
         self.batches = 0
@@ -116,13 +116,10 @@ class Staging:
         s = sum(timers.totals.get(name, 0.0) for name in STAGING_STAGES)
         return self.nbytes / s / 1e9 if s > 0 else None
 
-    def copy(self, pieces: Sequence[Piece], count: bool = False,
-             uploads: int = 1) -> bool:
+    def copy(self, pieces: Sequence[Piece], count: bool = False) -> bool:
         """Copy each source into its destination (a writable C-contiguous
         uint8 array of the source's shape); returns whether the pool
-        copied.  With ``count`` the call is counted, and closes a batch
-        that went up in ``uploads`` pieces (0: a call of a batch that a
-        later call closes)."""
+        copied.  With ``count`` the call is counted."""
         fast: List[Piece] = []
         nbytes = total = 0
         for dst, src in pieces:
@@ -159,9 +156,6 @@ class Staging:
             self.nbytes += nbytes
             self.pooled += pooled
             self.threads = threads
-            if uploads:
-                self.batches += 1
-                self.uploads += uploads
         return pooled
 
     def __str__(self) -> str:

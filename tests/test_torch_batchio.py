@@ -15,8 +15,9 @@ one-stream checkpoint (``models/pipeline.py``), on the CPU.
 * The order of a batch sent in pieces (a fake upload that snapshots the
   rows it sends): every row goes up once, in order, already holding its
   final bytes (frames, replica slots, a stale row's zeros); the tails'
-  slots are copied after the last upload, and the buffer's event is
-  recorded once, after it.
+  slots are copied after the last upload, also when the launch raises,
+  and the buffer's event is recorded once, after it.  The single engine
+  makes one staging copy and one upload a batch at any piece size.
 * Checkpoints: an empty tail list is "no tail" to ``DiPsEngine`` and an
   error to a fleet slot; a short tail is padded with its oldest frame in
   both, which then run on alike.
@@ -205,33 +206,38 @@ def test_buffers_rotate_and_wait_for_their_upload():
 @pytest.fixture
 def sends(monkeypatch):
     """A row a piece; the log of every upload enqueued (a snapshot of the
-    rows it sends) and every staging call (its destinations)."""
+    rows it sends), every whole upload and every staging call (its
+    destinations)."""
     monkeypatch.setattr(staging, "PIECE_BYTES", 1)
     log: list = []
-    put, copy = BatchIO._put, Staging.copy
+    put, upload, copy = BatchIO._put, BatchIO.upload, Staging.copy
 
-    def fake_put(self, dst, buf, lo, i, j):
-        log.append(("put", buf, lo + i, lo + j, buf[lo + i:lo + j].copy()))
-        put(self, dst, buf, lo, i, j)
+    def fake_put(self, buf, i, j):
+        log.append(("put", buf, i, j, buf[i:j].copy()))
+        put(self, buf, i, j)
 
-    def logged_copy(self, pieces, count=False, uploads=1):
+    def logged_upload(self, buf, lo=0, hi=None):
+        log.append(("upload", buf))
+        return upload(self, buf, lo, hi)
+
+    def logged_copy(self, pieces, count=False):
         log.append(("copy", [d for d, _ in pieces]))
-        return copy(self, pieces, count, uploads)
+        return copy(self, pieces, count)
 
     monkeypatch.setattr(BatchIO, "_put", fake_put)
+    monkeypatch.setattr(BatchIO, "upload", logged_upload)
     monkeypatch.setattr(Staging, "copy", logged_copy)
     return log
 
 
-def check_sent(log: list, rows: int, lo: int = 0, want=None):
-    """One batch's log: rows ``[lo, lo + rows)`` sent once each, in order,
-    each already holding the bytes the buffer holds after the batch (and
+def check_sent(log: list, rows: int, want=None):
+    """One batch's log: rows ``[0, rows)`` sent once each, in order, each
+    already holding the bytes the buffer holds after the batch (and
     ``want[r]``, where given); copies into the buffer before the last
     upload, the tails' slots after it."""
     puts = [k for k, e in enumerate(log) if e[0] == "put"]
     buf = log[puts[0]][1]
-    assert [log[k][2:4] for k in puts] == [(r, r + 1)
-                                           for r in range(lo, lo + rows)]
+    assert [log[k][2:4] for k in puts] == [(r, r + 1) for r in range(rows)]
     for k in puts:
         _, b, r0, r1, snap = log[k]
         assert b is buf
@@ -244,21 +250,26 @@ def check_sent(log: list, rows: int, lo: int = 0, want=None):
     after = [e for e in log[puts[-1]:] if e[0] == "copy"]
     assert len(after) == 1 and after[0][1]  # the tails' slots
     assert not any(np.shares_memory(d, buf) for d in after[0][1])
+    assert not any(e[0] == "upload" for e in log)
 
 
 @pytest.mark.parametrize("layout", ["hwc", "planar"])
 @pytest.mark.parametrize("ring", [True, False])
-def test_engine_sends_each_piece_staged(sends, ring, layout):
-    """A full batch and a short one, a frame a piece."""
+def test_engine_goes_up_whole(sends, ring, layout):
+    """The single engine, a full batch and a short one at a row a piece:
+    one staging copy (the frames and the tail's slots), then one upload
+    of the frames' rows, as before pieces."""
     eng = DiPsEngine(DiPsProperties(), H, W, batch=B, device="cpu",
                      ring_carry=ring, input_layout=layout)
     for k, n in enumerate((B, 2)):
-        frames = clip(30 + k, n)
         del sends[:]
-        eng.process_batch(frames)
-        want = {eng.tail_rows + i: f for i, f in enumerate(frames)}
-        check_sent(sends, n, eng.tail_rows,
-                   want if layout == "hwc" else None)
+        eng.process_batch(clip(30 + k, n))
+        assert [e[0] for e in sends] == ["copy", "upload"]
+        buf = sends[1][1]
+        dsts = sends[0][1]
+        assert all(np.shares_memory(d, buf) for d in dsts[:n])
+        assert dsts[n:] and not any(np.shares_memory(d, buf)
+                                    for d in dsts[n:])
 
 
 @pytest.mark.parametrize("layout", ["hwc", "planar"])
@@ -280,7 +291,7 @@ def test_fleet_sends_each_piece_staged(sends, ring, layout):
         f.process_batch(feed)
         want = [np.stack([fr[min(i, len(fr) - 1)] for i in range(B)])
                 if fr and fr is not bad else zero for fr in feed]
-        check_sent(sends, s, 0, want if layout == "hwc" else None)
+        check_sent(sends, s, want if layout == "hwc" else None)
         buf = next(e[1] for e in sends if e[0] == "put")
         for si, fr in enumerate(feed):
             if not fr or fr is bad:
@@ -288,29 +299,71 @@ def test_fleet_sends_each_piece_staged(sends, ring, layout):
     assert sorted(f.failed) == [1]
 
 
-def test_send_records_the_event_once_after_the_last_upload(monkeypatch):
+@pytest.mark.parametrize("piece", [1, 1 << 62])
+def test_send_records_the_event_once_after_the_last_upload(monkeypatch,
+                                                           piece):
     """A buffer sent in pieces records its event once, after its last
     upload; sent whole, as ``upload`` does."""
     log: list = []
     io = BatchIO(torch.device("cpu"), H, W, 3, False, None, (B, H, W, 3), 2)
     io._events = [FakeEvent(log, k) for k in range(2)]
-    monkeypatch.setattr(BatchIO, "_put", lambda self, dst, buf, lo, i, j:
+    monkeypatch.setattr(BatchIO, "_put", lambda self, buf, i, j:
                         log.append(("put", i, j)))
+    monkeypatch.setattr(staging, "PIECE_BYTES", piece)
     frames = clip(50, B)
-    for piece in (1, 1 << 62):
-        monkeypatch.setattr(staging, "PIECE_BYTES", piece)
-        del log[:]
-
-        def stage():
-            buf = io.buffer()
-            return buf, [[(buf[i], f)] for i, f in enumerate(frames)], []
-
-        up = io.send(stage)
-        k = io._next - 1 if io._next else 1
-        puts = [("put", i, i + 1) for i in range(B)] if piece == 1 else [
-            ("put", 0, B)]
-        assert log == [("synchronize", k)] + puts + [("record", k)]
+    buf = io.buffer()
+    with io.send(buf, [[(buf[i], f)] for i, f in enumerate(frames)],
+                 []) as up:
+        puts = [("put", i, i + 1) for i in range(B)] if piece == 1 else []
+        assert log == [("synchronize", 0)] + puts + [("record", 0)]
         np.testing.assert_array_equal(up.numpy(), np.stack(frames))
+
+
+@pytest.mark.parametrize("piece", [1, 1 << 62])
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+@pytest.mark.parametrize("ring", [True, False])
+def test_fleet_tails_written_when_dispatch_raises(monkeypatch, ring, layout,
+                                                  piece):
+    """A launch that raises after the batch went up, whole or a stream a
+    piece: the tails the fleet now points at hold their frames (the
+    slots' copies are made on the way out), and a later batch, which
+    restages the upload buffer first, leaves the failed batch's tails as
+    they were written."""
+    monkeypatch.setattr(staging, "PIECE_BYTES", piece)
+    s = 3
+    f = MultiStreamEngine(DiPsProperties(), H, W, s, batch=B, device="cpu",
+                          ring_carry=ring, input_layout=layout)
+    f.process_batch([clip(60 + si, B) for si in range(s)])
+    launch = "_launch_ring" if ring else "_launch_tail"
+
+    def boom(*a, **k):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(f, launch, boom)
+    feed = [clip(70 + si, B) for si in range(s)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        f.process_batch(feed)
+    t = f.props.temporal_size
+
+    def check_tails(fed):
+        for si in range(s):
+            want = [native_planar(fr, f) if layout == "planar" else fr
+                    for fr in fed[si][-t:]]
+            np.testing.assert_array_equal(np.stack(f._tails[si]),
+                                          np.stack(want))
+
+    check_tails(feed)
+    monkeypatch.setattr(f, launch, getattr(MultiStreamEngine, launch)
+                        .__get__(f))
+    new = [clip(80 + si, 1) for si in range(s)]
+    f.process_batch(new)
+    check_tails([feed[si] + new[si] for si in range(s)])
+
+
+def native_planar(frame: np.ndarray, f) -> np.ndarray:
+    """One (H, W, 3) frame in the fleet's padded planar layout."""
+    from dips_tpu_torch import native
+    return native.planarize(frame, f.hp, f.wp)
 
 
 def test_engines_hand_out_their_buffers():
@@ -458,8 +511,7 @@ def test_card_whole_and_in_pieces_byte_equal(monkeypatch, kind):
                for feed in feeds]
         res.append(eng.heatmap() if kind == "engine" else eng.heatmaps())
         got[piece] = res
-        want = 1.0 if piece > 1 else (16 + 5 + 16) / 3 if kind == "engine" \
-            else 8.0
+        want = 1.0 if piece > 1 or kind == "engine" else 8.0
         assert eng.staging.pieces == want
         del eng
     for a, b in zip(got[1 << 62][:3], got[1][:3]):

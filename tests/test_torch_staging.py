@@ -18,17 +18,18 @@ of host threads above a size.
 * The upload pieces (``upload_pieces``): every row once, in order, each
   piece at least ``PIECE_BYTES`` and a batch under twice that whole, at
   1080p x 16, a 1080p 8 x 16 and 8 x 1 fleet, one frame, and small rows;
-  both engines byte-equal whole and in pieces (``PIECE_BYTES`` patched),
-  with short batches, quiet, dead and fresh streams, both protocols and
-  the hwc, hwc_bgr and planar layouts.
+  the fleet byte-equal whole and in pieces (``PIECE_BYTES`` patched), with
+  short batches, quiet, dead and fresh streams, both protocols and the
+  hwc, hwc_bgr and planar layouts; the single engine whole at any size.
 * The ``staging`` counts: only while ``timers`` is set; a pooled share of
-  1.0 for a 1080p x 16 batch and 0.0 for one 64 x 64 frame; the upload
-  pieces a batch, whole and in pieces, and the calls of a batch.
+  1.0 for a 1080p x 16 batch and 0.0 for one 64 x 64 frame; the copier
+  counts calls, the engine batches and their upload pieces.
 * Marked ``gpu`` (they skip without a card; no JAX here, so they run with
   ``--noconftest``): the 1080p x 16 engine and the 1080p 8 x 16 fleet
   byte-equal with the pool on and off, and ``stage_in`` faster with it;
-  both byte-equal whole and in pieces over a short batch and a quiet
-  stream; the fleet's pieces a batch above 1 at 8 x 16 and 1.0 at 8 x 1.
+  both byte-equal whole and with ``PIECE_BYTES`` at a row, over a short
+  batch and a quiet stream; the fleet's pieces a batch above 1 at 8 x 16
+  and 1.0 at 8 x 1.
 
 Sizes: H = 24, W = 37 (odd), B = 4, S = 3 but where said.
 """
@@ -162,7 +163,9 @@ def test_crossover_both_sides(monkeypatch):
         st = Staging()
         assert st.copy(list(zip(dst, src)), count=True) is pooled
         np.testing.assert_array_equal(dst, np.stack(src))
-        assert (st.batches, st.nbytes, st.pooled) == (1, nbytes, pooled)
+        # a copy call counted; batches are the engine's to count
+        assert (st.calls, st.nbytes, st.pooled) == (1, nbytes, pooled)
+        assert st.batches == 0
         assert st.threads == (staging.pool_threads() if pooled else 1)
 
 
@@ -388,8 +391,9 @@ def test_fleet_byte_equal_pool_on_and_off(pool, ring, layout):
 @pytest.mark.parametrize("props", sorted(PROPS))
 def test_engine_byte_equal_whole_and_in_pieces(pool, pieces, props, ring,
                                                layout):
-    """Short batches among full ones, a frame a piece against one piece:
-    the same maps, stats, heatmap and state."""
+    """The single engine goes up whole whatever ``PIECE_BYTES`` says:
+    short batches among full ones give the same maps, stats, heatmap and
+    state at a frame's bytes a piece as at one piece."""
     pieces(False)
     whole = run_engine(props, ring, layout, False, pool)
     pieces(True)
@@ -534,21 +538,21 @@ def test_counts_only_while_timed():
 @pytest.mark.parametrize("cut", [False, True])
 @pytest.mark.parametrize("kind", ["engine", "fleet"])
 def test_pieces_counted(pieces, kind, cut):
-    """The upload pieces a batch: 1.0 whole; a frame a piece (the single
-    engine's B = 4 and 2 frames) or a stream a piece (the fleet's S = 3);
-    each batch one counted batch, its calls a piece with frames and one
-    for the tails' slots."""
+    """The upload pieces a batch: 1.0 whole, and always for the single
+    engine; a stream a piece for the fleet's S = 3; each batch one
+    counted batch, its calls a piece with frames or a stale row's zeros
+    and one for the tails' slots."""
     pieces(cut)
     eng = engine() if kind == "engine" else fleet()
     eng.timers = StageTimers()
     if kind == "engine":
         eng.process_batch(clip(1, B))
         eng.process_batch(clip(2, 2))
-        want = ((B + 2) / 2, B + 2 + 2) if cut else (1.0, 2)
+        want = (1.0, 2)
     else:
         eng.process_batch([clip(1, B), clip(2, 2), clip(3, 1)])
         eng.process_batch([clip(4, B), [], clip(5, 3)])  # one stream quiet
-        want = (float(S), 3 + 1 + 2 + 1) if cut else (1.0, 2)
+        want = (float(S), 3 + 1 + 3 + 1) if cut else (1.0, 2)
     st = eng.staging
     assert st.batches == 2
     assert (st.pieces, st.calls) == want
