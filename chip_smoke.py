@@ -42,6 +42,11 @@ kernels from ``dips_tpu_torch/csrc`` and then drives three paths:
   held against the plain twins, ring and tail; the 1080p x 8 fleet with
   ``packed_wire``, and 1080p x 8 fleets with ``downscale=2`` in both
   variants, against single-stream engines;
+* the box mean of a downscaled engine (``[pool]``): ``cuda_fused.pool_prep``
+  (``csrc/pool_prep.cu``) against its plain twin byte for byte at 16 x 4K
+  frames in, k = 2, hwc and hwc_bgr; its launches in a
+  ``DiPsEngine(downscale=2)`` run of three 4K batches; the kernel and the
+  plain prep timed beside the bound;
 
 * the row-slab path (``parallel/grid2d.py``, ``rowsharded.py``): the
   ``dyn_rows`` / ``slab_bands`` forms of the three kernels against their
@@ -289,6 +294,8 @@ def record_instance(name):
     exact w3 median, or the variant the [options] runs use (approx w7,
     quirk w5); bands for the slab_bands forms."""
     base, _, form = name.partition(":")
+    if base == "pool_prep":  # a library of its own: not in phase_build's
+        return (base,)
     if base.startswith("absdiff"):
         return ("raw", int("ring" not in base), 3, 0)
     kernel = "median_ring" if "ring" in base else "median_tail"
@@ -1674,6 +1681,80 @@ def phase_options(card):
     launches = options_variant_engines(card)
     launches.update(options_fleets(card))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6d': the box mean of a downscaled engine (csrc/pool_prep.cu)
+# ---------------------------------------------------------------------------
+
+def pool_bound_ms(h, w, k):
+    """Least ms per frame of a pool launch, a frame analysed at ``h`` x
+    ``w``: each input byte read once (3k² an output pixel) and each output
+    byte written once (3), over the memory rate."""
+    return h * w * 3 * (k * k + 1) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_pool(card):
+    """``[pool]``: ``cuda_fused.pool_prep`` against ``pool_prep_plain``
+    byte for byte (padding included) at the main path's shapes, 16 x 4K
+    frames in, k = 2, hwc and hwc_bgr; the launches of a
+    ``DiPsEngine(downscale=2)`` main-path run, the counts reset just
+    before; the kernel and the plain prep timed (CUDA events, ms a
+    frame) beside the bound.  Returns the record's errs, launches and
+    times."""
+    import torch
+    from dips_tpu_torch import DiPsEngine, DiPsProperties
+    from dips_tpu_torch.ops import cuda_fused
+    from dips_tpu_torch.ops.reference import pad_geometry
+    name, k = "pool_prep", 2
+    dev = torch.device("cuda")
+    hp, wp = pad_geometry(H1080, W1080)
+    frames = torch.from_numpy(moving_square_frames(B, H4K, W4K, 61)).to(dev)
+    got = torch.full((B, 3, hp, wp), 0x5A, dtype=torch.uint8, device=dev)
+    exp = torch.full_like(got, 0x5A)
+    for swap in (False, True):
+        cuda_fused.pool_prep(frames, got, k, swap)
+        cuda_fused.pool_prep_plain(frames, exp, k, swap)
+        torch.cuda.synchronize()
+        if not torch.equal(got, exp):
+            bad = int((got != exp).sum())
+            raise AssertionError(f"[pool] {'hwc_bgr' if swap else 'hwc'}: "
+                                 f"{bad} bytes differ from the plain prep")
+    log(f"[pool] pool_prep 4K -> 1080p k={k} B={B}, hwc and hwc_bgr: "
+        f"byte-equal to the plain prep, padding included")
+
+    batches = [moving_square_frames(B, H4K, W4K, 62, start=i * B)
+               for i in range(3)]
+    eng = DiPsEngine(DiPsProperties(), H4K, W4K, batch=B, device="cuda",
+                     downscale=k)
+    cuda_fused.reset_launch_counts()
+    for fb in batches:
+        eng.process_batch(list(fb))
+    torch.cuda.synchronize()
+    counts = cuda_fused.launch_counts()
+    launches = {name: counts[name]}
+    log(f"[pool] launches during the DiPsEngine(downscale=2) run: {counts}")
+    if counts[name] != len(batches) or counts["batch_step_ring"] != len(
+            batches):
+        raise AssertionError(f"[pool] {counts[name]} pool and "
+                             f"{counts['batch_step_ring']} median launches "
+                             f"over {len(batches)} batches")
+    del eng
+
+    ms = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = cuda_fused.pool_prep if which == "kernel" else \
+            cuda_fused.pool_prep_plain
+        ms[which].append(_time(lambda: fn(frames, got, k), 20) / B)
+    res = {w: float(np.mean(v)) for w, v in ms.items()}
+    res.update(bound_ms=pool_bound_ms(H1080, W1080, k), bound_by="bytes")
+    log(f"[time] pool_prep 4K -> 1080p k={k} B={B}: kernel "
+        f"{res['kernel']:.5f} ms/frame ({ms['kernel']}), plain "
+        f"{res['plain']:.5f} ms/frame ({ms['plain']}), bound "
+        f"{res['bound_ms']:.5f} ms/frame by bytes "
+        f"({100 * res['bound_ms'] / res['kernel']:.1f}%); {card}")
+    return {"errs": {name: 0.0}, "launches": launches,
+            "times": {name: res}}
 
 
 # ---------------------------------------------------------------------------
@@ -4911,6 +4992,9 @@ KERNELS = {
                              "dips_tpu/ops/pallas_fused.py:1071"),
     "batch_step_stacked": ("dips_tpu_torch/csrc/median_tail.cu",
                            "dips_tpu/ops/pallas_fused.py:362"),
+    # the k > 1 branch of the layout prep (plain jnp in the JAX package)
+    "pool_prep": ("dips_tpu_torch/csrc/pool_prep.cu",
+                  "dips_tpu/ops/reference.py:113"),
 }
 # the spatial-filter variants: instances of the same two kernels, replacing
 # the approx / quirk branch of _filtered_plane
@@ -4952,6 +5036,9 @@ def main():
     launches.update(timed(phase_fleet_tail, card))
     errs.update(timed(phase_kernels_variants))
     launches.update(timed(phase_options, card))
+    pool = timed(phase_pool, card)
+    errs.update(pool["errs"])
+    launches.update(pool["launches"])
     errs.update(timed(phase_kernels_slabs))
     launches.update(timed(phase_grid, card))
     timed(phase_analysis, card)
@@ -4959,6 +5046,7 @@ def main():
     ingest = timed(phase_ingest, card)
     serve = timed(phase_serve, card)
     times = timed(phase_times, card)
+    times.update(pool["times"])
     validate = timed(phase_validate, card)
     multihost = timed(phase_multihost, card)
     examples = timed(phase_examples, card)

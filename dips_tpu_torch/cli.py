@@ -606,6 +606,8 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
             print(staged if gbps is None else f"{staged}, {gbps:.2f} GB/s")
         if job.engine.denoise_radius is not None:
             print(job.engine.denoise_counts)
+        if job.engine.downscale > 1:
+            print(job.engine.pool_counts)
     if auto_refresh is not None and job.baseline_refreshes is not None:
         if job.baseline_refreshes:
             print("auto-refresh fired at frame(s): "

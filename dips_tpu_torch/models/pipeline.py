@@ -177,6 +177,9 @@ class EngineBase:
             input_layout, self.height, self.width, self.hp, self.wp,
             downscale=self.downscale)
         self._raw_mode = props.output in _RAW_MODES
+        self.pool_counts = profiling.StepCounts(profiling.POOL_STAGE)
+        if self.downscale > 1 and self.device.type == "cuda":
+            cuda_fused.pool_prep_lib()  # built now, not in a counted batch
 
     @property
     def timers(self) -> Optional[profiling.StageTimers]:
@@ -196,6 +199,22 @@ class EngineBase:
     def downloads(self):
         """The batches' downloads and counts (``utils/downloads.py``)."""
         return self._io.downloads
+
+    def _pool(self, frames: torch.Tensor, out: torch.Tensor) -> None:
+        """A downscaled engine's layout prep in stage ``pool``: the k x k
+        box mean of the uploaded hwc ``frames`` into the planar rows
+        ``out`` (the kernel ``cuda_fused.pool_prep`` on a card, the
+        engine's plain prep on the CPU), counted in ``pool_counts`` while
+        counting."""
+        n = int(np.prod(frames.shape[:-3]))
+        counting = (self.pool_counts.step(self.device, n, 3 * n)
+                    if self._io.counting else contextlib.nullcontext())
+        with self._io.stage(profiling.POOL_STAGE), counting:
+            if frames.is_cuda:
+                cuda_fused.pool_prep(frames, out, self.downscale,
+                                     self._swap_rb)
+            else:
+                self._prep(frames, out=out)
 
     @property
     def _tail_len(self) -> int:
@@ -281,13 +300,18 @@ class DiPsEngine(EngineBase):
     newest frames into its slots, in one staging copy), ``tail_keep`` (the
     tail's copies out of a buffer the caller filled), ``h2d``, ``dispatch``
     (layout prep, launch, crop and interleave or packing), ``denoise``
-    (with ``denoise_radius``), ``wait`` and ``d2h``; each is a
+    (with ``denoise_radius``), ``wait`` and ``d2h``, with ``pool`` (under
+    ``downscale``: the box mean of the uploaded frames into the planar
+    rows, ``cuda_fused.pool_prep``) between ``h2d`` and ``dispatch``,
+    which then holds no layout prep; each is a
     ``dips.engine.<stage>`` span while a ``torch.profiler`` records.  The
     host tail lives in T slots the engine reuses (``TailSlots``).
 
     ``denoise_counts`` (a :class:`~dips_tpu_torch.utils.profiling.StepCounts`)
     counts the denoise step while ``timers`` is set: batches, frames,
-    planes and its device time, read at :meth:`collect` after the wait.
+    planes and its device time, read at :meth:`collect` after the wait;
+    ``pool_counts`` counts the ``pool`` step so (batches, frames, their
+    planes and device time).
     """
 
     def __init__(self, props: DiPsProperties, height: int, width: int,
@@ -478,10 +502,13 @@ class DiPsEngine(EngineBase):
         tr = self._tail_len
         lo = self.tail_rows
         src = self._io.upload(buf, lo, lo + n)
+        pooled = self.downscale > 1
+        if pooled:
+            self._pool(src, raw[tr:tr + n])
         with self._io.stage("dispatch"):
             if self._prep is None:
                 raw[tr:tr + n] = src
-            else:
+            elif not pooled:
                 self._prep(src, out=raw[tr:tr + n])
             if n < b:  # padding replicas of the last frame
                 raw[tr + n:] = raw[tr + n - 1]
@@ -558,6 +585,7 @@ class DiPsEngine(EngineBase):
             raise ValueError("packed collect requires packed_wire=True")
         res = self._io.collect(out, stats, n, packed)
         self.denoise_counts.settle()
+        self.pool_counts.settle()
         return res
 
     def process_frames(self, frames: Sequence[np.ndarray],

@@ -18,6 +18,13 @@ changed source builds anew, an unchanged one loads the cached library.
 The build holds an exclusive lock on its directory, so processes sharing a
 cache directory never write the same files at once.
 
+The box mean of a downscaled engine's layout prep (``pool_prep.cu``,
+:data:`POOL_UNIT`) is a unit outside that library: a library of that
+unit alone (one more nvcc) is built for the first process that asks for
+it (a downscaled engine on a card, when it is made), and the key of the
+default library does not read its source, so a process that never
+downscales builds and loads what it did before.
+
 The kernels' block geometry is a build parameter (:class:`Geometry`: the
 median kernels' :class:`MedianTile`, the raw kernel's :class:`RawBlock`),
 passed as ``-D`` flags; the default geometry adds none and builds the
@@ -73,6 +80,9 @@ WINDOWS = (1, 3, 5, 7)
 UNITS = (("raw_ring.cu", None),) + tuple(
     (src, w) for src in SOURCES[1:] for w in WINDOWS)
 RAW_UNIT = UNITS[0]
+#: the box mean of a downscaled engine's layout prep: a unit of its own,
+#: outside the default library, built only for a process that asks for it
+POOL_UNIT = ("pool_prep.cu", None)
 LIB_NAME = "libdips_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -280,6 +290,14 @@ MEDIAN_SIGNATURES = {
 }
 
 
+#: the pool unit's entry point: in, out, S, F, H, W, k, the output's
+#: stream, frame, plane and row strides, swap, 1/k^2, stream
+POOL_SIGNATURES = {
+    "dips_pool_prep": [_P, _P] + [_I] * 5 + [ctypes.c_longlong] * 4
+    + [_I, _F, _P],
+}
+
+
 def median_unit(tail: bool, window: int) -> Tuple[str, int]:
     """The compile unit that holds one median kernel's window."""
     return ("median_tail.cu" if tail else "median_ring.cu", window)
@@ -298,6 +316,8 @@ def unit_signatures(unit: Tuple[str, Optional[int]]) -> dict:
     src, w = unit
     if src == RAW_UNIT[0]:
         return dict(RAW_SIGNATURES)
+    if src == POOL_UNIT[0]:
+        return dict(POOL_SIGNATURES)
     tail = src == "median_tail.cu"
     return {median_symbol(tail, w): MEDIAN_SIGNATURES["tail" if tail
                                                       else "ring"],
@@ -481,13 +501,15 @@ def _units(units) -> tuple:
 
 def build_key(header: str, geometry: Optional[Geometry] = None,
               units=None) -> str:
-    """Hash of what a library is built from: the sources, the network
-    header, the compiler flags (the geometry's ``-D`` flags among them),
-    the compile units and :func:`toolchain`."""
+    """Hash of what a library is built from: the sources (the headers,
+    the default library's and the units'), the network header, the
+    compiler flags (the geometry's ``-D`` flags among them), the compile
+    units and :func:`toolchain`."""
     geometry = geometry or DEFAULT
     h = hashlib.sha256()
-    for name in sorted(p.name for p in CSRC.iterdir()
-                       if p.suffix in (".cu", ".cuh")):
+    names = {p.name for p in CSRC.iterdir() if p.suffix == ".cuh"}
+    names |= set(SOURCES) | {src for src, _ in _units(units)}
+    for name in sorted(names):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(header.encode())

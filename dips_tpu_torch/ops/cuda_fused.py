@@ -57,6 +57,12 @@ median kernels leave per-(frame, stream) partials, one per warp of each
 tile (``dips_median_parts`` of the library says how many), and the final
 reduction (the counterpart of ``_reduce_stats``) runs here in plain torch.
 
+The layout prep of a downscaled engine: :func:`pool_prep`, kernel
+``csrc/pool_prep.cu`` (the k x k box mean of hwc frames, written into the
+planar rows the steps read), in a library of its own built at the first
+:func:`pool_prep_lib` of a process; its launches are ``pool_prep`` in
+:func:`launch_counts`.
+
 Block geometry: each launch asks :func:`median_tile` / :func:`raw_block`
 which geometry to build and launch (``ops/_build.py``): the entry that
 ``ops/tuning.py``'s store holds for this card and this launch (kernel,
@@ -1203,6 +1209,89 @@ def batch_step(props: DiPsProperties, h: int, w: int, raw: torch.Tensor,
 
 batch_step.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# The box mean of a downscaled engine's layout prep (csrc/pool_prep.cu)
+# ---------------------------------------------------------------------------
+
+def pool_prep_plain(frames: torch.Tensor, out: torch.Tensor, k: int,
+                    swap_rb: bool = False) -> torch.Tensor:
+    """The plain twin of :func:`pool_prep`: the layout prep of
+    ``reference.make_layout_prep(downscale=k)``, a chain of plain torch
+    ops (int32 sum, float32 product, round, uint8, permute-copy)."""
+    h, w = frames.shape[-3] // k, frames.shape[-2] // k
+    _, prep = ref.make_layout_prep("hwc_bgr" if swap_rb else "hwc", h, w,
+                                   out.shape[-2], out.shape[-1],
+                                   downscale=k)
+    return prep(frames, out=out)
+
+
+def pool_prep_lib():
+    """The library of ``csrc/pool_prep.cu``, built (or loaded) at the
+    first call of a process: a downscaled engine on a card calls it when
+    it is made, so that no batch waits for the build."""
+    return _build.lib(units=(_build.POOL_UNIT,))
+
+
+def pool_prep(frames: torch.Tensor, out: torch.Tensor, k: int,
+              swap_rb: bool = False) -> torch.Tensor:
+    """The k x k box mean of uint8 hwc frames (..., H*k, W*k, 3), rounded
+    half to even (bit-equal to ``reference.pool_frame_host``), written
+    into the true H x W region of the padded planar rows ``out``
+    (..., 3, Hp, Wp), R and B swapped with ``swap_rb`` (the hwc_bgr
+    layout); the padding is not written.  The leading dims are (n,) or a
+    fleet's (S, F); ``frames`` is contiguous, ``out`` may be a strided
+    view whose columns are contiguous (the fleet's input seen as
+    (S, F, 3, Hp, Wp)).  CUDA tensors launch ``csrc/pool_prep.cu``
+    (:func:`pool_prep_lib`); CPU tensors run :func:`pool_prep_plain`.
+    Returns ``out``."""
+    name = "pool_prep"
+    k = int(k)
+    lead = tuple(frames.shape[:-3])
+    if k < 2:
+        raise ValueError(f"{name}: k={k}; k = 1 is the plain layout prep")
+    if (frames.dim() not in (4, 5) or frames.shape[-1] != 3
+            or tuple(out.shape[:-3]) != lead or out.shape[-3] != 3):
+        raise ValueError(f"{name}: frames {tuple(frames.shape)} and out "
+                         f"{tuple(out.shape)} are not (..., H*k, W*k, 3) "
+                         f"and (..., 3, Hp, Wp) with the same leading dims")
+    hk, wk = frames.shape[-3], frames.shape[-2]
+    if hk % k or wk % k:
+        raise ValueError(f"{name}: k={k} does not divide {hk}x{wk}")
+    h, w = hk // k, wk // k
+    if h > out.shape[-2] or w > out.shape[-1]:
+        raise ValueError(f"{name}: {h}x{w} does not fit the planar rows "
+                         f"{tuple(out.shape[-2:])}")
+    if frames.dtype != torch.uint8 or out.dtype != torch.uint8:
+        raise TypeError(f"{name}: frames and out must be uint8")
+    if not _route(name, frames):
+        return pool_prep_plain(frames, out, k, swap_rb)
+    dev = frames.device
+    if out.device != dev:
+        raise ValueError(f"{name}: out is on {out.device}, frames on {dev}")
+    if not frames.is_contiguous():
+        raise ValueError(f"{name}: frames must be contiguous")
+    if out.stride(-1) != 1:
+        raise ValueError(f"{name}: out's columns must be contiguous")
+    st = out.stride()
+    s, f = (1, lead[0]) if len(lead) == 1 else lead
+    o_stream = st[0] if len(lead) == 2 else 0
+    if s * f == 0:
+        return out
+    with torch.cuda.device(dev):
+        lib = pool_prep_lib()
+        rc = lib.dips_pool_prep(
+            _ptr(frames), _ptr(out), s, f, h, w, k, o_stream, st[-4],
+            st[-3], st[-2], int(bool(swap_rb)), _f32(1.0 / (k * k)),
+            _stream_ptr(dev))
+        if rc:
+            _build.check(rc, name, lib)
+    pool_prep.launches += 1
+    return out
+
+
+pool_prep.launches = 0
+
 _KERNELS = (absdiff_step_ring, batch_step_ring, absdiff_step_ring_stacked,
             batch_step_ring_stacked, absdiff_step, batch_step,
             absdiff_step_stacked, batch_step_stacked)
@@ -1217,7 +1306,8 @@ _SLAB_KERNELS = {absdiff_step_ring_stacked: SLAB_FORMS[:1],
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0, per geometry, form and
-    spatial mode too."""
+    spatial mode too, and :func:`pool_prep`'s."""
+    pool_prep.launches = 0
     for fn in _KERNELS:
         fn.launches = 0
         fn.geometry_launches = {}
@@ -1232,8 +1322,9 @@ def launch_counts() -> dict:
     form of the stacked wrappers (``name:dyn_rows``: with ``row_bounds``
     and no bands; ``name:slab_bands``: with bands) and, for the median
     wrappers, per non-exact spatial mode (``name:approx_median``,
-    ``name:quirk_compat``)."""
+    ``name:quirk_compat``); and ``pool_prep``, the box mean's."""
     counts = {fn.__name__: fn.launches for fn in _KERNELS}
+    counts[pool_prep.__name__] = pool_prep.launches
     for fn, forms in _SLAB_KERNELS.items():
         for form in forms:
             counts[f"{fn.__name__}:{form}"] = fn.form_launches[form]

@@ -199,7 +199,9 @@ class MultiStreamEngine(EngineBase):
     stream, which planarizes its frames; then one with the zeroing of a
     quiet stream's stale rows and the staging copy), ``h2d``,
     ``dispatch``, ``wait`` and ``d2h`` (maps and stats; the global mean
-    follows).  A batch in pieces has a ``stage_in`` and an ``h2d`` a
+    follows), and ``pool`` (under ``downscale``) between ``h2d`` and
+    ``dispatch``, counted in ``pool_counts`` as the single-stream engine
+    counts it.  A batch in pieces has a ``stage_in`` and an ``h2d`` a
     piece, and a last ``stage_in``, the tails' slots, after ``dispatch``.
     Each stream's host tail lives in T slots of its own that the engine
     reuses.
@@ -646,26 +648,30 @@ class MultiStreamEngine(EngineBase):
             rows[row] = [(buf[row], zero)]
         self._stage_written = set(written)
 
-        with self._io.send(buf, rows, tail_copies) as staged, \
-                self._io.stage("dispatch"):
+        with self._io.send(buf, rows, tail_copies) as staged:
             raw = self._planar
             # the input (F, 3, S*Hp, Wp) seen as (S, F, 3, Hp, Wp): each
             # stream's rows are written in place, no transpose per batch
-            if planar:
-                raw.view(tr + b, 3, s, self.hp, self.wp).permute(
-                    2, 0, 1, 3, 4).copy_(staged)
-                fresh = []  # their tail rows came up from the host
-            else:
-                self._prep(staged, out=raw[tr:].view(
-                    b, 3, s, self.hp, self.wp).permute(2, 0, 1, 3, 4))
-            if self.ring_carry:
-                out, stats = self._launch_ring(raw, flags, valid, offsets,
-                                               seeds)
-            else:
-                out, stats = self._launch_tail(raw, flags, valid, written,
-                                               fresh, resumed)
-            out = self._io.maps(out, n)
+            streams_in = raw[tr:].view(b, 3, s, self.hp, self.wp).permute(
+                2, 0, 1, 3, 4)
+            if self.downscale > 1:
+                self._pool(staged, streams_in)
+            with self._io.stage("dispatch"):
+                if planar:
+                    raw.view(tr + b, 3, s, self.hp, self.wp).permute(
+                        2, 0, 1, 3, 4).copy_(staged)
+                    fresh = []  # their tail rows came up from the host
+                elif self.downscale == 1:
+                    self._prep(staged, out=streams_in)
+                if self.ring_carry:
+                    out, stats = self._launch_ring(raw, flags, valid,
+                                                   offsets, seeds)
+                else:
+                    out, stats = self._launch_tail(raw, flags, valid,
+                                                   written, fresh, resumed)
+                out = self._io.maps(out, n)
         maps, stats_np = self._io.collect(out, stats[:, :n], n)
+        self.pool_counts.settle()
         # mean |diff| over valid slots only: padding replicas and dead
         # streams stay out of the aggregate
         vw = torch.from_numpy(valid[:, :n]).to(torch.float32)

@@ -1,12 +1,14 @@
-"""The plain reference of the post-analysis: the FFT denoise of
-``image_denoise.py`` and the real DFT of a series, in plain PyTorch on
-the CPU.
+"""The plain reference of the post-analysis (the FFT denoise of
+``image_denoise.py`` and the real DFT of a series) and of the on-card
+decimation (the k x k box mean of ``--downscale K``), in plain PyTorch
+on the CPU.
 
 Written from the recipe, not from the port: it imports nothing of
 ``dips_tpu_torch`` (and no JAX), so tests hold the port's
-``ops/analysis.py`` and ``DiPsEngine(denoise_radius=)`` against it.  The
-maps it denoises come from the repository's oracle of the pipeline
-(``ops/oracle.py``).
+``ops/analysis.py``, ``DiPsEngine(denoise_radius=)`` and the engines'
+``downscale`` against it.  The maps it denoises come from the
+repository's oracle of the pipeline (``ops/oracle.py``), as do the maps of
+the frames it pools.
 
 * :func:`denoise`: each uint8 map plane in float32: ``fft2``,
   ``fftshift``, keep the centred 2r x 2r square (shifted rows and
@@ -15,6 +17,9 @@ maps it denoises come from the repository's oracle of the pipeline
   ``test_scripts/image_denoise.py:13-30``; r = 75 at ``:22``).
 * :func:`rdft`: the real DFT of a series (the CLI's ``--dft-json`` of the
   per-frame mean-|diff| statistic), magnitude and phase, in float64.
+* :func:`pool_frames`: the k x k box mean of uint8 frames, as
+  ``docs/OPERATIONS.md`` states ``--downscale K``: each channel's exact
+  integer sum over the block, times float32(1/k^2), rounded half to even.
 
 ``precision="bf16"`` is the control: the forward spectrum is rounded to
 bfloat16 (real and imaginary parts, ties to even), the next precision
@@ -98,3 +103,20 @@ def rdft(series, precision: str = "full") -> Tuple[np.ndarray, np.ndarray]:
     if precision == "bf16":
         spec = bf16_complex(spec.to(torch.complex64)).to(torch.complex128)
     return spec.abs().numpy(), spec.angle().numpy()
+
+
+def pool_frames(frames, k: int) -> np.ndarray:
+    """uint8 frames (..., H*k, W*k, C) -> (..., H, W, C): each k x k
+    block's exact integer sum a channel (int32), times float32(1/k^2),
+    rounded half to even, in float32 on the CPU."""
+    _float32_exact()
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    if x.dtype != torch.uint8:
+        raise TypeError(f"frames must be uint8, got {x.dtype}")
+    *lead, hk, wk, c = x.shape
+    if k < 1 or hk % k or wk % k:
+        raise ValueError(f"k={k} does not divide {hk}x{wk}")
+    blocks = x.to(torch.int32).reshape(*lead, hk // k, k, wk // k, k, c)
+    sums = blocks.sum(dim=(-4, -2), dtype=torch.int32)
+    inv = torch.tensor(1.0 / (k * k), dtype=torch.float32)
+    return torch.round(sums.to(torch.float32) * inv).to(torch.uint8).numpy()

@@ -10,8 +10,10 @@ Counterpart of ``dips_tpu/utils/profiling.py``:
   into a :class:`StageTimers` and, while a ``torch.profiler`` records,
   opens a ``dips.engine.<stage>`` span on the profile's host timeline,
   the clock of the kernels and copies it records.  :data:`POST_STAGE` is
-  the optional seventh stage, the engine's post-analysis.
-* :class:`StepCounts`, the counts of that post-analysis step: batches,
+  the optional seventh stage, the engine's post-analysis;
+  :data:`POOL_STAGE` the optional stage of a downscaled engine's layout
+  prep.
+* :class:`StepCounts`, the counts of such an optional step: batches,
   frames, planes and its device time between two CUDA events.
 * :func:`trace`, a ``torch.profiler`` capture (CPU activity, and CUDA
   activity when a card is present) written as a Chrome trace, in place of
@@ -39,6 +41,10 @@ ENGINE_STAGES = ("stage_in", "tail_keep", "h2d", "dispatch", "wait", "d2h")
 #: maps on the device, between ``dispatch`` and ``wait``), only on an
 #: engine given a ``denoise_radius``
 POST_STAGE = "denoise"
+#: the stage of a downscaled engine's layout prep (the k x k box mean of
+#: the uploaded frames into the planar rows, between ``h2d`` and
+#: ``dispatch``), only on an engine given ``downscale`` > 1
+POOL_STAGE = "pool"
 #: the prefix of the engines' profiler spans
 SPAN_PREFIX = "dips.engine."
 #: the span: a function-scope record, which holds no device-side mark (a
@@ -102,14 +108,15 @@ class StageTimers:
 
 
 class StepCounts:
-    """Counts of one optional engine step, kept while the engine's stage
-    timers are on: ``batches``, ``frames``, ``planes`` transformed and
+    """Counts of one optional engine step (stage ``name``), kept while the
+    engine's stage timers are on: ``batches``, ``frames``, ``planes`` and
     ``device_ms``, the device time between two CUDA events recorded
     around the step on its stream (on a card).  The events are read by
     :meth:`settle` once the stream has been synchronised: the engine calls
     it after the wait its download makes, so counting adds no sync."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str = POST_STAGE) -> None:
+        self.name = name
         self.batches = 0
         self.frames = 0
         self.planes = 0
@@ -148,7 +155,7 @@ class StepCounts:
     def __str__(self) -> str:
         per = (f", {self.device_ms / self.batches:.3f} ms a batch"
                if self.batches and self.device_ms else "")
-        return (f"{POST_STAGE}: {self.batches} batches, {self.frames} "
+        return (f"{self.name}: {self.batches} batches, {self.frames} "
                 f"frames, {self.planes} planes, device {self.device_ms:.3f}"
                 f" ms{per}")
 

@@ -2,6 +2,7 @@
 """Where the time goes in the port's engines on one card, both protocols.
 
     python3 profile_engines.py [--batches 3] [--out profile.json]
+        [--threshold | --ring-paths | --downscale K]
 
 Runs on a machine with an NVIDIA card.  For the single-stream engine
 (1080p, B = 16) and the 8-stream fleet (1080p x 8, B = 16), COLORIZE w3/T4
@@ -40,10 +41,18 @@ and writes them all to ``--out``:
   calls whose host copy the thread pool made), ``threads``, ``gbps``,
   the bytes staged over the time in ``stage_in`` and ``tail_keep``, and
   ``pieces``, the upload pieces a batch (1.0: every batch went up whole;
-  None on a package without the record or the count).
+  None on a package without the record or the count);
+* ``denoise`` / ``pool``: the engine's counters of its optional steps
+  over the row while its timers are on (``denoise_counts``,
+  ``pool_counts``: batches, frames, planes, device ms), None on an
+  engine without them.
 
 Each run also prints the card's name and power limit.  Without a card it
 exits non-zero.
+
+``--downscale K`` instead profiles the single-stream engine fed
+(1080K, 1920K) frames with ``downscale=K`` (COLORIZE w3/T4, ring-carry):
+a 4K camera analysed at 1080p at K = 2, its ``pool`` stage and counters.
 
 ``--threshold`` instead profiles the THRESHOLD pipeline, ring-carry, with
 and without ``packed_wire`` (the masks bit-packed on the card before the
@@ -270,6 +279,9 @@ def profile_engine(eng, feeds, n_batches: int, **labels) -> dict:
         "pooled_share": staged.pooled_share, "threads": staged.threads,
         "gbps": staged.gbps(eng.timers), "batches": staged.batches,
         "pieces": getattr(staged, "pieces", None)}
+    for step in ("denoise", "pool"):
+        counts = getattr(eng, f"{step}_counts", None)
+        row[step] = None if counts is None else counts.as_dict()
     row.update(labels)
     print(json.dumps(row), flush=True)
     return row
@@ -299,12 +311,26 @@ def profile_threshold(card, one, fleet_feeds, n_batches) -> list:
     return rows
 
 
+def profile_downscale(card, k: int, n_batches: int) -> dict:
+    """The single-stream engine fed (H*k, W*k) frames, ``downscale=k``."""
+    from dips_tpu_torch import DiPsEngine, DiPsProperties
+    feeds = [list(frames_of(1, B, H * k, W * k)),
+             list(frames_of(2, B, H * k, W * k))]
+    eng = DiPsEngine(DiPsProperties(), H * k, W * k, batch=B,
+                     device="cuda", downscale=k)
+    return profile_engine(
+        eng, feeds, n_batches, engine=f"DiPsEngine {H * k}x{W * k} "
+        f"downscale={k} B=16", pipeline="COLORIZE w3/T4", protocol="ring",
+        card=card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--ring-paths", action="store_true")
     ap.add_argument("--threshold", action="store_true")
+    ap.add_argument("--downscale", type=int, default=1)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -324,9 +350,11 @@ def main():
     rows = []
     if args.threshold:
         rows = profile_threshold(card, one, fleet_feeds, args.batches)
+    if args.downscale > 1:
+        rows = [profile_downscale(card, args.downscale, args.batches)]
     # (label, properties, protocols): the stats-only rows download no
     # maps, the control of every change to the maps' download
-    pipelines = [] if args.threshold else [
+    pipelines = [] if args.threshold or args.downscale > 1 else [
         ("COLORIZE w3/T4", DiPsProperties(), (True, False)),
         ("ABSDIFF", DiPsProperties(output=OutputMode.ABSDIFF),
          (True, False)),
