@@ -221,6 +221,16 @@ class _RingChain:
         self._k = 0
         self.last_pts = None
 
+    @property
+    def pops(self) -> int:
+        """Frames popped from the rings so far."""
+        return sum(r.pops for r in self.rings)
+
+    @property
+    def pooled_pops(self) -> int:
+        """Of those, the frames the copy pool popped."""
+        return sum(r.pooled_pops for r in self.rings)
+
     def pop(self, out: np.ndarray, timeout_ms: int) -> int:
         """0 with the frame in ``out`` (its timestamp in ``last_pts``), -1
         when every chunk is done, -2 on a timeout."""
@@ -299,7 +309,9 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
     appended to ``job.frame_pts`` before it is yielded.  ``input_rgb`` is
     the decoded frame when ``job.yield_inputs`` resolves true (explicitly,
     or because a ``frame_callback`` is set), else None.  Frames are popped
-    straight into the engine's batch buffer; with ``pipeline_depth`` 2 a
+    straight into the engine's batch buffer, a batch's pops timed as stage
+    ``ring_pop`` while the engine's timers are set (and counted in its
+    ``staging``: ``pops``, ``pooled_pops``); with ``pipeline_depth`` 2 a
     batch is collected only after the next one was dispatched."""
     if not job.video_path:
         raise VideoPathError("no video path set (DiPsJob.with_video_path)")
@@ -390,23 +402,33 @@ def stream_dips(job: DiPsJob) -> Iterator[Tuple[int, Optional[np.ndarray],
             buf = engine.new_batch_buffer()
             pts_batch = []
             n = 0
-            while n < job.batch:
-                rc = source.pop(buf[tr + n], timeout_ms=wait_ms)
-                if rc == -1:
-                    eos = True
-                    break
-                if rc == -2:
-                    if n:
-                        break  # a slow decoder: run what we have
-                    if patient:  # a sparse live source: silence is normal
-                        if errbox:
-                            break
-                        continue
-                    raise DecodeError(
-                        f"decode stalled (no frame for {wait_ms / 1e3:g} "
-                        "s; decode_stall_s=None waits forever)")
-                pts_batch.append(source.last_pts)
-                n += 1
+            # the engine's timers as they are now: a caller may swap them
+            pop_timers = engine.timers
+            pops, pooled = source.pops, source.pooled_pops
+            with (pop_timers.stage("ring_pop") if pop_timers
+                  else contextlib.nullcontext()):
+                while n < job.batch:
+                    rc = source.pop(buf[tr + n], timeout_ms=wait_ms)
+                    if rc == -1:
+                        eos = True
+                        break
+                    if rc == -2:
+                        if n:
+                            break  # a slow decoder: run what we have
+                        # a sparse live source: silence is normal
+                        if patient:
+                            if errbox:
+                                break
+                            continue
+                        raise DecodeError(
+                            f"decode stalled (no frame for "
+                            f"{wait_ms / 1e3:g} s; decode_stall_s=None "
+                            "waits forever)")
+                    pts_batch.append(source.last_pts)
+                    n += 1
+            if pop_timers:
+                engine.staging.pops += source.pops - pops
+                engine.staging.pooled_pops += source.pooled_pops - pooled
             if errbox:
                 raise DecodeError(str(errbox[0])) from errbox[0]
             if not n:

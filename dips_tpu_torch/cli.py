@@ -604,6 +604,11 @@ def _run_file(args, props: DiPsProperties, auto_refresh):
         if staged.batches:
             gbps = staged.gbps(job.timers)
             print(staged if gbps is None else f"{staged}, {gbps:.2f} GB/s")
+        if staged.pops:
+            n = job.timers.counts["ring_pop"]
+            print(f"ring: {staged.pops} pops, {staged.pooled_pops} pooled, "
+                  f"ring_pop {job.timers.totals['ring_pop'] / n * 1e3:.3f}"
+                  f" ms a batch")
         if job.engine.denoise_radius is not None:
             print(job.engine.denoise_counts)
         if job.engine.downscale > 1:

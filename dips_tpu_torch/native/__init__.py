@@ -5,7 +5,8 @@ use if g++ is available) and exposes:
 
 * :func:`planarize` / :func:`interleave` — fused single-pass layout
   transforms for the decode/encode hot path;
-* :class:`FrameRing` — bounded SPSC frame ring with preallocated slots;
+* :class:`FrameRing` — bounded SPSC frame ring with preallocated slots,
+  its copies outside its lock and a large pop on the copy pool;
 * :func:`copy_pieces` — a gather copy on a persistent pool of host
   threads (``utils/staging.py`` decides when to take it).
 
@@ -63,8 +64,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fp_ring_destroy.argtypes = [ctypes.c_void_p]
     lib.fp_ring_push.argtypes = [ctypes.c_void_p, u8p, i64]
     lib.fp_ring_push.restype = ctypes.c_int
-    lib.fp_ring_pop.argtypes = [ctypes.c_void_p, u8p, i64, i64]
-    lib.fp_ring_pop.restype = ctypes.c_int
+    lib.fp_ring_pop_pooled.argtypes = [ctypes.c_void_p, u8p, i64, i64, i64,
+                                       ctypes.c_int]
+    lib.fp_ring_pop_pooled.restype = ctypes.c_int
     lib.fp_ring_close.argtypes = [ctypes.c_void_p]
     lib.fp_ring_size.argtypes = [ctypes.c_void_p]
     lib.fp_ring_size.restype = i64
@@ -233,6 +235,13 @@ class FrameRing:
     native analogue of the reference's frame VecDeque + streaming-thread
     handoff.  ``push`` blocks when full (backpressure); ``pop`` blocks with a
     timeout; ``close`` lets consumers drain then signals EOS.
+
+    The native ring copies outside its lock, so a push and a pop copy at
+    the same time; a pop of more than ``utils/staging.POOL_ABOVE`` bytes
+    copies on the pool of :func:`copy_pieces` (``CHUNK_BYTES`` chunks,
+    ``pool_threads()`` copiers), a smaller one on the calling thread.
+    ``pops`` counts the frames popped, ``pooled_pops`` those the pool
+    copied.
     """
 
     def __init__(self, slots: int, slot_bytes: int,
@@ -241,7 +250,11 @@ class FrameRing:
         self.slot_bytes = int(slot_bytes)
         self._native = (_lib is not None) if use_native is None else (
             use_native and _lib is not None)
+        self.pops = self.pooled_pops = 0
         if self._native:
+            from ..utils import staging
+            self._staging = staging
+            self._threads = staging.pool_threads()
             self._h = _lib.fp_ring_create(self.slots, self.slot_bytes)
             if not self._h:
                 raise MemoryError("fp_ring_create failed")
@@ -296,8 +309,16 @@ class FrameRing:
             raise TypeError(f"FrameRing carries uint8, got {out.dtype}")
         flat = out.reshape(-1)
         if self._native:
-            return _lib.fp_ring_pop(self._h, _u8p(flat), flat.nbytes,
-                                    timeout_ms)
+            st = self._staging
+            pooled = (self._threads > 1 and min(flat.nbytes, self.slot_bytes)
+                      > st.POOL_ABOVE)
+            rc = _lib.fp_ring_pop_pooled(self._h, _u8p(flat), flat.nbytes,
+                                         timeout_ms, st.CHUNK_BYTES,
+                                         self._threads if pooled else 1)
+            if rc == 0:
+                self.pops += 1
+                self.pooled_pops += pooled
+            return rc
         import time
         deadline = time.monotonic() + timeout_ms / 1000.0
         with self._cv:
@@ -313,6 +334,7 @@ class FrameRing:
             self._head += 1
             self._count -= 1
             self._cv.notify_all()
+        self.pops += 1
         return 0
 
     def close(self) -> None:

@@ -13,6 +13,7 @@
 //     VecDeque frame ring + GStreamer streaming-thread handoff,
 //     dips/src/gpu/mod.rs:53, frame_extractor.rs:206-276): the decode
 //     thread stages planarized frames without per-frame allocation.
+//     Its copies run outside its lock; a large pop copies on the pool.
 //   * fp_copy_pieces — a gather copy of (destination, source, bytes)
 //     pieces cut into chunks, on a persistent pool of host threads: the
 //     engines stage a batch's frames and tail with one call.
@@ -510,6 +511,18 @@ void fp_interleave(const uint8_t* src, int64_t c, int64_t hp, int64_t wp,
 // ---------------------------------------------------------------------------
 // SPSC bounded frame ring with preallocated fixed-size slots.
 // ---------------------------------------------------------------------------
+//
+// The mutex guards the cursors, never a copy: a push takes the tail slot,
+// copies into it unlocked and then publishes it (tail++); a pop takes the
+// head slot, copies out of it unlocked and then releases it (head++).  So
+// the producer's copy and the consumer's run at the same time, and a slot
+// is neither read before it is published nor overwritten before it is
+// released.  A push in flight when the ring closes still publishes its
+// frame, and no pop reports the end before it has.
+
+int fp_copy_pieces(uint8_t* const* dst, const uint8_t* const* src,
+                   const int64_t* nbytes, int64_t n, int64_t chunk,
+                   int threads);
 
 struct FpRing {
     uint8_t* buf = nullptr;
@@ -518,6 +531,7 @@ struct FpRing {
     std::atomic<int64_t> head{0};  // next slot to pop
     std::atomic<int64_t> tail{0};  // next slot to push
     std::atomic<bool> closed{false};
+    bool writing = false;          // under mu: a push copies into its slot
     std::mutex mu;
     std::condition_variable cv_push, cv_pop;
 };
@@ -549,26 +563,39 @@ int fp_ring_push(void* ring, const uint8_t* data, int64_t n) {
     if (r->closed.load()) return -1;
     const int64_t slot = r->tail.load() % r->slots;
     const int64_t m = n < r->slot_bytes ? n : r->slot_bytes;
+    r->writing = true;
+    lk.unlock();
     std::memcpy(r->buf + slot * r->slot_bytes, data, m);
+    lk.lock();
+    r->writing = false;
     r->tail.fetch_add(1);
     r->cv_pop.notify_one();
     return 0;
 }
 
-// Blocking pop with timeout; returns 0 on success, -1 closed+empty,
-// -2 timeout.
-int fp_ring_pop(void* ring, uint8_t* out, int64_t n, int64_t timeout_ms) {
+// Blocking pop with timeout, copied on `threads` copiers of the pool
+// (fp_copy_pieces, `chunk`-byte chunks) when threads > 1, else on the
+// calling thread; returns 0 on success, -1 closed+empty, -2 timeout.
+int fp_ring_pop_pooled(void* ring, uint8_t* out, int64_t n,
+                       int64_t timeout_ms, int64_t chunk, int threads) {
     auto* r = static_cast<FpRing*>(ring);
     std::unique_lock<std::mutex> lk(r->mu);
     const bool ok = r->cv_pop.wait_for(
         lk, std::chrono::milliseconds(timeout_ms), [&] {
-            return r->closed.load() || r->tail.load() > r->head.load();
+            return r->tail.load() > r->head.load() ||
+                   (r->closed.load() && !r->writing);
         });
     if (!ok) return -2;
     if (r->tail.load() == r->head.load()) return -1;  // closed and drained
     const int64_t slot = r->head.load() % r->slots;
     const int64_t m = n < r->slot_bytes ? n : r->slot_bytes;
-    std::memcpy(out, r->buf + slot * r->slot_bytes, m);
+    lk.unlock();
+    const uint8_t* src = r->buf + slot * r->slot_bytes;
+    if (threads > 1)
+        fp_copy_pieces(&out, &src, &m, 1, chunk, threads);
+    else
+        std::memcpy(out, src, m);
+    lk.lock();
     r->head.fetch_add(1);
     r->cv_push.notify_one();
     return 0;

@@ -24,7 +24,11 @@ their stage timers are on, as under ``--profile``), as ``Downloads``
 counts: ``calls``, ``nbytes``, ``pooled`` (the calls the pool copied) and
 ``threads`` (the copiers of the last counted call).  The engines' batch
 I/O layer counts ``batches`` and ``uploads`` (the upload pieces of those
-batches; ``pieces`` a batch) beside them.
+batches; ``pieces`` a batch) beside them, and the run path
+(``app.stream_dips``) ``pops`` and ``pooled_pops``: the frames it popped
+from its decode rings straight into the upload buffer, and those of them
+the pool copied (``native.FrameRing`` pools a pop by the same
+:data:`POOL_ABOVE`).
 """
 
 from __future__ import annotations
@@ -82,9 +86,11 @@ def _addresses(arrays: Sequence[np.ndarray]) -> np.ndarray:
 
 class Staging:
     """One engine's host staging copies, with four counts of those made
-    with ``count``: ``calls``, ``nbytes``, ``pooled`` and ``threads``; and
-    the engine's batches and their upload pieces, ``batches`` and
-    ``uploads``, which the engine counts."""
+    with ``count``: ``calls``, ``nbytes``, ``pooled`` and ``threads``; the
+    engine's batches and their upload pieces, ``batches`` and
+    ``uploads``, which the engine counts; and the run path's ring pops
+    into the upload buffer, ``pops`` and ``pooled_pops``, which it
+    counts."""
 
     def __init__(self) -> None:
         self.batches = 0
@@ -93,6 +99,8 @@ class Staging:
         self.pooled = 0
         self.threads = 1
         self.uploads = 0
+        self.pops = 0
+        self.pooled_pops = 0
 
     @property
     def pooled_share(self) -> Optional[float]:

@@ -55,9 +55,10 @@ def test_post_cell_traced_line():
     assert set(line["metrics"]) <= {"engine.dispatch_ms", "copy.d2h_ms",
                                     "median_ring_roofline",
                                     "device.idle_share", "engine.denoise_ms",
-                                    "denoise_fft_roofline"}
+                                    "denoise_fft_roofline", "run.pop_ms"}
     # the engine's own stage timers are read on any device
     assert "engine.dispatch_ms" in line["metrics"]
+    assert line["metrics"]["run.pop_ms"]["value"] > 0
     assert "engine.denoise_ms" not in line["metrics"]
     assert "denoise_fft_roofline" not in line["metrics"]
 
@@ -134,6 +135,20 @@ def test_readers_leave_the_metrics_out_without_counters():
     got = harness.read_metric("denoise_fft_roofline", run)
     assert got == pytest.approx(100 * 24 * 2160 * 3840 * 96 / 3.35e12
                                 / 500e-6)
+
+
+def test_pop_reader():
+    """``run.pop_ms`` is None without a ``ring_pop`` stage (the parent's
+    run path), else its ms a batch."""
+    from portbench.record import Run
+    cell, cfg = harness.cell_files(POST)
+    run = Run(cell=cell, config=cfg, timers={"totals": {"dispatch": 0.02},
+                                             "counts": {"dispatch": 8}})
+    assert harness.read_metric("run.pop_ms", run) is None
+    run.timers = None
+    assert harness.read_metric("run.pop_ms", run) is None
+    run.timers = {"totals": {"ring_pop": 0.096}, "counts": {"ring_pop": 8}}
+    assert harness.read_metric("run.pop_ms", run) == pytest.approx(12.0)
 
 
 @pytest.mark.parametrize("name,match", [

@@ -135,6 +135,50 @@ def test_stream_matches_jax(clip, mode, layout, workers, depth):
         assert_same_run(got, run(tapp, port_job(clip, mode, layout)))
 
 
+@pytest.mark.parametrize("workers,depth", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("layout", ["hwc", "planar"])
+def test_pooled_ring_pops_match_jax(clip, monkeypatch, layout, workers,
+                                    depth):
+    """With the pool threshold patched below every slot (four copiers,
+    1 KiB chunks) each frame pops through the copy pool: the run equals
+    the unpooled one and JAX's, bit for bit, and every pop is counted as
+    pooled."""
+    from dips_tpu_torch.utils import staging
+    if not native.NATIVE_AVAILABLE:
+        pytest.skip("native framepump unavailable")
+    plain = run(tapp, port_job(clip, "colorize", layout, workers, depth))
+    monkeypatch.setattr(staging, "POOL_ABOVE", -1)
+    monkeypatch.setattr(staging, "CHUNK_BYTES", 1024)
+    monkeypatch.setattr(staging, "pool_threads", lambda: 4)
+    job = port_job(clip, "colorize", layout, workers, depth, profile=True)
+    got = run(tapp, job)
+    assert_same_run(got, plain)
+    assert_same_run(got, jax_run(clip, "colorize", layout),
+                    exact_stats=False)
+    assert job.engine.staging.pops == job.engine.staging.pooled_pops == N
+
+
+def test_ring_pop_stage_in_the_engines_timers(clip):
+    """``ring_pop`` is timed once a batch into the engine's timers as they
+    are when the batch is popped, so timers a caller sets mid-run (as the
+    benchmark does) see it; ``pops`` counts the frames popped while they
+    are set, none of them pooled below the threshold."""
+    job = port_job(clip, "absdiff", "hwc", profile=True)
+    assert len(list(tapp.stream_dips(job))) == N
+    batches = -(-N // BATCH)
+    assert job.timers.counts["ring_pop"] == batches
+    assert job.engine.staging.pops == N
+    assert job.engine.staging.pooled_pops == 0
+    job = port_job(clip, "absdiff", "hwc")
+    gen = tapp.stream_dips(job)
+    for _ in range(BATCH):  # the first batch, popped with no timers
+        next(gen)
+    job.engine.timers = timers = StageTimers()
+    assert len(list(gen)) == N - BATCH
+    assert timers.counts["ring_pop"] == batches - 1
+    assert job.engine.staging.pops == N - BATCH
+
+
 def test_chunks_open_one_reader_each(clip, monkeypatch):
     """decode_workers=3 closes the probe reader and decodes three
     contiguous chunks, each on its own seeked reader with its own timers
@@ -337,8 +381,9 @@ def test_cli_decode_workers_and_depth_match_jax(clip, tmp_path):
             assert a[k] == pytest.approx(b[k], abs=1e-6), k
     np.testing.assert_array_equal(runs["t"][1], runs["j"][1])
     assert len(runs["t"][1]) == N
-    for stage in ("decode1", "decode2", "device"):
+    for stage in ("decode1", "decode2", "device", "ring_pop"):
         assert stage in runs["t"][2]
+    assert f"ring: {N} pops, 0 pooled, ring_pop " in runs["t"][2]
 
 
 @pytest.mark.parametrize("argv,msg", [

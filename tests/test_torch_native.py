@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -206,6 +207,144 @@ def test_ring_concurrent_stress(rings):
         got, codes = _drain(ring, 256, produced)
         assert len(got) == 500 and codes[-1] == -1
         assert all((g == i % 251).all() for i, g in enumerate(got))
+
+
+@pytest.fixture
+def native_ring():
+    if not tnative.NATIVE_AVAILABLE:
+        pytest.skip("native framepump unavailable")
+
+
+def _frames(n, size, seed):
+    """``n`` frames of ``size`` seeded random bytes, each stamped with its
+    index in its first two bytes."""
+    frames = np.random.default_rng(seed).integers(0, 256, (n, size),
+                                                   dtype=np.uint8)
+    frames[:, 0], frames[:, 1] = np.arange(n) % 256, np.arange(n) // 256
+    return frames
+
+
+@pytest.mark.parametrize("slot_bytes,pooled", [(4096, True), (512, False)])
+def test_ring_pooled_pop_stress(native_ring, monkeypatch, slot_bytes,
+                                pooled):
+    """With the pool threshold patched down to 1 KiB (and 256-byte
+    chunks on four copiers), slots above it pop through the pool and
+    slots at or below it on the calling thread, under a racing producer:
+    every frame in order, every byte exact; ``pooled_pops`` counts the
+    large slots' pops only."""
+    from dips_tpu_torch.utils import staging
+    monkeypatch.setattr(staging, "POOL_ABOVE", 1024)
+    monkeypatch.setattr(staging, "CHUNK_BYTES", 256)
+    monkeypatch.setattr(staging, "pool_threads", lambda: 4)
+    frames = _frames(400, slot_bytes, seed=slot_bytes)
+    ring = tnative.FrameRing(3, slot_bytes)
+    got, codes = _drain(ring, slot_bytes, list(frames))
+    assert codes == [0] * len(frames) + [-1]
+    np.testing.assert_array_equal(np.stack(got), frames)
+    assert ring.pops == len(frames)
+    assert ring.pooled_pops == (len(frames) if pooled else 0)
+
+
+def _push_in_flight(ring, frame):
+    """Start a thread that pushes ``frame``; returns (thread, its
+    (start, end, result) once done), after the push has had 2 ms to
+    start its copy."""
+    started, box = threading.Event(), {}
+
+    def producer():
+        started.set()
+        t0 = time.perf_counter()
+        ok = ring.push(frame)
+        box["push"] = (t0, time.perf_counter(), ok)
+
+    th = threading.Thread(target=producer)
+    th.start()
+    assert started.wait(10)
+    time.sleep(0.002)
+    return th, box
+
+
+BIG = 64 << 20  # a push of this many bytes into a fresh slot takes tens
+#                 of ms; a 4 KiB pop takes microseconds
+
+
+def test_ring_pops_while_a_push_copies(native_ring):
+    """A pop of a published frame completes while the producer's copy of
+    the next one is still in flight: the copies run outside the ring's
+    lock.  (A ring that copies under its lock holds the pop until the
+    push's copy ends.)"""
+    for attempt in range(3):  # a descheduled consumer may miss once
+        ring = tnative.FrameRing(2, BIG)
+        ring.push(np.full(BIG, 7, np.uint8))
+        th, box = _push_in_flight(ring, np.full(BIG, 9, np.uint8))
+        out = np.empty(4096, np.uint8)
+        t0 = time.perf_counter()
+        rc = ring.pop(out)
+        t1 = time.perf_counter()
+        th.join(10)
+        assert not th.is_alive()
+        p0, p1, ok = box["push"]
+        assert rc == 0 and ok and (out == 7).all()
+        if t1 < p1 and t1 - t0 < (p1 - p0) / 2:
+            break
+        del ring
+    else:
+        pytest.fail(f"every pop waited for the push's copy: pop "
+                    f"{(t1 - t0) * 1e3:.2f} ms, push {(p1 - p0) * 1e3:.2f}"
+                    " ms")
+
+
+def test_ring_close_while_a_push_copies(native_ring):
+    """``close`` while a push's copy is in flight: the push succeeds, and
+    its frame is drained whole before the end is reported."""
+    ring = tnative.FrameRing(2, BIG)
+    ring.push(np.full(BIG, 7, np.uint8))
+    th, box = _push_in_flight(ring, np.full(BIG, 9, np.uint8))
+    ring.close()
+    head, out = np.empty(4096, np.uint8), np.empty(BIG, np.uint8)
+    codes = [ring.pop(head)]  # quick: the push is still copying
+    assert (head == 7).all()
+    codes.append(ring.pop(out))
+    assert (out == 9).all()
+    codes.append(ring.pop(out, timeout_ms=1000))
+    th.join(10)
+    assert not th.is_alive() and box["push"][2]
+    assert codes == [0, 0, -1]
+
+
+@pytest.mark.parametrize("pool_above", [-1, 1 << 62])
+def test_ring_close_while_a_pop_copies(native_ring, monkeypatch,
+                                       pool_above):
+    """``close`` while a pop's copy is in flight (on the pool and on the
+    calling thread): that pop returns its frame whole, the frame behind
+    it still drains, then -1."""
+    from dips_tpu_torch.utils import staging
+    monkeypatch.setattr(staging, "POOL_ABOVE", pool_above)
+    monkeypatch.setattr(staging, "pool_threads", lambda: 4)
+    ring = tnative.FrameRing(2, BIG)
+    ring.push(np.full(BIG, 7, np.uint8))
+    ring.push(np.full(BIG, 9, np.uint8))
+    started = threading.Event()
+
+    def closer():
+        assert started.wait(10)
+        time.sleep(0.002)
+        ring.close()
+
+    th = threading.Thread(target=closer)
+    th.start()
+    out = np.empty(BIG, np.uint8)  # fresh pages: a slow first copy
+    started.set()
+    codes = [ring.pop(out)]
+    th.join(10)
+    assert not th.is_alive()
+    assert (out == 7).all()
+    codes.append(ring.pop(out))
+    assert (out == 9).all()
+    codes.append(ring.pop(out, timeout_ms=1000))
+    assert codes == [0, 0, -1]
+    assert ring.pops == 2
+    assert ring.pooled_pops == (2 if pool_above < 0 else 0)
 
 
 def _dummy_so(path):

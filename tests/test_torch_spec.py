@@ -83,8 +83,11 @@ def test_serve_near_copy_differs_only_by_its_listed_lines(rel):
     reply's stall deadline, the daemon's error exit, the GUI's card check,
     the port's command and logger names, the framepump build under a
     directory lock, the framepump's gather copier on a pool of host
-    threads (``fp_copy_pieces``, ``copy_pieces``), and their comments.  A change on either side that the list
-    does not hold fails here; a deliberate one rewrites the list."""
+    threads (``fp_copy_pieces``, ``copy_pieces``), the frame ring's
+    copies outside its lock and its pooled pop (``fp_ring_pop_pooled``,
+    ``pops``, ``pooled_pops``), and their comments.  A change on either
+    side that the list does not hold fails here; a deliberate one
+    rewrites the list."""
     orig = (ROOT / "dips_tpu" / rel).read_text().splitlines(keepends=True)
     port = (ROOT / "dips_tpu_torch" / rel).read_text().splitlines(
         keepends=True)
